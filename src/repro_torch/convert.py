@@ -1,0 +1,38 @@
+"""Carry the reference's parameters into the port.
+
+``params_from_numpy(tree, device)`` takes the JAX params tree with every
+leaf as numpy — each PackedArray given as ``{"words": uint32 ndarray,
+"length": int, "axis": int}`` (optionally ``"values"``) — and returns
+the port's tree: PackedArrays of int32 words with the same bit
+pattern, and tensors for every other array, on ``device``.  The caller
+does the unwrapping; the port never sees a JAX object.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.packed import PM1, PackedArray, from_uint32
+
+__all__ = ["params_from_numpy"]
+
+_PACKED_KEYS = {"words", "length", "axis"}
+
+
+def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
+    """Convert a numpy params tree (dicts, lists, tuples, arrays) into
+    the port's tree on ``device``."""
+    if isinstance(tree, dict):
+        if _PACKED_KEYS <= set(tree):
+            return PackedArray(from_uint32(tree["words"], device),
+                               length=int(tree["length"]),
+                               axis=int(tree["axis"]),
+                               values=tree.get("values", PM1))
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return torch.tensor(tree, device=device)
+    raise TypeError(f"unexpected params leaf {type(tree).__name__}")

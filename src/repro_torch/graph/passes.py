@@ -1,0 +1,202 @@
+"""The compile passes: BNNSpec -> executable plan.
+
+The counterpart of ``repro.graph.passes``.  ``build_plan`` runs the
+lowering pipeline over a validated spec and returns a tuple of
+:class:`PlanStep`:
+
+  (2) threshold folding  — every BNThreshold is fused into its
+      producer's threshold->pack epilogue (gamma<0 row negation happens
+      at param-bind time through core.bnn_layers.fold_*);
+  (3) dense-run segmentation — contiguous thresholded BinaryDense runs
+      are greedily packed into fused_mlp launches under the Hopper
+      shared-memory rule (kernels.fused_mlp.stack_plan), falling back to
+      chained per-layer launches;
+  (4) conv impl selection — kernels.ops.plan_conv_launch, shared with
+      dispatch.
+
+Every step carries a human-readable ``detail`` string, shown by
+``CompiledBNN.describe()``.  The plan is computed for a ``batch`` row
+hint; the fused-stack fit is re-checked at run time with the actual
+rows, and both outcomes are bit-identical.  ``PlanStep.keys`` stays
+empty until the tuning table is ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
+                                  BNNSpec, BNThreshold, IntegerEntry,
+                                  Logits, MaxPool)
+from repro_torch.kernels.fused_mlp import stack_plan
+from repro_torch.kernels.ops import plan_conv_launch
+
+__all__ = ["PlanStep", "build_plan"]
+
+
+@dataclass(frozen=True)
+class PlanStep:
+    """One executable step + the lowering decision that produced it.
+
+    kind: integer_conv | float_pool | binarize | binary_conv |
+          packed_pool | flatten | fused_stack | dense | logits
+    args: static operands for the executor (param indices, geometry,
+          impl choices);  keys: tuning keys (none yet in the port).
+    """
+    kind: str
+    name: str
+    args: dict = field(default_factory=dict)
+    detail: str = ""
+    keys: Tuple[tuple, ...] = ()
+
+    def __str__(self) -> str:
+        return f"{self.kind:<13s} {self.name:<18s} {self.detail}"
+
+
+def _fmt_kb(b: int) -> str:
+    return f"{b / 1024:.1f}KB"
+
+
+def _segment_dense_run(run, k0: int, batch: int):
+    """Pass 3: greedily grow fused segments over a contiguous run of
+    thresholded dense layers; each segment must fit one launch under
+    the Hopper rule (two shared-memory activation buffers of bm rows
+    beside one streamed weight tile, at most 8 layers)."""
+    steps = []
+    i = 0
+    while i < len(run):
+        ns, j = [], i
+        sp = None
+        while j < len(run):
+            cand = ns + [run[j][1].n_out]
+            trial = stack_plan(batch, k0, cand)
+            if not trial["fits"]:
+                break
+            ns, sp, j = cand, trial, j + 1
+        if j - i <= 1:
+            fc_idx, nd, _ = run[i]
+            why = ("layer alone exceeds one launch's shared memory"
+                   if j == i else "segment of one")
+            steps.append(PlanStep(
+                "dense", nd.name,
+                {"fc_idx": fc_idx, "thresholded": True, "pack_out": True},
+                f"{nd.n_in}->{nd.n_out} popcount_gemm launch ({why}; "
+                f"threshold->pack fused)"))
+            k0 = nd.n_out
+            i += 1
+        else:
+            idxs = tuple(fc for fc, _, _ in run[i:j])
+            names = " -> ".join(str(nd.n_out) for _, nd, _ in run[i:j])
+            steps.append(PlanStep(
+                "fused_stack", run[i][1].name, {"fc_indices": idxs},
+                f"fused_mlp over {j - i} layers ({k0}->{names}), "
+                f"activations of bm={sp['bm']} rows in two shared-memory "
+                f"buffers, weights streamed from L2 "
+                f"({_fmt_kb(sp['smem_bytes'])} shared memory per block), "
+                f"1 launch vs {j - i} chained"))
+            k0 = run[j - 1][1].n_out
+            i = j
+    return steps
+
+
+def build_plan(spec: BNNSpec, backend: Optional[str] = None,
+               batch: int = 1,
+               conv_impl: str = "auto") -> Tuple[PlanStep, ...]:
+    """Run passes 2-4 over a validated spec (see module docstring)."""
+    if conv_impl not in ("auto", "direct", "im2col"):
+        raise ValueError(f"conv_impl must be 'auto', 'direct', or "
+                         f"'im2col', got {conv_impl!r}")
+    steps = []
+    conv_i = fc_i = 0
+    domain = "float" if len(spec.input_shape) == 3 else "packed_flat"
+    h, w = (spec.input_shape[:2] if domain == "float" else (0, 0))
+    nodes = spec.nodes
+    i = 0
+    while i < len(nodes):
+        nd = nodes[i]
+        if isinstance(nd, IntegerEntry):
+            steps.append(PlanStep(
+                "integer_conv", nd.name,
+                {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad},
+                f"float NHWC conv {nd.c_in}->{nd.c_out} k{nd.kh} "
+                f"s{nd.stride} p{nd.pad}, alpha*sign(w) (cuDNN, full "
+                f"float32, real zero padding)"))
+            conv_i += 1
+            h, w = nd.h_out, nd.w_out
+        elif isinstance(nd, Binarize):
+            steps.append(PlanStep(
+                "binarize", nd.name, {"flatten": nd.flatten},
+                "flatten + sign+pack to 1 bit/value" if nd.flatten else
+                "sign+pack NHWC channels to 1 bit/value"))
+            domain = "packed_flat" if nd.flatten else "packed_conv"
+        elif isinstance(nd, BinaryConv):
+            d = plan_conv_launch(
+                h, w, nd.c_in, nd.c_out, nd.kh, nd.kw, stride=nd.stride,
+                padding=nd.pad, backend=backend, pack_out=True,
+                impl=conv_impl, nb=batch)
+            thr = nodes[i + 1]         # BNThreshold, by validation
+            why = "forced" if conv_impl != "auto" else \
+                "8 pixels x 32 filters per warp, no resident image"
+            steps.append(PlanStep(
+                "binary_conv", nd.name,
+                {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad,
+                 "impl": d["impl"]},
+                f"packed conv {nd.c_in}->{nd.c_out} k{nd.kh} "
+                f"s{nd.stride} p{nd.pad}, impl={d['impl']} ({why}); "
+                f"{thr.name} folded into the threshold->pack epilogue"))
+            conv_i += 1
+            h, w = nd.h_out, nd.w_out
+            i += 1                     # consume the fused BNThreshold
+        elif isinstance(nd, MaxPool):
+            if domain == "packed_conv":
+                steps.append(PlanStep(
+                    "packed_pool", nd.name,
+                    {"window": nd.window, "stride": nd.stride},
+                    f"max {nd.window}x{nd.window}/s{nd.stride} as "
+                    f"bitwise OR on packed words (sign is monotonic)"))
+            else:
+                steps.append(PlanStep(
+                    "float_pool", nd.name,
+                    {"window": nd.window, "stride": nd.stride},
+                    f"float max-pool {nd.window}x{nd.window}"
+                    f"/s{nd.stride}"))
+            h = (h - nd.window) // nd.stride + 1
+            w = (w - nd.window) // nd.stride + 1
+        elif isinstance(nd, BinaryDense):
+            if domain == "packed_conv":
+                steps.append(PlanStep(
+                    "flatten", f"flatten@{nd.name}", {"n_in": nd.n_in},
+                    f"word-level reshape [N,H,W,C/32] -> [N, "
+                    f"{nd.n_in}/32] (no unpacking; C%32==0 required)"))
+                domain = "packed_flat"
+            # gather the maximal contiguous thresholded dense run
+            run, k0 = [], nd.n_in
+            while i < len(nodes) and isinstance(nodes[i], BinaryDense) \
+                    and i + 1 < len(nodes) \
+                    and isinstance(nodes[i + 1], BNThreshold):
+                run.append((fc_i, nodes[i], nodes[i + 1]))
+                fc_i += 1
+                i += 2                 # skip the fused BNThreshold
+            if run:
+                steps.extend(_segment_dense_run(run, k0, batch))
+            if i < len(nodes) and isinstance(nodes[i], BinaryDense):
+                tail = nodes[i]        # un-thresholded (Logits) tail
+                steps.append(PlanStep(
+                    "dense", tail.name,
+                    {"fc_idx": fc_i, "thresholded": False,
+                     "pack_out": False},
+                    f"{tail.n_in}->{tail.n_out} popcount_gemm int32 dot "
+                    f"(no threshold: classifier head)"))
+                fc_i += 1
+                i += 1
+            continue                   # i already advanced past the run
+        elif isinstance(nd, BNThreshold):
+            raise AssertionError(f"{nd.name}: BNThreshold not consumed "
+                                 f"by its producer (validate() should "
+                                 f"have caught this)")
+        elif isinstance(nd, Logits):
+            steps.append(PlanStep(
+                "logits", nd.name, {},
+                f"int32 dot -> float32 logits [{nd.classes}]"))
+        i += 1
+    return tuple(steps)

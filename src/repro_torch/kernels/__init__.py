@@ -1,0 +1,29 @@
+"""Hand-written Hopper kernels for the binarized hot path, with their
+plain torch versions.
+
+  packed.py         PackedArray (the canonical 1-bit layout, int32
+                    words) + the backend registry ("cuda" | "torch")
+  ref.py            plain torch oracles (the exactness targets)
+  pack.py           sign + bit-pack activations      (csrc/pack.cu)
+  popcount_gemm.py  both operands packed, XNOR-popcount GEMM with the
+                    threshold->pack epilogue        (csrc/popcount_gemm.cu)
+  packed_conv.py    im2col-free binary conv2d on channel-packed NHWC
+                    words (+ word-level im2col)     (csrc/packed_conv.cu)
+  fused_mlp.py      a thresholded binary-MLP stack in one launch,
+                    activations kept in shared memory (csrc/fused_mlp.cu)
+  ops.py            public wrappers, dispatch through the registry
+  _build.py         nvcc build, ctypes binding and launch counts
+  csrc/binary.cuh   device helpers: XNOR popcount, closed form, ballot pack
+
+No module builds or loads a kernel when it is imported: the libraries
+are compiled on first launch.
+"""
+from repro_torch.kernels.fused_mlp import fused_binary_mlp
+from repro_torch.kernels.ops import (binarize_pack, binary_binary_dense,
+                                     binary_conv2d)
+from repro_torch.kernels.packed import (BackendSpec, PackedArray,
+                                        get_backend, register_backend)
+
+__all__ = ["BackendSpec", "PackedArray", "binarize_pack",
+           "binary_binary_dense", "binary_conv2d", "fused_binary_mlp",
+           "get_backend", "register_backend"]

@@ -1,0 +1,174 @@
+"""Build, load and count the hand-written Hopper kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>.<hash>.so csrc/<name>.cu
+
+into ``kernels/_build/`` (listed in ``.gitignore``), one ``nvcc`` per
+source, all started together.  The file name carries a hash of the
+sources and flags, so an edited kernel is rebuilt and a stale library is
+never loaded.  The libraries export a plain C interface, loaded with
+``ctypes``: no PyTorch headers, so a build takes seconds.
+
+Every C entry point launches on the stream it is given and returns the
+CUDA error code of the launch; :meth:`Kernel.launch` raises on anything
+but 0 and otherwise adds one to the kernel's launch count — the count
+that shows a run really went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "host with the CUDA toolkit")
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{source}.{h.hexdigest()[:12]}.so"
+
+
+def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source started
+    together; returns ``{source: compiler output}`` (the ``-Xptxas -v``
+    register and shared-memory report).  Raises with the compiler's
+    output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in sources:
+        out = _lib_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{src}.cu")]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    failed = []
+    for src, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        _build_log[src] = log
+        if p.returncode != 0:
+            failed.append(f"--- {src}.cu (nvcc rc {p.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)           # atomic: a reader never sees half
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return dict(_build_log)
+
+
+def _load(source: str) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is None:
+        path = _lib_path(source)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _libs[source] = lib
+    return lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer for ctypes (None stays NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+class Kernel:
+    """One C entry point of one kernel library, with its launch count.
+
+    ``argtypes`` lists the ctypes of the arguments before the trailing
+    stream argument, which :meth:`launch` appends."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def _bind(self):
+        if self._fn is None:
+            lib = _load(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = (lib, fn)
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raise on a CUDA error
+        (a refused launch never runs, and a later synchronize would not
+        report it)."""
+        lib, fn = self._bind()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, stream)
+        if err != 0:
+            msg = lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+PACK = Kernel("pack", "pack", "pack_launch", [P, P, I, I, I])
+POPCOUNT_GEMM = Kernel("popcount_gemm", "popcount_gemm",
+                       "popcount_gemm_launch",
+                       [P, P, P, P, I, I, I, I, I, I, I, I])
+PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
+                     [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                      I, I])
+FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
+                   [P, P, I, I, I, P, P, P, P, P, P, I, I])
+
+KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def require_cuda_tensor(t: torch.Tensor, what: str) -> None:
+    """The wrappers take the plain version only for a CPU tensor; any
+    other device that is not CUDA is refused."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
+                         f"device {t.device}")

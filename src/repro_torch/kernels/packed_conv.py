@@ -1,0 +1,133 @@
+"""Binary conv2d on channel-packed NHWC words.
+
+The counterpart of ``repro.kernels.packed_conv``; the direct kernel is
+``csrc/packed_conv.cu``.  Layout (as in the reference): activations are
+``[N, H, W, C32]`` words, spatial "same" padding is **-1 padding** (all
+zero words), filters are ``[KH*KW*C32, F]`` words in tap-major order,
+and the closed form ``dot = 2*(pc - (K_p - K)) - K`` with
+``K = KH*KW*C`` cancels the per-tap channel pad bits.
+
+``im2col_words`` is the fallback: a word-granularity patch matrix that
+drops into ``popcount_gemm``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.packed import WORD, popcount_u32
+from repro_torch.kernels.popcount_gemm import (apply_threshold_plain,
+                                               check_threshold_args,
+                                               threshold_mode)
+
+__all__ = ["im2col_words", "out_size", "packed_conv2d",
+           "packed_conv2d_plain", "pad_words_spatial"]
+
+
+def out_size(n: int, k: int, stride: int, pad: int) -> int:
+    """Output extent of a VALID conv over the padded extent."""
+    return (n + 2 * pad - k) // stride + 1
+
+
+def pad_words_spatial(xw: torch.Tensor, pad_h: int, pad_w: int
+                      ) -> torch.Tensor:
+    """Zero-word spatial padding of [N, H, W, C32] — a zero word decodes
+    to 32 pixels of -1, the exactly-representable pm1 border."""
+    if pad_h == 0 and pad_w == 0:
+        return xw
+    return F.pad(xw, (0, 0, pad_w, pad_w, pad_h, pad_h))
+
+
+def _window(xw: torch.Tensor, i: int, j: int, stride: int, ho: int,
+            wo: int) -> torch.Tensor:
+    """The (i, j) tap's words for every output pixel -> [N, HO, WO, C32]."""
+    return xw[:, i:i + (ho - 1) * stride + 1:stride,
+              j:j + (wo - 1) * stride + 1:stride, :]
+
+
+def im2col_words(xw: torch.Tensor, kh: int, kw: int, stride: int,
+                 ho: int, wo: int) -> torch.Tensor:
+    """Word-granularity im2col: [N, H_pad, W_pad, C32] -> patch matrix
+    [N*HO*WO, KH*KW*C32] in the filters' tap-major word order."""
+    cols = [_window(xw, i, j, stride, ho, wo)
+            for i in range(kh) for j in range(kw)]
+    patches = torch.stack(cols, dim=-2)       # [N, HO, WO, KH*KW, C32]
+    return patches.reshape(xw.shape[0] * ho * wo, kh * kw * xw.shape[-1])
+
+
+def packed_conv2d_plain(xw: torch.Tensor, ww: torch.Tensor, *, kh: int,
+                        kw: int, c: int, stride: int, ho: int, wo: int,
+                        threshold: Optional[int] = None,
+                        threshold_vec: Optional[torch.Tensor] = None,
+                        pack_out: bool = False,
+                        valid_f: Optional[int] = None) -> torch.Tensor:
+    """The plain torch version: one [N*HO*WO, F] XNOR plane per (tap,
+    word), the closed form, then the epilogue."""
+    n, _, _, c32 = xw.shape
+    f = ww.shape[1]
+    pc = torch.zeros(n * ho * wo, f, dtype=WORD, device=xw.device)
+    for i in range(kh):
+        for j in range(kw):
+            xm = _window(xw, i, j, stride, ho, wo).reshape(-1, c32)
+            base = (i * kw + j) * c32
+            for t in range(c32):
+                pc += popcount_u32(~(xm[:, t, None] ^ ww[None, base + t]))
+    k = kh * kw * c
+    dot = 2 * (pc - (32 * kh * kw * c32 - k)) - k
+    y = apply_threshold_plain(dot, threshold, threshold_vec, pack_out,
+                              f if valid_f is None else valid_f)
+    return y.reshape(n, ho * wo, -1)
+
+
+def packed_conv2d(xw: torch.Tensor, ww: torch.Tensor, *, kh: int, kw: int,
+                  c: int, stride: int, ho: int, wo: int,
+                  threshold: Optional[int] = None,
+                  threshold_vec: Optional[torch.Tensor] = None,
+                  pack_out: bool = False,
+                  valid_f: Optional[int] = None) -> torch.Tensor:
+    """Direct (im2col-free) binary conv2d on packed words.
+
+    xw: int32 words [N, H_pad, W_pad, C32], spatial padding applied as
+    zero words; ww: int32 words [KH*KW*C32, F], tap-major; c: logical
+    channel count; ho, wo: the output extent.  Returns int32
+    [N, HO*WO, F] (the dot, or +-1 with a threshold), or with
+    ``pack_out`` int32 words [N, HO*WO, ceil(F/32)].  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    if xw.ndim != 4 or ww.ndim != 2:
+        raise ValueError(f"packed_conv2d takes [N, H, W, C32] x "
+                         f"[KH*KW*C32, F], got {tuple(xw.shape)} x "
+                         f"{tuple(ww.shape)}")
+    n, h_pad, w_pad, c32 = xw.shape
+    taps_words, f = ww.shape
+    if taps_words != kh * kw * c32:
+        raise ValueError(f"filter has {taps_words} words per output "
+                         f"channel, expected KH*KW*C32 = {kh * kw * c32}")
+    if not 0 < c <= 32 * c32:
+        raise ValueError(f"c={c} outside (0, {32 * c32}]")
+    if (ho - 1) * stride + kh > h_pad or (wo - 1) * stride + kw > w_pad \
+            or ho < 1 or wo < 1:
+        raise ValueError(f"output {ho}x{wo} does not fit a {h_pad}x{w_pad} "
+                         f"input with a {kh}x{kw} stride-{stride} window")
+    valid_f = f if valid_f is None else valid_f
+    check_threshold_args(threshold, threshold_vec, f, pack_out, xw.device)
+    args = dict(kh=kh, kw=kw, c=c, stride=stride, ho=ho, wo=wo,
+                threshold=threshold, threshold_vec=threshold_vec,
+                pack_out=pack_out, valid_f=valid_f)
+    if xw.device.type == "cpu":
+        return packed_conv2d_plain(xw, ww, **args)
+    _build.require_cuda_tensor(xw, "packed_conv2d")
+    for t, name in ((xw, "xw"), (ww, "ww")):
+        if t.dtype != WORD or not t.is_contiguous() or t.device != xw.device:
+            raise ValueError(f"packed_conv2d: {name} must be contiguous "
+                             f"int32 words on {xw.device}")
+    shape = (n, ho * wo, (f + 31) // 32 if pack_out else f)
+    out = torch.empty(shape, dtype=WORD, device=xw.device)
+    _build.PACKED_CONV.launch(
+        xw.device, _build.ptr(xw), _build.ptr(ww), _build.ptr(threshold_vec),
+        _build.ptr(out), n, h_pad, w_pad, c32, kh, kw, stride, ho, wo, f,
+        kh * kw * c, threshold_mode(threshold, threshold_vec),
+        0 if threshold is None else int(threshold), int(pack_out), valid_f)
+    return out

@@ -1,0 +1,95 @@
+"""Where the time of a BinaryNet forward goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.trace [--batches 1 256]
+
+Runs full-width BinaryNet CIFAR-10 (random weights from a seeded
+generator, integer images) through ``graph.compile(...).apply`` under
+``torch.profiler`` and prints, per batch, the device time of each kernel
+group per forward, the wall time per forward under the profiler, and
+the device's busy share (device kernel time over wall time; the
+profiler's own overhead inflates the wall time, so the share is a lower
+bound).  Needs a CUDA device; the results also go to
+``chiprun_out/trace.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import graph
+from repro_torch.core.workloads import binarynet_cifar10
+
+# kernel-name fragment -> group (the port's four kernels by symbol)
+GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
+          ("fused_mlp_kernel", "fused_binary_mlp"),
+          ("popcount_gemm_kernel", "popcount_gemm"))
+
+
+def _group(name: str) -> str:
+    for frag, group in GROUPS:
+        if frag in name:
+            return group
+    return "other: " + name[:60]
+
+
+def trace_forward(batch: int, iters: int = 5) -> Dict:
+    cb = graph.compile(binarynet_cifar10(), batch=batch)
+    params = cb.init(torch.Generator().manual_seed(0))
+    x = torch.randint(-3, 4, (batch, 32, 32, 3),
+                      generator=torch.Generator().manual_seed(batch)
+                      ).to(torch.float32).to("cuda")
+    for _ in range(2):
+        cb.apply(params, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            cb.apply(params, x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + us / iters
+    device_us = sum(groups.values())
+    return {"batch": batch, "wall_us_per_forward": wall_us / iters,
+            "device_us_per_forward": device_us,
+            "busy_share": device_us / (wall_us / iters),
+            "device_us_by_group": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1]))}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batches", type=int, nargs="+", default=[1, 256])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("trace needs a CUDA device")
+    smi = torch.cuda.get_device_name(0)
+    out = []
+    for b in args.batches:
+        r = trace_forward(b)
+        out.append(r)
+        print(f"{smi} B={b}: wall {r['wall_us_per_forward']:.1f} us/forward "
+              f"under the profiler, device {r['device_us_per_forward']:.1f}"
+              f" us, busy share {r['busy_share']:.3f}")
+        for g, us in r["device_us_by_group"].items():
+            print(f"  {us:10.1f} us  {g}")
+    path = Path("chiprun_out")
+    path.mkdir(exist_ok=True)
+    (path / "trace.json").write_text(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()

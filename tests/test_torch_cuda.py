@@ -1,0 +1,124 @@
+"""The Hopper kernels on the card: each against its plain version, bit
+for bit, and the BinaryNet forward's launch counts.
+
+Every test here is marked ``gpu`` and skips, inside the ``cuda``
+fixture, on a host without a CUDA device (the decision is never taken
+at import or collection time, so every worker collects the same tests).
+Run them on a GPU host with
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the suite runs several workers on one host: one torch thread each
+torch.set_num_threads(1)
+
+from repro_torch import graph  # noqa: E402
+from repro_torch.core.workloads import binarynet_cifar10  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.fused_mlp import (fused_mlp_words,  # noqa: E402
+                                           fused_mlp_words_plain)
+from repro_torch.kernels.pack import pack, pack_plain  # noqa: E402
+from repro_torch.kernels.packed import pack_words  # noqa: E402
+from repro_torch.kernels.packed_conv import (packed_conv2d,  # noqa: E402
+                                             packed_conv2d_plain,
+                                             pad_words_spatial)
+from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
+                                               popcount_gemm_plain)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pm1(rng, *shape, device):
+    x = rng.choice([-1.0, 1.0], size=shape).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _words(rng, m, k, device):
+    return pack_words(_pm1(rng, m, k, device=device), -1).contiguous()
+
+
+@pytest.mark.parametrize("m,k", [(37, 100), (1024, 128), (3, 32)])
+def test_pack_kernel(cuda, m, k):
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (m, k)).astype(np.float32)).to(cuda)
+    x[0, :4] = torch.tensor([float("nan"), -0.0, 0.0, 1.0])
+    assert torch.equal(pack(x), pack_plain(x))
+
+
+@pytest.mark.parametrize("m,k,n,thr,pack_out", [
+    (37, 50, 20, "scalar", True), (5, 97, 33, "vector", True),
+    (64, 128, 96, "vector", False), (3, 33, 65, None, False),
+    (300, 2000, 70, "scalar", False), (256, 1024, 10, None, False)])
+def test_popcount_gemm_kernel(cuda, m, k, n, thr, pack_out):
+    rng = np.random.default_rng(m + k + n)
+    xp, wp = _words(rng, m, k, cuda), _words(rng, n, k, cuda)
+    kw = dict(threshold=2 if thr == "scalar" else None,
+              threshold_vec=torch.from_numpy(rng.integers(
+                  -5, 5, n).astype(np.int32)).to(cuda)
+              if thr == "vector" else None, pack_out=pack_out)
+    assert torch.equal(popcount_gemm(xp, wp, k, **kw),
+                       popcount_gemm_plain(xp, wp, k, **kw))
+
+
+@pytest.mark.parametrize("nb,h,c,f,k,s,pad,thr,pack_out", [
+    (2, 8, 33, 20, 3, 1, 1, None, False),
+    (1, 9, 64, 32, 3, 2, 1, "scalar", True),
+    (1, 7, 16, 10, 5, 1, 0, "vector", False),
+    (2, 6, 50, 33, 3, 1, 1, "vector", True),
+    (4, 32, 128, 128, 3, 1, 1, "vector", True)])
+def test_packed_conv2d_kernel(cuda, nb, h, c, f, k, s, pad, thr, pack_out):
+    rng = np.random.default_rng(nb + h + c + f)
+    x = _pm1(rng, nb, h, h, c, device=cuda)
+    w = _pm1(rng, k, k, c, f, device=cuda)
+    xw = pad_words_spatial(pack_words(x, -1), pad, pad).contiguous()
+    ww = pack_words(w, 2).reshape(k * k * xw.shape[-1], f).contiguous()
+    ho = (h + 2 * pad - k) // s + 1
+    kw = dict(kh=k, kw=k, c=c, stride=s, ho=ho, wo=ho, pack_out=pack_out,
+              threshold=2 if thr == "scalar" else None,
+              threshold_vec=torch.from_numpy(rng.integers(
+                  -4, 4, f).astype(np.int32)).to(cuda)
+              if thr == "vector" else None)
+    assert torch.equal(packed_conv2d(xw, ww, **kw),
+                       packed_conv2d_plain(xw, ww, **kw))
+
+
+@pytest.mark.parametrize("m,k0,ns", [(37, 50, [20, 33]), (301, 97, [300, 65]),
+                                     (256, 8192, [1024, 1024])])
+def test_fused_mlp_kernel(cuda, m, k0, ns):
+    rng = np.random.default_rng(m + k0)
+    x = _words(rng, m, k0, cuda)
+    ws, ks, ts, k = [], [], [], k0
+    for i, n in enumerate(ns):
+        ws.append(_words(rng, n, k, cuda))
+        ks.append(k)
+        ts.append(1 if i % 2 else torch.from_numpy(
+            rng.integers(-3, 4, n).astype(np.int32)).to(cuda))
+        k = n
+    assert torch.equal(fused_mlp_words(x, ws, ks, ts),
+                       fused_mlp_words_plain(x, ws, ks, ts))
+
+
+def test_binarynet_launch_counts_and_logits(cuda):
+    cb = graph.compile(binarynet_cifar10())
+    params = cb.init(torch.Generator().manual_seed(0))
+    x = torch.randint(-3, 4, (4, 32, 32, 3),
+                      generator=torch.Generator().manual_seed(1)
+                      ).float().to(cuda)
+    _build.reset_launch_counts()
+    logits = cb.apply(params, x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"pack": 1, "packed_conv2d": 5,
+                                      "fused_binary_mlp": 1,
+                                      "popcount_gemm": 1}
+    ref = graph.compile(binarynet_cifar10(), backend="torch").apply(params, x)
+    assert torch.equal(logits, ref)
