@@ -4,29 +4,47 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi``), torch and CUDA versions, and builds
-   the four Hopper kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc (timed);
+   the five Hopper kernels from ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process per source, all started together (timed);
 2. holds each kernel — pack, packed_conv2d, fused_binary_mlp,
-   popcount_gemm — against its plain torch version on the card, bit for
-   bit, at the BinaryNet main path's shapes (batch 256) and at edge
-   shapes (odd N and F, valid_n masking, scalar and per-channel
-   thresholds, pack_out on and off, stride 2, valid padding), and times
-   kernel, plain version and, where one exists, the single PyTorch call
-   that computes the same function (``library_ms``, never used by the
-   port) with CUDA events;
+   popcount_gemm, xnor_gemm — against its plain torch version on the
+   card at the main paths' shapes and at edge shapes (odd N and F,
+   valid_n masking, scalar and per-channel thresholds, pack_out on and
+   off, stride 2, valid padding, ragged K, float32 and bf16), and times
+   the kernel (its device time per launch, from torch.profiler), the
+   plain version and, where one exists, the single PyTorch call that
+   computes the same function (``library_ms``, never used by the port;
+   both with CUDA events).  The binary kernels and every xnor_gemm
+   output with exact sums (integer x, alpha a power of two) must be bit
+   for bit equal; xnor_gemm's float outputs on normal x within
+   1e-5 * max|y| (float32) or that plus one bf16 ulp (bf16);
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
    random weights from a seeded generator: the ``"cuda"`` logits must
    equal the ``"torch"`` backend's on the card exactly (and, at batch 1,
    the CPU's), and each forward must launch exactly 1 pack, 5
-   packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm; prints
-   images/s and peak device memory.
+   packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm;
+4. runs full-width XNOR-AlexNet the same way at batches 1, 32 and 256:
+   6 launches per forward (1 pack, 3 packed_conv2d, fc6+fc7 in one
+   fused_binary_mlp, 1 popcount_gemm), ``"cuda"`` logits equal to the
+   ``"torch"`` backend's on the card; against the CPU it is split at
+   ``binarize@conv3``: the float entry layers (cuDNN, TF32 off) within
+   1e-5 * max|h|, then the CPU's float activations through the card's
+   binary tail, exact;
+5. drives ``binary_dense`` (the float->binary boundary layer, on
+   xnor_gemm) at the decode GEMMs of the repo's LLM configs — (M, K, N)
+   = (128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192) — in bf16
+   and float32 through the public entry point, one launch each.
 
-Any failure raises and exits non-zero; no phase catches its own
-failure.  The last line is the device summary JSON; the line before it
-the card's name and power limit; before that the ``kernels`` JSON.
-Results also go to ``chiprun_out/chip_smoke.json``.
+Steps 3-4 print images/s, ms per forward and peak device memory, step
+5 ms per call; the launch counts of the ``kernels`` line are those of steps 3-5, each
+counted from 0 just before it runs.  Any failure raises and exits
+non-zero; no phase catches its own failure.  The last line is the
+device summary JSON; the line before it the card's name and power
+limit; before that the ``kernels`` JSON.  Results also go to
+``chip_smoke.json`` in the output directory (see ``main``).
 """
+import itertools
 import json
 import subprocess
 import sys
@@ -38,8 +56,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MEM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 INT8_OPS = 1979e12         # H100 SXM int8 tensor-core peak, dense ops/s
+BF16_OPS = 989e12          # H100 SXM bf16 tensor-core peak, dense FLOP/s
 FP32_OPS = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH = 256                # the batch kernel shapes are taken at
+BATCHES = (1, 32, 256)     # the batches the forwards run at
+DEVICE = "cuda"
 
 
 def bound(nbytes, ops, rate):
@@ -47,6 +68,20 @@ def bound(nbytes, ops, rate):
     rate and operations over the peak rate for their type."""
     t_b, t_o = nbytes / MEM_BPS * 1e3, ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def n_weight_copies(k, n):
+    """Copies of a [K/32, N] word matrix that together exceed the 50 MB
+    L2 (at most 16)."""
+    return max(1, min(16, -(-(64 << 20) // (4 * k * n // 32))))
+
+
+def rotating(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` each time: weights
+    spread over more than the 50 MB L2 are read cold from device
+    memory, as a decode step reads each layer's weights."""
+    it = itertools.cycle(copies)
+    return lambda: fn(next(it))
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -61,6 +96,32 @@ def time_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, symbol, iters=20):
+    """Device time of one launch of the kernel whose symbol contains
+    ``symbol``, from torch.profiler over ``iters`` calls of ``fn``.  (A
+    back-to-back CUDA-event timing of a kernel shorter than the host's
+    launch path through the wrapper measures the host.)"""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                symbol in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of "
+                             f"{symbol}")
+    return us / iters / 1e3
 
 
 def max_abs_err(a, b):
@@ -95,6 +156,20 @@ class Rand:
         return torch.randint(lo, hi, shape, generator=self.g,
                              device=self.device, dtype=torch.int32)
 
+    def words(self, *shape):
+        """Random int32 words (every bit pattern but 0x7fffffff)."""
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=self.g,
+                             device=self.device, dtype=torch.int64
+                             ).to(torch.int32)
+
+
+def expect_launches(what, counts, per_call):
+    """Every kernel launched exactly as often as ``per_call`` says (the
+    kernels it does not name: never)."""
+    want = {k: per_call.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
 
 # ------------------------------------------------------------------ #
 # kernel phases                                                        #
@@ -111,7 +186,8 @@ def check_pack(rnd, rec):
     rec.append(dict(name="pack", route="cuda",
                     source="src/repro_torch/kernels/csrc/pack.cu",
                     replaces="src/repro/kernels/pack.py:40",
-                    max_abs_err=err, ms=time_ms(lambda: pack(x), 20),
+                    max_abs_err=err,
+                    ms=kernel_ms(lambda: pack(x), "pack_kernel"),
                     plain_ms=time_ms(lambda: pack_plain(x), 3),
                     bound_ms=b, bound_by=by, library_ms=None))
 
@@ -166,7 +242,8 @@ def check_conv(rnd, rec):
         err = max(err, check_equal(f"packed_conv2d {name}",
                                    packed_conv2d(xw, ww, **kw),
                                    packed_conv2d_plain(xw, ww, **kw)))
-        ms = time_ms(lambda: packed_conv2d(xw, ww, **kw))
+        ms = kernel_ms(lambda: packed_conv2d(xw, ww, **kw),
+                       "packed_conv_kernel", 10)
         plain = time_ms(lambda: packed_conv2d_plain(xw, ww, **kw), 2, 1)
         xf = F.pad(x.permute(0, 3, 1, 2), (pw, pw, ph, ph), value=-1.0)
         wf = wt.permute(3, 2, 0, 1).contiguous()
@@ -230,7 +307,8 @@ def check_fused(rnd, rec):
                     source="src/repro_torch/kernels/csrc/fused_mlp.cu",
                     replaces="src/repro/kernels/fused_mlp.py:143",
                     max_abs_err=err,
-                    ms=time_ms(lambda: fused_mlp_words(x, ws, ks, ts), 20),
+                    ms=kernel_ms(lambda: fused_mlp_words(x, ws, ks, ts),
+                                 "fused_mlp_kernel"),
                     plain_ms=time_ms(
                         lambda: fused_mlp_words_plain(x, ws, ks, ts), 2, 1),
                     bound_ms=b, bound_by=by, library_ms=None))
@@ -271,18 +349,174 @@ def check_gemm(rnd, rec):
                     source="src/repro_torch/kernels/csrc/popcount_gemm.cu",
                     replaces="src/repro/kernels/popcount_gemm.py:144",
                     max_abs_err=err,
-                    ms=time_ms(lambda: popcount_gemm(xp, wp, 1024), 20),
+                    ms=kernel_ms(lambda: popcount_gemm(xp, wp, 1024),
+                                 "popcount_gemm_kernel"),
                     plain_ms=time_ms(
                         lambda: popcount_gemm_plain(xp, wp, 1024), 5),
                     bound_ms=b, bound_by=by,
                     library_ms=time_ms(lambda: torch.matmul(xf, wf), 20)))
 
 
+# the decode-shape GEMMs of the repo's LLM configs (the reference's
+# benchmarks/kernels_bench.py): (M, K, N); the last two are the d_model
+# of Command R+ 104B and Command R 35B
+DENSE_SHAPES = [(128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192)]
+DENSE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def xnor_operands(rnd, m, k, n, dtype, integer):
+    """x [M, K] in ``dtype`` and alpha [N].  Integer x in [-3, 3] with
+    alpha in {0.5, 1, 2}: every sum is exact in float32 in any order,
+    so kernel and plain version must agree bit for bit."""
+    if integer:
+        x = rnd.ints(-3, 4, m, k).to(dtype)
+        alpha = 2.0 ** rnd.ints(-1, 2, n).to(torch.float32)
+    else:
+        x = rnd.normal(m, k).to(dtype)
+        alpha = 0.5 + 1.5 * torch.rand(n, generator=rnd.g,
+                                       device=rnd.device)
+    return x, alpha
+
+
+def float_err(what, got, want):
+    """Max abs error of a float output, checked against 1e-5 * max|y|
+    (float32 sums in another order); a bf16 output may also differ by
+    one bf16 ulp of the larger value (the rounding after the sum)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (g - w).abs()
+    tol = 1e-5 * float(w.abs().max())
+    lim = torch.full_like(w, tol)
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        lim = lim + 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    if (err > lim).any():
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version beyond the tolerance (max abs err "
+                             f"{float(err.max())}, 1e-5*max|y| = {tol})")
+    return float(err.max())
+
+
+def threshold_flips(what, x, wp, alpha, tvec):
+    """Normal x: threshold decisions of kernel and plain version may
+    differ only where |y - T| is within the float tolerance."""
+    from repro_torch.kernels.ref import xnor_gemm_ref
+    from repro_torch.kernels.xnor_gemm import xnor_gemm
+    y = xnor_gemm_ref(x, wp, alpha)
+    got = xnor_gemm(x, wp, alpha, threshold_vec=tvec).float()
+    want = torch.where(y >= tvec, 1.0, -1.0)
+    diff = got != want
+    tol = 1e-5 * float(y.abs().max())
+    worst = float((y - tvec).abs()[diff].max()) if diff.any() else 0.0
+    if worst > tol:
+        raise AssertionError(f"{what}: a threshold bit differs where "
+                             f"|y - T| = {worst} > {tol}")
+    return int(diff.sum())
+
+
+def check_xnor(rnd, rec):
+    from repro_torch.kernels.ops import binary_dense
+    from repro_torch.kernels.packed import PackedArray, unpack_words
+    from repro_torch.kernels.xnor_gemm import xnor_gemm, xnor_gemm_plain
+    err = 0.0
+    edges = [(m, k, n, dt, None, False) for m, k, n in
+             [(128, 128, 128), (256, 512, 128), (128, 1024, 256),
+              (384, 256, 384)] for dt in DENSE_DTYPES]
+    edges += [(37, 96, 40, torch.float32, "scalar", True),
+              (37, 96, 40, torch.bfloat16, "vector", True),
+              (3 * 37, 544, 200, torch.float32, None, False),
+              (3 * 37, 544, 200, torch.bfloat16, "vector", False),
+              (5, 1024, 65, torch.float32, "scalar", False),
+              (1, 2048, 97, torch.bfloat16, "scalar", True)]
+    for m, k, n, dt, thr, pack_out in edges:
+        wp = rnd.words(k // 32, n)
+        tag = f"xnor_gemm edge {m}x{k}x{n} {dt} {thr} pack_out={pack_out}"
+        kw = dict(threshold=0.5 if thr == "scalar" else None,
+                  threshold_vec=rnd.ints(-6, 7, n).float()
+                  if thr == "vector" else None, pack_out=pack_out,
+                  valid_n=n - 5 if pack_out else None)
+        x, alpha = xnor_operands(rnd, m, k, n, dt, integer=True)
+        check_equal(tag, xnor_gemm(x, wp, alpha, **kw),
+                    xnor_gemm_plain(x, wp, alpha, **kw))
+        if thr is None:
+            x, alpha = xnor_operands(rnd, m, k, n, dt, integer=False)
+            err = max(err, float_err(tag + " normal x",
+                                     xnor_gemm(x, wp, alpha),
+                                     xnor_gemm_plain(x, wp, alpha)))
+    # K = 40 through the entry point: x is zero-padded to 64 bits
+    x, alpha = xnor_operands(rnd, 9, 40, 33, torch.float32, integer=True)
+    wk = PackedArray(rnd.words(2, 33), length=40, axis=-2)
+    check_equal("binary_dense K=40", binary_dense(x, wk, alpha),
+                binary_dense(x, wk, alpha, backend="torch"))
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    shapes, biggest = [], (0.0, "operations")
+    for m, k, n in DENSE_SHAPES:
+        n_copies = n_weight_copies(k, n)
+        wps = [rnd.words(k // 32, n) for _ in range(n_copies)]
+        for dt in DENSE_DTYPES:
+            tag = f"xnor_gemm {m}x{k}x{n} {str(dt)[6:]}"
+            x, alpha = xnor_operands(rnd, m, k, n, dt, integer=True)
+            tvec = rnd.ints(-20, 21, n).float()
+            for kw in (dict(), dict(threshold_vec=tvec),
+                       dict(threshold_vec=tvec, pack_out=True)):
+                check_equal(f"{tag} exact {sorted(kw)}",
+                            xnor_gemm(x, wps[0], alpha, **kw),
+                            xnor_gemm_plain(x, wps[0], alpha, **kw))
+            x, alpha = xnor_operands(rnd, m, k, n, dt, integer=False)
+            e = float_err(tag, xnor_gemm(x, wps[0], alpha),
+                          xnor_gemm_plain(x, wps[0], alpha))
+            err = max(err, e)
+            flips = threshold_flips(tag, x, wps[0], alpha,
+                                    rnd.normal(n) * 10)
+            call = rotating(lambda w: xnor_gemm(x, w, alpha), wps)
+            ms = kernel_ms(call, "xnor_gemm_kernel")
+            event_ms = time_ms(call, 20)
+            plain = time_ms(rotating(
+                lambda w: xnor_gemm_plain(x, w, alpha), wps), 3, 1)
+            w_pm1 = unpack_words(wps[0], axis=0, dtype=dt)
+            lib = time_ms(lambda: torch.matmul(x, w_pm1) * alpha, 20)
+            del w_pm1
+            esize = x.element_size()
+            nbytes = esize * m * k + 4 * (k // 32) * n + 4 * n \
+                + esize * m * n
+            b, by = bound(nbytes, 2 * m * k * n,
+                          BF16_OPS if dt == torch.bfloat16 else FP32_OPS)
+            biggest = max(biggest, (b, by))
+            shapes.append(dict(m=m, k=k, n=n, dtype=str(dt), ms=ms,
+                               plain_ms=plain, bound_ms=b, bound_by=by,
+                               library_ms=lib, event_ms=event_ms,
+                               max_abs_err=e,
+                               threshold_bits_differing=flips,
+                               weight_copies=n_copies))
+            print(f"{tag}: kernel_ms={ms:.4f} (events, host included: "
+                  f"{event_ms:.4f}) plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b:.5f} ({by}); "
+                  f"float max_abs_err {e:.3g}; threshold bits differing "
+                  f"on normal x: {flips} of {m * n}")
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", b), ("library_ms", lib)):
+                tot[key] += v
+    rec.append(dict(name="xnor_gemm", route="cuda",
+                    source="src/repro_torch/kernels/csrc/xnor_gemm.cu",
+                    replaces="src/repro/kernels/xnor_gemm.py:126",
+                    max_abs_err=err, **tot, bound_by=biggest[1],
+                    shapes=shapes))
+
+
 # ------------------------------------------------------------------ #
-# the main path                                                        #
+# the main paths                                                       #
 # ------------------------------------------------------------------ #
-PER_FORWARD = {"pack": 1, "packed_conv2d": 5, "fused_binary_mlp": 1,
-               "popcount_gemm": 1}
+BINARYNET_PER_FORWARD = {"pack": 1, "packed_conv2d": 5,
+                         "fused_binary_mlp": 1, "popcount_gemm": 1}
+# fc6+fc7 fused in one launch, fc8 the popcount head
+ALEXNET_PER_FORWARD = {"pack": 1, "packed_conv2d": 3, "fused_binary_mlp": 1,
+                       "popcount_gemm": 1}
+SPLIT_AT = "binarize@conv3"       # AlexNet's first binary step
 
 
 def to_cpu(tree):
@@ -296,47 +530,88 @@ def to_cpu(tree):
     return tree.cpu()
 
 
-def main_path(launches):
+def binarynet_vs_cpu(spec, cb, params, x):
+    """Integer images: BinaryNet's one float entry conv sums exactly in
+    any order, so the card's logits equal the CPU's bit for bit."""
     from repro_torch import graph
-    from repro_torch.core.workloads import binarynet_cifar10
+    cpu = graph.compile(spec, backend="torch", device="cpu"
+                        ).apply(to_cpu(params), x.cpu())
+    if not torch.equal(cb.apply(params, x).cpu(), cpu):
+        raise AssertionError("card logits differ from the CPU's")
+    return "card logits equal to the CPU's"
+
+
+def alexnet_vs_cpu(spec, cb, params, x):
+    """AlexNet's conv2 sums alpha-scaled floats, whose rounding depends
+    on the order (cuDNN and the CPU differ): the float activations at
+    binarize@conv3 must agree within 1e-5 * max|h| (TF32 off on the
+    card), and the CPU's activations through the card's binary tail
+    must give the CPU's logits exactly."""
+    from repro_torch import graph
+    cpu_head, cpu_tail = graph.compile(spec, backend="torch", device="cpu"
+                                       ).split(SPLIT_AT)
+    head, tail = cb.split(SPLIT_AT)
+    pc = to_cpu(params)
+    h_card = head.apply(params, x).cpu()
+    h_cpu = cpu_head.apply(pc, x.cpu())
+    err = float((h_card - h_cpu).abs().max())
+    tol = 1e-5 * float(h_cpu.abs().max())
+    if h_card.shape != h_cpu.shape or err > tol:
+        raise AssertionError(f"AlexNet float layers: card vs CPU max abs "
+                             f"err {err} > {tol}")
+    flips = int(((h_card > 0) != (h_cpu > 0)).sum())
+    if not torch.equal(tail.apply(params, h_cpu.to(x.device)).cpu(),
+                       cpu_tail.apply(pc, h_cpu)):
+        raise AssertionError("AlexNet binary tail: card logits differ "
+                             "from the CPU's on the same activations")
+    return (f"float layers within {err:.3g} of the CPU's (tol {tol:.3g}, "
+            f"{flips} of {h_cpu.numel()} signs differ), binary tail on "
+            f"the CPU's activations equal to the CPU's logits")
+
+
+def forward_path(label, workload, per_forward, n_classes, vs_cpu,
+                 cpu_batches, launches):
+    """Compile ``workload`` for the card at batches 1, 32 and 256 and run
+    ``apply`` with random weights from a seeded generator; integer
+    images in [-3, 3].  Checks the launch counts, the logits against the
+    ``"torch"`` backend on the card (exact) and, at ``cpu_batches``,
+    against the CPU with ``vs_cpu``; prints images/s, ms per forward and
+    peak device memory."""
+    from repro_torch import graph
     from repro_torch.kernels import _build
-    spec = graph.from_workload(binarynet_cifar10())
+    spec = graph.from_workload(workload)
     out = {}
-    for batch in (1, 32, 256):
-        cb = graph.compile(spec, device="cuda", batch=batch)
+    for batch in BATCHES:
+        cb = graph.compile(spec, device=DEVICE, batch=batch)
         if batch == 1:
             print(cb.describe())
             params = cb.init(torch.Generator().manual_seed(0))
-        if cb.launch_count() != sum(PER_FORWARD.values()):
-            raise AssertionError(f"plan has {cb.launch_count()} launches")
-        # integer-valued images: the float entry conv then sums exactly
-        # in any order, so every backend and device agrees bit for bit
+        if cb.launch_count() != sum(per_forward.values()):
+            raise AssertionError(f"{label}: plan has {cb.launch_count()} "
+                                 f"launches")
         gen = torch.Generator().manual_seed(batch)
-        x = torch.randint(-3, 4, (batch, 32, 32, 3), generator=gen
-                          ).to(torch.float32).to("cuda")
+        h, w, c = spec.input_shape
+        x = torch.randint(-3, 4, (batch, h, w, c), generator=gen
+                          ).to(torch.float32).to(DEVICE)
 
         _build.reset_launch_counts()
         logits = cb.apply(params, x)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
-        if counts != PER_FORWARD:
-            raise AssertionError(f"batch {batch}: launches {counts}, "
-                                 f"expected {PER_FORWARD}")
+        expect_launches(f"{label} batch {batch}", counts, per_forward)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-        if logits.shape != (batch, 10) or not torch.isfinite(logits).all():
-            raise AssertionError(f"bad logits {tuple(logits.shape)}")
-        ref = graph.compile(spec, backend="torch", device="cuda"
+        if logits.shape != (batch, n_classes) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        ref = graph.compile(spec, backend="torch", device=DEVICE
                             ).apply(params, x)
         if not torch.equal(logits, ref):
-            raise AssertionError(f"batch {batch}: cuda logits differ from "
-                                 f"the torch backend's")
-        if batch == 1:
-            cpu = graph.compile(spec, backend="torch", device="cpu"
-                                ).apply(to_cpu(params), x.cpu())
-            if not torch.equal(logits.cpu(), cpu):
-                raise AssertionError("card logits differ from the CPU's")
+            raise AssertionError(f"{label} batch {batch}: cuda logits "
+                                 f"differ from the torch backend's")
+        note = vs_cpu(spec, cb, params, x) if batch in cpu_batches else ""
 
         iters = 20 if batch < 256 else 10
         cb.apply(params, x)
@@ -350,11 +625,46 @@ def main_path(launches):
         peak = torch.cuda.max_memory_allocated()
         out[batch] = dict(images_per_s=batch * iters / dt,
                           ms_per_forward=dt / iters * 1e3,
-                          peak_mem_bytes=peak)
-        print(f"BinaryNet B={batch}: {batch * iters / dt:.1f} images/s, "
+                          peak_mem_bytes=peak,
+                          launches_per_forward=sum(counts.values()))
+        print(f"{label} B={batch}: {batch * iters / dt:.1f} images/s, "
               f"{dt / iters * 1e3:.3f} ms/forward, peak device memory "
               f"{peak / 2**20:.1f} MiB, launches {counts}, logits equal "
-              f"to the torch backend")
+              f"to the torch backend" + (f"; {note}" if note else ""))
+    return out
+
+
+def dense_path(rnd, launches):
+    """binary_dense, the public entry point, at the decode GEMMs in bf16
+    and float32: one xnor_gemm launch per call, the output within the
+    float tolerance of the "torch" backend's; prints ms per call through
+    the entry point (host dispatch included, weights cold)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import binary_dense
+    from repro_torch.kernels.packed import PackedArray
+    out = []
+    for m, k, n in DENSE_SHAPES:
+        wps = [PackedArray(rnd.words(k // 32, n), length=k, axis=-2)
+               for _ in range(n_weight_copies(k, n))]
+        for dt in DENSE_DTYPES:
+            x, alpha = xnor_operands(rnd, m, k, n, dt, integer=False)
+            _build.reset_launch_counts()
+            y = binary_dense(x, wps[0], alpha)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            tag = f"binary_dense {m}x{k}x{n} {str(dt)[6:]}"
+            expect_launches(tag, counts, {"xnor_gemm": 1})
+            for key, v in counts.items():
+                launches[key] = launches.get(key, 0) + v
+            err = float_err(tag, y, binary_dense(x, wps[0], alpha,
+                                                 backend="torch"))
+            ms = time_ms(rotating(lambda w: binary_dense(x, w, alpha), wps),
+                         20)
+            out.append(dict(m=m, k=k, n=n, dtype=str(dt), ms_per_call=ms,
+                            max_abs_err=err))
+            print(f"{tag}: {ms:.4f} ms/call through the entry point, "
+                  f"max abs err {err:.3g} against the torch backend, "
+                  f"launches {counts}")
     return out
 
 
@@ -383,18 +693,27 @@ def main():
                 print(f"ptxas {src}: {line.strip()}")
 
     rec = []
-    rnd = Rand(1234, "cuda")
-    for phase in (check_pack, check_conv, check_fused, check_gemm):
+    rnd = Rand(1234, DEVICE)
+    for phase in (check_pack, check_conv, check_fused, check_gemm,
+                  check_xnor):
         phase(rnd, rec)
         torch.cuda.synchronize()
         r = rec[-1]
-        print(f"{r['name']}: bit-identical to its plain version "
+        print(f"{r['name']}: held against its plain version "
               f"(max_abs_err {r['max_abs_err']}); kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
 
+    from repro_torch.core.workloads import (alexnet_imagenet,
+                                            binarynet_cifar10)
     launches = {}
-    perf = main_path(launches)
+    perf = forward_path("BinaryNet", binarynet_cifar10(),
+                        BINARYNET_PER_FORWARD, 10, binarynet_vs_cpu, (1,),
+                        launches)
+    alexnet = forward_path("AlexNet", alexnet_imagenet(),
+                           ALEXNET_PER_FORWARD, 1000, alexnet_vs_cpu,
+                           (1, 32), launches)
+    dense = dense_path(rnd, launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -409,7 +728,9 @@ def main():
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
-         "kernels": kernels, "binarynet": perf, "device": device},
+         "kernels": kernels, "xnor_gemm_shapes": rec[-1]["shapes"],
+         "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
+         "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,9 @@ leaf as numpy — each PackedArray given as ``{"words": uint32 ndarray,
 "length": int, "axis": int}`` (optionally ``"values"``) — and returns
 the port's tree: PackedArrays of int32 words with the same bit
 pattern, and tensors for every other array, on ``device``.  The caller
-does the unwrapping; the port never sees a JAX object.
+does the unwrapping; the port never sees a JAX object.  bfloat16
+leaves (numpy arrays of the ``ml_dtypes`` bfloat16 dtype, which torch
+cannot read) are carried bit for bit through their uint16 pattern.
 """
 from __future__ import annotations
 
@@ -34,5 +36,8 @@ def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if isinstance(tree, np.ndarray):
+        if tree.dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(tree).view(np.uint16).copy()
+            return torch.from_numpy(bits).view(torch.bfloat16).to(device)
         return torch.tensor(tree, device=device)
     raise TypeError(f"unexpected params leaf {type(tree).__name__}")

@@ -88,6 +88,20 @@ class CompiledBNN:
                    else s.kind in ("binarize", "binary_conv", "dense")
                    for s in self.plan)
 
+    def split(self, step: str) -> Tuple["CompiledBNN", "CompiledBNN"]:
+        """Cut the plan before the named step: the head runs the steps
+        before it, the tail the rest, so ``tail.apply(params,
+        head.apply(params, x))`` is ``apply(params, x)``.  Cutting at
+        the first binarize step separates the float entry layers, whose
+        sums depend on the order, from the exact binary tail."""
+        names = [s.name for s in self.plan]
+        if step not in names:
+            raise ValueError(f"no plan step {step!r}; steps: {names}")
+        i = names.index(step)
+        return tuple(CompiledBNN(self.spec, plan, self.backend, self.device,
+                                 self.batch)
+                     for plan in (self.plan[:i], self.plan[i:]))
+
     # -------------------------------------------------------------- #
     def init(self, generator: torch.Generator, threshold_range: int = 3,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:

@@ -5,6 +5,8 @@ plain torch versions.
                     words) + the backend registry ("cuda" | "torch")
   ref.py            plain torch oracles (the exactness targets)
   pack.py           sign + bit-pack activations      (csrc/pack.cu)
+  xnor_gemm.py      float activations x packed weights, float32 sum,
+                    alpha and threshold->pack epilogue (csrc/xnor_gemm.cu)
   popcount_gemm.py  both operands packed, XNOR-popcount GEMM with the
                     threshold->pack epilogue        (csrc/popcount_gemm.cu)
   packed_conv.py    im2col-free binary conv2d on channel-packed NHWC
@@ -20,10 +22,10 @@ are compiled on first launch.
 """
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.ops import (binarize_pack, binary_binary_dense,
-                                     binary_conv2d)
+                                     binary_conv2d, binary_dense)
 from repro_torch.kernels.packed import (BackendSpec, PackedArray,
                                         get_backend, register_backend)
 
 __all__ = ["BackendSpec", "PackedArray", "binarize_pack",
-           "binary_binary_dense", "binary_conv2d", "fused_binary_mlp",
-           "get_backend", "register_backend"]
+           "binary_binary_dense", "binary_conv2d", "binary_dense",
+           "fused_binary_mlp", "get_backend", "register_backend"]

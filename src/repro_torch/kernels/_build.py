@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp")
+SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
@@ -143,6 +143,7 @@ class Kernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 PACK = Kernel("pack", "pack", "pack_launch", [P, P, I, I, I])
 POPCOUNT_GEMM = Kernel("popcount_gemm", "popcount_gemm",
@@ -154,7 +155,10 @@ PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
 FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
                    [P, P, I, I, I, P, P, P, P, P, P, I, I])
 
-KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM)
+XNOR_GEMM = Kernel("xnor_gemm", "xnor_gemm", "xnor_gemm_launch",
+                   [P, I, P, P, P, P, I, I, I, I, F, I, I])
+
+KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -32,10 +32,12 @@ from repro_torch.kernels.packed_conv import (im2col_words, out_size,
                                              packed_conv2d,
                                              pad_words_spatial)
 from repro_torch.kernels.popcount_gemm import popcount_gemm
+from repro_torch.kernels.xnor_gemm import xnor_gemm
 
 __all__ = ["binarize_pack", "binary_binary_dense", "binary_conv2d",
-           "classify_threshold", "conv_padding", "kernel_threshold",
-           "mask_rows", "plan_conv_launch", "plan_dense_launch"]
+           "binary_dense", "classify_threshold", "conv_padding",
+           "kernel_threshold", "mask_rows", "plan_conv_launch",
+           "plan_dense_launch"]
 
 Packable = Union[PackedArray, torch.Tensor]
 Threshold = Union[int, float, np.ndarray, torch.Tensor]
@@ -123,6 +125,52 @@ def binarize_pack(x: torch.Tensor,
     words = _pack_kernel(x2)
     return PackedArray(words.reshape(*lead, words.shape[-1]), length=k,
                        axis=-1)
+
+
+def binary_dense(x: torch.Tensor, wp: Packable, alpha: torch.Tensor,
+                 threshold: Optional[Threshold] = None,
+                 backend: Optional[str] = None, pack_out: bool = False):
+    """Binary-weight dense: x [..., K] float x packed weights -> [..., N].
+
+    wp: PackedArray packed over K in [K, N] orientation (words
+    [K/32, N], pack axis -2) or raw int32 words [K/32, N], adopted with
+    length K.  Output is x.dtype; with ``threshold`` (scalar or
+    per-channel [N]), {-1,+1} in x.dtype on every backend.  Thresholds
+    compare the float ``y`` in float32 (a vector is cast to float32; no
+    integer rounding as for the popcount dot).  With ``pack_out=True``
+    the result is a PackedArray (length N): the float->binary boundary
+    layer of a fully-binary stack; on "cuda" the kernel packs in its
+    epilogue."""
+    if pack_out and threshold is None:
+        raise ValueError("pack_out requires a threshold (binary output)")
+    if not isinstance(wp, PackedArray):
+        wp = PackedArray(wp, length=x.shape[-1], axis=-2)
+    if wp.axis != -2:
+        raise ValueError(f"binary_dense wants weights packed over K in "
+                         f"[K, N] orientation (axis -2), got {wp.axis}")
+    if wp.length != x.shape[-1]:
+        raise ValueError(f"x K={x.shape[-1]} vs packed K={wp.length}")
+    be = get_backend(backend)
+    lead, k = x.shape[:-1], x.shape[-1]
+    n = wp.words.shape[-1]
+    x2 = x.reshape(-1, k)
+    if wp.padded_length != k:
+        # zeros over the pad rows of the last word: 0 * (-1) adds nothing
+        x2 = torch.nn.functional.pad(x2, (0, wp.padded_length - k))
+    thr, tvec = classify_threshold(threshold, n, x.device)
+    if tvec is not None:
+        tvec = tvec.to(device=x.device, dtype=torch.float32).contiguous()
+    if not be.uses_kernels:
+        y = ref.xnor_gemm_ref(x2, wp.words, alpha,
+                              thr if tvec is None else tvec).to(x.dtype)
+        y = y.reshape(*lead, n)
+        return PackedArray.pack(y, axis=-1) if pack_out else y
+    y = xnor_gemm(x2.contiguous(), wp.words.contiguous(), alpha,
+                  threshold=thr, threshold_vec=tvec, pack_out=pack_out,
+                  valid_n=n)
+    if pack_out:
+        return PackedArray(y.reshape(*lead, y.shape[-1]), length=n, axis=-1)
+    return y.reshape(*lead, n)
 
 
 def binary_binary_dense(xp: Packable, wp: Packable, k: Optional[int] = None,

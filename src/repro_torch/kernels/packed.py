@@ -135,6 +135,11 @@ class PackedArray:
         return self.words.shape[self.axis]
 
     @property
+    def padded_length(self) -> int:
+        """Bits along the pack axis, pad bits included."""
+        return 32 * self.n_words
+
+    @property
     def shape(self):
         """Logical (unpacked) shape."""
         s = list(self.words.shape)

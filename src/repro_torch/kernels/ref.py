@@ -11,7 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.packed import WORD, pack_words, popcount_u32
+from repro_torch.kernels.packed import (WORD, pack_words, popcount_u32,
+                                        unpack_words)
 
 
 @contextlib.contextmanager
@@ -23,6 +24,18 @@ def full_fp32():
     with cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
                   deterministic=cd.deterministic, allow_tf32=False):
         yield
+
+
+def xnor_gemm_ref(x: torch.Tensor, wp: torch.Tensor, alpha: torch.Tensor,
+                  threshold=None) -> torch.Tensor:
+    """x: [M, K] float; wp: [K/32, N] int32 words packed over K; alpha:
+    [N].  Returns float32 ``y = (x @ unpack(wp)) * alpha``, or with a
+    threshold (scalar or [N]) ``where(y >= threshold, 1., -1.)``."""
+    w = unpack_words(wp, axis=0, dtype=torch.float32)     # [K, N] +-1
+    y = (x.to(torch.float32) @ w) * alpha.to(torch.float32)
+    if threshold is not None:
+        y = torch.where(y >= threshold, 1.0, -1.0)
+    return y
 
 
 def popcount_gemm_ref(xp: torch.Tensor, wp: torch.Tensor,

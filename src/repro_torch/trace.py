@@ -1,15 +1,16 @@
-"""Where the time of a BinaryNet forward goes on the card.
+"""Where the time of a BNN forward goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.trace [--batches 1 256]
+    PYTHONPATH=src python -m repro_torch.trace [--model alexnet]
+        [--batches 1 256]
 
-Runs full-width BinaryNet CIFAR-10 (random weights from a seeded
-generator, integer images) through ``graph.compile(...).apply`` under
-``torch.profiler`` and prints, per batch, the device time of each kernel
-group per forward, the wall time per forward under the profiler, and
-the device's busy share (device kernel time over wall time; the
+Runs full-width BinaryNet CIFAR-10 or XNOR-AlexNet (random weights from
+a seeded generator, integer images) through ``graph.compile(...).apply``
+under ``torch.profiler`` and prints, per batch, the device time of each
+kernel group per forward, the wall time per forward under the profiler,
+and the device's busy share (device kernel time over wall time; the
 profiler's own overhead inflates the wall time, so the share is a lower
 bound).  Needs a CUDA device; the results also go to
-``chiprun_out/trace.json``.
+``trace_<model>.json`` in the output directory (see ``main``).
 """
 from __future__ import annotations
 
@@ -23,12 +24,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import graph
-from repro_torch.core.workloads import binarynet_cifar10
+from repro_torch.core.workloads import WORKLOADS, Workload
 
-# kernel-name fragment -> group (the port's four kernels by symbol)
+# kernel-name fragment -> group (the port's five kernels by symbol)
 GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("fused_mlp_kernel", "fused_binary_mlp"),
-          ("popcount_gemm_kernel", "popcount_gemm"))
+          ("popcount_gemm_kernel", "popcount_gemm"),
+          ("xnor_gemm_kernel", "xnor_gemm"))
 
 
 def _group(name: str) -> str:
@@ -38,10 +40,10 @@ def _group(name: str) -> str:
     return "other: " + name[:60]
 
 
-def trace_forward(batch: int, iters: int = 5) -> Dict:
-    cb = graph.compile(binarynet_cifar10(), batch=batch)
+def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
+    cb = graph.compile(workload, batch=batch)
     params = cb.init(torch.Generator().manual_seed(0))
-    x = torch.randint(-3, 4, (batch, 32, 32, 3),
+    x = torch.randint(-3, 4, (batch, *cb.spec.input_shape),
                       generator=torch.Generator().manual_seed(batch)
                       ).to(torch.float32).to("cuda")
     for _ in range(2):
@@ -72,6 +74,8 @@ def trace_forward(batch: int, iters: int = 5) -> Dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(WORKLOADS),
+                    default="binarynet")
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 256])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -79,16 +83,18 @@ def main() -> None:
     smi = torch.cuda.get_device_name(0)
     out = []
     for b in args.batches:
-        r = trace_forward(b)
+        r = trace_forward(WORKLOADS[args.model], b)
         out.append(r)
-        print(f"{smi} B={b}: wall {r['wall_us_per_forward']:.1f} us/forward "
-              f"under the profiler, device {r['device_us_per_forward']:.1f}"
+        print(f"{smi} {args.model} B={b}: wall "
+              f"{r['wall_us_per_forward']:.1f} us/forward under the "
+              f"profiler, device {r['device_us_per_forward']:.1f}"
               f" us, busy share {r['busy_share']:.3f}")
         for g, us in r["device_us_by_group"].items():
             print(f"  {us:10.1f} us  {g}")
     path = Path("chiprun_out")
     path.mkdir(exist_ok=True)
-    (path / "trace.json").write_text(json.dumps(out, indent=1))
+    (path / f"trace_{args.model}.json").write_text(json.dumps(out,
+                                                               indent=1))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """The Hopper kernels on the card: each against its plain version, bit
-for bit, and the BinaryNet forward's launch counts.
+for bit, and the BinaryNet and AlexNet forwards' launch counts.
 
 Every test here is marked ``gpu`` and skips, inside the ``cuda``
 fixture, on a host without a CUDA device (the decision is never taken
@@ -16,17 +16,20 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import graph  # noqa: E402
-from repro_torch.core.workloads import binarynet_cifar10  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.workloads import (alexnet_imagenet,  # noqa: E402
+                                        binarynet_cifar10)
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.fused_mlp import (fused_mlp_words,  # noqa: E402
                                            fused_mlp_words_plain)
 from repro_torch.kernels.pack import pack, pack_plain  # noqa: E402
-from repro_torch.kernels.packed import pack_words  # noqa: E402
+from repro_torch.kernels.packed import PackedArray, pack_words  # noqa: E402
 from repro_torch.kernels.packed_conv import (packed_conv2d,  # noqa: E402
                                              packed_conv2d_plain,
                                              pad_words_spatial)
 from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
                                                popcount_gemm_plain)
+from repro_torch.kernels.xnor_gemm import (xnor_gemm,  # noqa: E402
+                                           xnor_gemm_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -119,6 +122,71 @@ def test_binarynet_launch_counts_and_logits(cuda):
     torch.cuda.synchronize()
     assert _build.launch_counts() == {"pack": 1, "packed_conv2d": 5,
                                       "fused_binary_mlp": 1,
-                                      "popcount_gemm": 1}
+                                      "popcount_gemm": 1, "xnor_gemm": 0}
     ref = graph.compile(binarynet_cifar10(), backend="torch").apply(params, x)
     assert torch.equal(logits, ref)
+
+
+def test_alexnet_launch_counts_and_logits(cuda):
+    """The float entry convs run the same cuDNN calls on both backends,
+    so the card's two backends agree exactly."""
+    cb = graph.compile(alexnet_imagenet(), batch=2)
+    params = cb.init(torch.Generator().manual_seed(0))
+    x = torch.randint(-3, 4, (2, 227, 227, 3),
+                      generator=torch.Generator().manual_seed(1)
+                      ).float().to(cuda)
+    _build.reset_launch_counts()
+    logits = cb.apply(params, x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"pack": 1, "packed_conv2d": 3,
+                                      "fused_binary_mlp": 1,
+                                      "popcount_gemm": 1, "xnor_gemm": 0}
+    ref = graph.compile(alexnet_imagenet(), backend="torch").apply(params, x)
+    assert logits.shape == (2, 1000) and torch.equal(logits, ref)
+
+
+def _xnor_operands(rng, m, k, n, dtype, device):
+    """Integer x in [-3, 3] and alpha in {0.5, 1, 2}: every sum is exact
+    in float32, so kernel and plain version agree bit for bit."""
+    x = torch.from_numpy(rng.integers(-3, 4, size=(m, k)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    wp = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(
+        k // 32, n), dtype=np.int64).astype(np.int32)).to(device)
+    alpha = torch.from_numpy(rng.choice([0.5, 1.0, 2.0], size=n).astype(
+        np.float32)).to(device)
+    return x, wp, alpha
+
+
+@pytest.mark.parametrize("m,k,n,dtype,thr,pack_out", [
+    (128, 128, 128, torch.float32, None, False),
+    (384, 256, 384, torch.bfloat16, None, False),
+    (37, 96, 40, torch.float32, "scalar", True),
+    (111, 544, 200, torch.bfloat16, "vector", False),
+    (1, 8192, 256, torch.bfloat16, "vector", True),
+    (5, 1024, 65, torch.float32, "scalar", False),
+    (20, 4096, 97, torch.bfloat16, "vector", True)])
+def test_xnor_gemm_kernel(cuda, m, k, n, dtype, thr, pack_out):
+    rng = np.random.default_rng(m + k + n)
+    x, wp, alpha = _xnor_operands(rng, m, k, n, dtype, cuda)
+    kw = dict(threshold=0.5 if thr == "scalar" else None,
+              threshold_vec=torch.from_numpy(rng.integers(
+                  -6, 7, n).astype(np.float32)).to(cuda)
+              if thr == "vector" else None, pack_out=pack_out,
+              valid_n=n - 3 if pack_out else None)
+    got = xnor_gemm(x, wp, alpha, **kw)
+    assert torch.equal(got, xnor_gemm_plain(x, wp, alpha, **kw))
+
+
+def test_binary_dense_launches_xnor_gemm(cuda):
+    rng = np.random.default_rng(0)
+    x, wp, alpha = _xnor_operands(rng, 6, 512, 96, torch.bfloat16, cuda)
+    w = PackedArray(wp, length=500, axis=-2)
+    _build.reset_launch_counts()
+    y = ops.binary_dense(x[:, :500].reshape(2, 3, 500), w, alpha,
+                         threshold=np.zeros(96), pack_out=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["xnor_gemm"] == 1
+    want = ops.binary_dense(x[:, :500].reshape(2, 3, 500), w, alpha,
+                            threshold=np.zeros(96), pack_out=True,
+                            backend="torch")
+    assert torch.equal(y.words, want.words)

@@ -28,12 +28,14 @@ import jax  # noqa: E402
 
 from repro import graph as jgraph  # noqa: E402
 from repro.core.bnn_layers import binary_weight_conv as jentry  # noqa: E402
+from repro.core.workloads import alexnet_imagenet as jalexnet  # noqa: E402
 from repro.core.workloads import binarynet_cifar10 as jbinarynet  # noqa: E402
 from repro.kernels.packed import PackedArray as JPacked  # noqa: E402
 from repro_torch import graph as tgraph  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.bnn_layers import binary_weight_conv  # noqa: E402
-from repro_torch.core.workloads import binarynet_cifar10  # noqa: E402
+from repro_torch.core.workloads import (alexnet_imagenet,  # noqa: E402
+                                        binarynet_cifar10)
 from repro_torch.kernels import packed  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -117,6 +119,24 @@ def test_binarynet_full_width_logits_equal_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_alexnet_full_width_logits_equal_reference():
+    """XNOR-AlexNet at full width, batch 1: two float entry convs
+    (conv1, conv2) with float pools, then 6 launches on the port's plan
+    (pack, 3 packed_conv2d, fc6+fc7 fused, fc8) where the reference
+    chains layer by layer; only the logits must match, and they do
+    exactly."""
+    ref = jgraph.compile(jalexnet(), backend="xla")
+    jparams = ref.init(jax.random.PRNGKey(0))
+    x = _images(1, h=227, seed=3)
+    want = np.asarray(ref.apply(jparams, x))
+    cb = tgraph.compile(alexnet_imagenet(), device="cpu", batch=1)
+    assert cb.launch_count() == 6
+    got = cb.apply(params_from_numpy(np_tree(jparams), "cpu"),
+                   torch.from_numpy(x))
+    assert got.shape == (1, 1000) and want.shape == (1, 1000)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_entry_conv_within_tolerance_then_exact_from_binarize(small_ref):
     """Normal inputs: the float entry conv's summation order differs
     (rtol 1e-5, atol 1e-4); from the binarize step on, fed the
@@ -138,6 +158,23 @@ def test_entry_conv_within_tolerance_then_exact_from_binarize(small_ref):
     got = ttail.apply({"conv": params["conv"][1:], "fc": params["fc"]},
                       torch.from_numpy(h_ref))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_split_at_binarize_composes_to_apply(small_ref):
+    """head then tail is apply, and the head ends in float activations:
+    the cut the card-vs-CPU check of the float entry layers uses."""
+    jparams, x, want = small_ref
+    cb = tgraph.compile(_small_spec(tgraph), device="cpu", batch=5)
+    params = params_from_numpy(np_tree(jparams), "cpu")
+    head, tail = cb.split("binarize@conv2")
+    assert [s.kind for s in head.plan] == ["integer_conv"]
+    assert tail.plan[0].kind == "binarize"
+    assert head.launch_count() + tail.launch_count() == cb.launch_count()
+    h = head.apply(params, torch.from_numpy(x))
+    assert h.dtype == torch.float32 and h.shape == (5, 8, 8, 32)
+    np.testing.assert_array_equal(tail.apply(params, h).numpy(), want)
+    with pytest.raises(ValueError, match="no plan step"):
+        cb.split("conv9")
 
 
 def test_binarynet_plan_and_describe():
