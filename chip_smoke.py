@@ -17,7 +17,15 @@
    both with CUDA events).  The binary kernels and every xnor_gemm
    output with exact sums (integer x, alpha a power of two) must be bit
    for bit equal; xnor_gemm's float outputs on normal x within
-   1e-5 * max|y| (float32) or that plus one bf16 ulp (bf16);
+   1e-5 * max|y| (float32) or that plus one bf16 ulp (bf16).  xnor_gemm
+   (bf16 mma.sync on the tensor cores) is also held at the row-tile
+   boundaries (M = 16, 17, 65), with every output tile forced in turn,
+   whole K and K split in 3, on x holding +-inf, NaN and values past
+   bf16's largest finite (NaN/inf where the plain version has them,
+   finite outputs within 1e-5 of their row's max |y|), and two calls on
+   the same input must give the same bits; its ptxas report
+   (registers, spills), shared memory per variant and the count of HMMA
+   instructions in its library (cuobjdump) are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
    random weights from a seeded generator: the ``"cuda"`` logits must
@@ -34,7 +42,8 @@
 5. drives ``binary_dense`` (the float->binary boundary layer, on
    xnor_gemm) at the decode GEMMs of the repo's LLM configs — (M, K, N)
    = (128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192) — in bf16
-   and float32 through the public entry point, one launch each.
+   and float32 through the public entry point, one launch each (two
+   where K is split: the parts, then their sum).
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 5 ms per call; the launch counts of the ``kernels`` line are those of steps 3-5, each
@@ -99,29 +108,33 @@ def time_ms(fn, iters=10, warmup=2):
 
 
 def kernel_ms(fn, symbol, iters=20):
-    """Device time of one launch of the kernel whose symbol contains
-    ``symbol``, from torch.profiler over ``iters`` calls of ``fn``.  (A
-    back-to-back CUDA-event timing of a kernel shorter than the host's
-    launch path through the wrapper measures the host.)"""
+    """Device time of one call's launches of the kernels whose symbol
+    contains ``symbol``, from torch.profiler over ``iters`` calls of
+    ``fn``.  (A back-to-back CUDA-event timing of a kernel shorter than
+    the host's launch path through the wrapper measures the host.)  The
+    profiler has, rarely, reported no device time at all: it is asked
+    three times, then this raises — a kernel whose symbol the profiler
+    never shows is a failure, never a time taken another way."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                symbol in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time of "
-                             f"{symbol}")
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    symbol in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError(f"the profiler saw no device time of a kernel "
+                         f"named like {symbol} in three tries")
 
 
 def max_abs_err(a, b):
@@ -418,10 +431,68 @@ def threshold_flips(what, x, wp, alpha, tvec):
     return int(diff.sum())
 
 
+def bits_of(t):
+    """A float tensor's bit pattern (equal bits, NaN included)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def xnor_tiled(x, wp, alpha, tile, **kw):
+    """xnor_gemm with its plan, or (tile not None) with that tile."""
+    from repro_torch.kernels.xnor_gemm import _launch, xnor_gemm
+    if tile is None:
+        return xnor_gemm(x, wp, alpha, **kw)
+    return _launch(x, wp, alpha, tile, **kw)
+
+
+def check_nonfinite(rnd, dt, tile):
+    """x holding +-inf, NaN and (float32) values above bf16's largest
+    finite, up to +-FLT_MAX, one special value per row: the kernel's
+    NaN and +-inf outputs must sit where the plain version's do, and
+    every finite output within 1e-5 of its row's max |y| (plus one bf16
+    ulp for bf16)."""
+    from repro_torch.kernels.xnor_gemm import xnor_gemm_plain
+    m, k, n = 19, 544, 97
+    x = rnd.normal(m, k)
+    big = 3.3e38 if dt == torch.bfloat16 else 3.4e38   # > bf16's max
+    top = torch.finfo(dt).max
+    inf, nan = float("inf"), float("nan")
+    for r, c, v in [(0, 5, inf), (1, 7, -inf), (2, 9, nan), (3, 1, inf),
+                    (3, 2, -inf), (4, 100, big), (5, 200, -big),
+                    (6, 300, top), (7, 400, -top), (17, 3, nan),
+                    (18, 543, -inf)]:
+        x[r, c] = v
+    x = x.to(dt)
+    wp = rnd.words(k // 32, n)
+    alpha = torch.ones(n, device=x.device)
+    got = xnor_tiled(x, wp, alpha, tile)
+    want = xnor_gemm_plain(x, wp, alpha)
+    tag = f"xnor_gemm non-finite {dt} tile {tile}"
+    g, w = got.float(), want.float()
+    if not (torch.equal(g.isnan(), w.isnan()) and
+            torch.equal(g.isinf(), w.isinf()) and
+            torch.equal(g[g.isinf()], w[w.isinf()])):
+        raise AssertionError(f"{tag}: NaN/inf pattern differs from the "
+                             f"plain version's")
+    fin = torch.isfinite(w)
+    wf = torch.where(fin, w, 0.0)
+    lim = 1e-5 * wf.abs().amax(dim=1, keepdim=True).expand_as(w)
+    if dt == torch.bfloat16:
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        lim = lim + 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    bad = fin & ((g - w).abs() > lim)
+    if bad.any():
+        raise AssertionError(f"{tag}: a finite output differs beyond its "
+                             f"row's tolerance")
+    if not torch.equal(bits_of(got), bits_of(xnor_tiled(x, wp, alpha,
+                                                        tile))):
+        raise AssertionError(f"{tag}: two calls differ")
+
+
 def check_xnor(rnd, rec):
     from repro_torch.kernels.ops import binary_dense
     from repro_torch.kernels.packed import PackedArray, unpack_words
-    from repro_torch.kernels.xnor_gemm import xnor_gemm, xnor_gemm_plain
+    from repro_torch.kernels.xnor_gemm import (TILES, tile_plan, xnor_gemm,
+                                               xnor_gemm_plain)
     err = 0.0
     edges = [(m, k, n, dt, None, False) for m, k, n in
              [(128, 128, 128), (256, 512, 128), (128, 1024, 256),
@@ -431,7 +502,14 @@ def check_xnor(rnd, rec):
               (3 * 37, 544, 200, torch.float32, None, False),
               (3 * 37, 544, 200, torch.bfloat16, "vector", False),
               (5, 1024, 65, torch.float32, "scalar", False),
-              (1, 2048, 97, torch.bfloat16, "scalar", True)]
+              (1, 2048, 97, torch.bfloat16, "scalar", True),
+              # the row-tile boundaries: BM = 16 up to M = 16, then 64
+              (16, 544, 97, torch.float32, None, False),
+              (16, 96, 40, torch.bfloat16, "vector", True),
+              (17, 544, 97, torch.bfloat16, None, False),
+              (17, 96, 65, torch.float32, "scalar", True),
+              (65, 544, 200, torch.float32, "vector", False),
+              (65, 1024, 130, torch.bfloat16, None, False)]
     for m, k, n, dt, thr, pack_out in edges:
         wp = rnd.words(k // 32, n)
         tag = f"xnor_gemm edge {m}x{k}x{n} {dt} {thr} pack_out={pack_out}"
@@ -447,11 +525,41 @@ def check_xnor(rnd, rec):
             err = max(err, float_err(tag + " normal x",
                                      xnor_gemm(x, wp, alpha),
                                      xnor_gemm_plain(x, wp, alpha)))
+    # weights that start 4 bytes past a 16-byte boundary (a contiguous
+    # view at a storage offset), with N a multiple of 4
+    m, k, n = 37, 544, 200
+    wp = rnd.words(k // 32 * n + 1)[1:].view(k // 32, n)
+    x, alpha = xnor_operands(rnd, m, k, n, torch.bfloat16, integer=True)
+    check_equal("xnor_gemm weights at a 4-byte offset",
+                xnor_gemm(x, wp, alpha), xnor_gemm_plain(x, wp, alpha))
     # K = 40 through the entry point: x is zero-padded to 64 bits
     x, alpha = xnor_operands(rnd, 9, 40, 33, torch.float32, integer=True)
     wk = PackedArray(rnd.words(2, 33), length=40, axis=-2)
     check_equal("binary_dense K=40", binary_dense(x, wk, alpha),
                 binary_dense(x, wk, alpha, backend="torch"))
+    # every output tile of the kernel, whole K and K split in 3, in both
+    # dtypes, on one ragged shape (M and N not multiples of any tile, K =
+    # 17 words: no multiple of BK, and not of 3)
+    for (bm, bn), splits, dt in itertools.product(TILES, (1, 3),
+                                                  DENSE_DTYPES):
+        tile = (bm, bn, splits)
+        m, k, n = 150, 544, 200
+        wp = rnd.words(k // 32, n)
+        x, alpha = xnor_operands(rnd, m, k, n, dt, integer=True)
+        tvec = rnd.ints(-6, 7, n).float()
+        tag = f"xnor_gemm tile {tile} {m}x{k}x{n} {dt}"
+        for kw in (dict(), dict(threshold_vec=tvec, pack_out=True,
+                                valid_n=n - 7)):
+            check_equal(f"{tag} exact {sorted(kw)}",
+                        xnor_tiled(x, wp, alpha, tile, **kw),
+                        xnor_gemm_plain(x, wp, alpha, **kw))
+        x, alpha = xnor_operands(rnd, m, k, n, dt, integer=False)
+        err = max(err, float_err(tag + " normal x",
+                                 xnor_tiled(x, wp, alpha, tile),
+                                 xnor_gemm_plain(x, wp, alpha)))
+    for dt in DENSE_DTYPES:
+        for tile in (None, (16, 64, 1), (64, 128, 2)):
+            check_nonfinite(rnd, dt, tile)
 
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     shapes, biggest = [], (0.0, "operations")
@@ -460,6 +568,9 @@ def check_xnor(rnd, rec):
         wps = [rnd.words(k // 32, n) for _ in range(n_copies)]
         for dt in DENSE_DTYPES:
             tag = f"xnor_gemm {m}x{k}x{n} {str(dt)[6:]}"
+            # float32 x runs three exact bf16 products on the tensor
+            # cores: its work is three bf16 GEMMs
+            passes = 1 if dt == torch.bfloat16 else 3
             x, alpha = xnor_operands(rnd, m, k, n, dt, integer=True)
             tvec = rnd.ints(-20, 21, n).float()
             for kw in (dict(), dict(threshold_vec=tvec),
@@ -468,11 +579,16 @@ def check_xnor(rnd, rec):
                             xnor_gemm(x, wps[0], alpha, **kw),
                             xnor_gemm_plain(x, wps[0], alpha, **kw))
             x, alpha = xnor_operands(rnd, m, k, n, dt, integer=False)
-            e = float_err(tag, xnor_gemm(x, wps[0], alpha),
-                          xnor_gemm_plain(x, wps[0], alpha))
+            y = xnor_gemm(x, wps[0], alpha)
+            e = float_err(tag, y, xnor_gemm_plain(x, wps[0], alpha))
             err = max(err, e)
+            if not torch.equal(bits_of(y), bits_of(xnor_gemm(x, wps[0],
+                                                             alpha))):
+                raise AssertionError(f"{tag}: two calls on the same input "
+                                     f"differ")
             flips = threshold_flips(tag, x, wps[0], alpha,
                                     rnd.normal(n) * 10)
+            plan = tile_plan(m, n, k // 32, planes=passes)
             call = rotating(lambda w: xnor_gemm(x, w, alpha), wps)
             ms = kernel_ms(call, "xnor_gemm_kernel")
             event_ms = time_ms(call, 20)
@@ -484,20 +600,20 @@ def check_xnor(rnd, rec):
             esize = x.element_size()
             nbytes = esize * m * k + 4 * (k // 32) * n + 4 * n \
                 + esize * m * n
-            b, by = bound(nbytes, 2 * m * k * n,
-                          BF16_OPS if dt == torch.bfloat16 else FP32_OPS)
+            b, by = bound(nbytes, 2 * m * k * n * passes, BF16_OPS)
             biggest = max(biggest, (b, by))
             shapes.append(dict(m=m, k=k, n=n, dtype=str(dt), ms=ms,
                                plain_ms=plain, bound_ms=b, bound_by=by,
                                library_ms=lib, event_ms=event_ms,
-                               max_abs_err=e,
+                               max_abs_err=e, plan=plan,
                                threshold_bits_differing=flips,
                                weight_copies=n_copies))
             print(f"{tag}: kernel_ms={ms:.4f} (events, host included: "
                   f"{event_ms:.4f}) plain_ms={plain:.4f} "
                   f"library_ms={lib:.4f} bound_ms={b:.5f} ({by}); "
                   f"float max_abs_err {e:.3g}; threshold bits differing "
-                  f"on normal x: {flips} of {m * n}")
+                  f"on normal x: {flips} of {m * n}; two calls "
+                  f"bit-identical; plan {plan}")
             for key, v in (("ms", ms), ("plain_ms", plain),
                            ("bound_ms", b), ("library_ms", lib)):
                 tot[key] += v
@@ -636,12 +752,14 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
 
 def dense_path(rnd, launches):
     """binary_dense, the public entry point, at the decode GEMMs in bf16
-    and float32: one xnor_gemm launch per call, the output within the
+    and float32: one xnor_gemm launch per call, two where the plan
+    splits K (the parts, then their sum), the output within the
     float tolerance of the "torch" backend's; prints ms per call through
     the entry point (host dispatch included, weights cold)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ops import binary_dense
     from repro_torch.kernels.packed import PackedArray
+    from repro_torch.kernels.xnor_gemm import tile_plan
     out = []
     for m, k, n in DENSE_SHAPES:
         wps = [PackedArray(rnd.words(k // 32, n), length=k, axis=-2)
@@ -653,7 +771,10 @@ def dense_path(rnd, launches):
             torch.cuda.synchronize()
             counts = _build.launch_counts()
             tag = f"binary_dense {m}x{k}x{n} {str(dt)[6:]}"
-            expect_launches(tag, counts, {"xnor_gemm": 1})
+            plan = tile_plan(m, n, k // 32,
+                             planes=3 if dt == torch.float32 else 1)
+            expect_launches(tag, counts,
+                            {"xnor_gemm": 1 if plan["splits"] == 1 else 2})
             for key, v in counts.items():
                 launches[key] = launches.get(key, 0) + v
             err = float_err(tag, y, binary_dense(x, wps[0], alpha,
@@ -666,6 +787,88 @@ def dense_path(rnd, launches):
                   f"max abs err {err:.3g} against the torch backend, "
                   f"launches {counts}")
     return out
+
+
+MMA_PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+// 16 independent mma.sync chains per warp, operands in registers
+__global__ void mma_probe(float* out, int iters) {
+  float d[16][4] = {};
+  const uint32_t a = threadIdx.x * 0x9E3779B9u, b = a * 3u;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]),
+                     "+f"(d[c][3])
+                   : "r"(a), "r"(b), "r"(a ^ b), "r"(a + b), "r"(b), "r"(a));
+  float s = 0.f;
+  for (int c = 0; c < 16; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_probe_launch(float* out, int blocks, int iters) {
+  mma_probe<<<blocks, 512>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_sync_peak():
+    """The bf16 mma.sync.m16n8k16 rate this card reaches from registers
+    (16 warps per block, 2 blocks per SM, 16 independent chains a warp):
+    the ceiling of a kernel built on mma.sync, which is not the card's
+    dense bf16 rate (that needs wgmma).  TFLOP/s, CUDA events."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "mma_probe.cu"
+    lib_path = _build.BUILD_DIR / "mma_probe.so"
+    src.write_text(MMA_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:-2], "-o",
+                    str(lib_path), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int]
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 512, device=DEVICE)
+    iters = 4000
+
+    def run():
+        if lib.mma_probe_launch(out.data_ptr(), blocks, iters) != 0:
+            raise AssertionError("mma probe launch failed")
+    ms = time_ms(run, 3, 1)
+    return 2 * 16 * 8 * 16 * 16 * iters * 16 * blocks / ms / 1e9
+
+
+def xnor_sass():
+    """xnor_gemm's dynamic shared memory per variant and, where
+    ``cuobjdump`` exists, the count of HMMA (tensor-core) instructions
+    in its library: the kernel must have some."""
+    import ctypes
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.xnor_gemm import TILES, X_DTYPES
+    lib = _build._load("xnor_gemm")
+    lib.xnor_gemm_smem_bytes.argtypes = [ctypes.c_int] * 3
+    smem = {f"{bm}x{bn} {str(dt)[6:]}": lib.xnor_gemm_smem_bytes(bm, bn, code)
+            for bm, bn in TILES for dt, code in X_DTYPES.items()}
+    print(f"xnor_gemm dynamic shared memory per block, bytes: {smem}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("xnor_gemm: cuobjdump not found, HMMA count not read")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path("xnor_gemm"))],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    ffma = sum("FFMA" in line for line in sass.splitlines())
+    print(f"xnor_gemm SASS: {hmma} HMMA, {ffma} FFMA instructions")
+    if hmma == 0:
+        raise AssertionError("xnor_gemm's library holds no HMMA")
 
 
 def main():
@@ -689,8 +892,13 @@ def main():
     print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, parallel)")
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    src == "xnor_gemm" and "Compiling entry" in line):
                 print(f"ptxas {src}: {line.strip()}")
+    xnor_sass()
+    peak = mma_sync_peak()
+    print(f"mma.sync bf16 m16n8k16 from registers: {peak:.1f} TFLOP/s "
+          f"({peak / (BF16_OPS / 1e12):.3f} of the dense bf16 rate)")
 
     rec = []
     rnd = Rand(1234, DEVICE)
@@ -729,6 +937,7 @@ def main():
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
          "kernels": kernels, "xnor_gemm_shapes": rec[-1]["shapes"],
+         "mma_sync_tflops": peak,
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "device": device},
         indent=1))

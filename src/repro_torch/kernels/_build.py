@@ -13,8 +13,9 @@ never loaded.  The libraries export a plain C interface, loaded with
 
 Every C entry point launches on the stream it is given and returns the
 CUDA error code of the launch; :meth:`Kernel.launch` raises on anything
-but 0 and otherwise adds one to the kernel's launch count — the count
-that shows a run really went through the kernel.
+but 0 and otherwise adds the kernels the call launched (one, unless the
+caller says more) to the kernel's launch count — the count that shows a
+run really went through the kernel.
 """
 from __future__ import annotations
 
@@ -127,10 +128,11 @@ class Kernel:
             self._fn = (lib, fn)
         return self._fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, kernels: int = 1) -> None:
         """Launch on ``device``'s current stream; raise on a CUDA error
         (a refused launch never runs, and a later synchronize would not
-        report it)."""
+        report it).  ``kernels``: the CUDA kernels the entry point
+        launches for these arguments, all added to the count."""
         lib, fn = self._bind()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -138,7 +140,7 @@ class Kernel:
         if err != 0:
             msg = lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
-        self.launches += 1
+        self.launches += kernels
 
 
 P = ctypes.c_void_p
@@ -156,7 +158,7 @@ FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
                    [P, P, I, I, I, P, P, P, P, P, P, I, I])
 
 XNOR_GEMM = Kernel("xnor_gemm", "xnor_gemm", "xnor_gemm_launch",
-                   [P, I, P, P, P, P, I, I, I, I, F, I, I])
+                   [P, I, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P])
 
 KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM)
 

@@ -32,7 +32,7 @@ from repro_torch.kernels.packed_conv import (im2col_words, out_size,
                                              packed_conv2d,
                                              pad_words_spatial)
 from repro_torch.kernels.popcount_gemm import popcount_gemm
-from repro_torch.kernels.xnor_gemm import xnor_gemm
+from repro_torch.kernels.xnor_gemm import tile_plan, xnor_gemm
 
 __all__ = ["binarize_pack", "binary_binary_dense", "binary_conv2d",
            "binary_dense", "classify_threshold", "conv_padding",
@@ -221,13 +221,19 @@ def plan_dense_launch(m: int, n: int, k: int, backend: Optional[str] = None,
                       op: str = "popcount_gemm") -> dict:
     """Static twin of the GEMM dispatch: the launch geometry of an
     [m, k] x [k, n] binary GEMM, without touching any operand.  Oracle
-    backends plan under "cuda", the deployment target."""
+    backends plan under "cuda", the deployment target.  For
+    ``op="xnor_gemm"`` it also reports the kernel's launch plan
+    (``tiles``: ``xnor_gemm.tile_plan`` on an H100's 132 SMs, for bf16
+    activations; float32 ones run three MMA planes, ``planes=3``)."""
     be = get_backend(backend)
     kb = be if be.uses_kernels else get_backend("cuda")
     k32 = kb.pad_k(round_up(k, 32)) // 32
     opk = op + "+pack" if pack_out else op
-    return {"op": opk, "backend": kb.name, "m": m, "n": n, "k32": k32,
-            "key": (opk, kb.name, m, n, k32)}
+    d = {"op": opk, "backend": kb.name, "m": m, "n": n, "k32": k32,
+         "key": (opk, kb.name, m, n, k32)}
+    if op == "xnor_gemm":
+        d["tiles"] = tile_plan(m, n, k32)
+    return d
 
 
 def conv_padding(padding: Union[str, int], kh: int, kw: int

@@ -28,7 +28,8 @@ from repro_torch.kernels.packed_conv import (packed_conv2d,  # noqa: E402
                                              pad_words_spatial)
 from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
                                                popcount_gemm_plain)
-from repro_torch.kernels.xnor_gemm import (xnor_gemm,  # noqa: E402
+from repro_torch.kernels.xnor_gemm import (TILES, _launch,  # noqa: E402
+                                           tile_plan, xnor_gemm,
                                            xnor_gemm_plain)
 
 pytestmark = pytest.mark.gpu
@@ -164,7 +165,14 @@ def _xnor_operands(rng, m, k, n, dtype, device):
     (111, 544, 200, torch.bfloat16, "vector", False),
     (1, 8192, 256, torch.bfloat16, "vector", True),
     (5, 1024, 65, torch.float32, "scalar", False),
-    (20, 4096, 97, torch.bfloat16, "vector", True)])
+    (20, 4096, 97, torch.bfloat16, "vector", True),
+    # the row-tile boundaries: BM = 16 up to M = 16, then 64
+    (16, 544, 97, torch.float32, None, False),
+    (16, 96, 40, torch.bfloat16, "vector", True),
+    (17, 544, 97, torch.bfloat16, None, False),
+    (17, 96, 65, torch.float32, "scalar", True),
+    (65, 544, 200, torch.float32, "vector", False),
+    (65, 1024, 130, torch.bfloat16, None, False)])
 def test_xnor_gemm_kernel(cuda, m, k, n, dtype, thr, pack_out):
     rng = np.random.default_rng(m + k + n)
     x, wp, alpha = _xnor_operands(rng, m, k, n, dtype, cuda)
@@ -175,6 +183,79 @@ def test_xnor_gemm_kernel(cuda, m, k, n, dtype, thr, pack_out):
               valid_n=n - 3 if pack_out else None)
     got = xnor_gemm(x, wp, alpha, **kw)
     assert torch.equal(got, xnor_gemm_plain(x, wp, alpha, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("tile", list(TILES))
+def test_xnor_gemm_every_tile(cuda, tile, splits, dtype):
+    """Every output tile, whole K and K in 3 parts (K = 17 words), with
+    M and N no multiple of any tile: exact y and packed words."""
+    rng = np.random.default_rng(sum(tile) + splits)
+    m, k, n = 150, 544, 200
+    x, wp, alpha = _xnor_operands(rng, m, k, n, dtype, cuda)
+    tvec = torch.from_numpy(rng.integers(-6, 7, n).astype(
+        np.float32)).to(cuda)
+    for kw in (dict(), dict(threshold_vec=tvec, pack_out=True,
+                            valid_n=n - 7)):
+        got = _launch(x, wp, alpha, (*tile, splits), **kw)
+        assert torch.equal(got, xnor_gemm_plain(x, wp, alpha, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xnor_gemm_non_finite_and_deterministic(cuda, dtype):
+    """+-inf and NaN in x land where the plain version's do; two calls
+    give the same bits."""
+    rng = np.random.default_rng(3)
+    m, k, n = 19, 544, 97
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    for r, c, v in [(0, 5, float("inf")), (1, 7, float("-inf")),
+                    (2, 9, float("nan")), (3, 1, float("inf")),
+                    (3, 2, float("-inf"))]:
+        x[r, c] = v
+    x = x.to(device=cuda, dtype=dtype)
+    _, wp, _ = _xnor_operands(rng, m, k, n, dtype, cuda)
+    alpha = torch.ones(n, device=cuda)
+    got = xnor_gemm(x, wp, alpha).float()
+    want = xnor_gemm_plain(x, wp, alpha).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    again = xnor_gemm(x, wp, alpha).float()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_xnor_gemm_weights_at_an_offset(cuda):
+    """Weights that start 4 bytes past a 16-byte boundary (a contiguous
+    view at a storage offset), N a multiple of 4: every tile."""
+    rng = np.random.default_rng(5)
+    m, k, n = 37, 544, 200
+    x, wp, alpha = _xnor_operands(rng, m, k, n, torch.bfloat16, cuda)
+    off = torch.empty(wp.numel() + 1, dtype=wp.dtype, device=cuda)
+    off[1:] = wp.reshape(-1)
+    wo = off[1:].view(k // 32, n)
+    assert wo.is_contiguous() and wo.data_ptr() % 16 == 4
+    want = xnor_gemm_plain(x, wp, alpha)
+    assert torch.equal(xnor_gemm(x, wo, alpha), want)
+    for tile in TILES:
+        assert torch.equal(_launch(x, wo, alpha, (*tile, 2)), want)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (128, 4096, 512, torch.bfloat16), (1, 8192, 1024, torch.float32)])
+def test_xnor_gemm_counts_every_kernel_it_launches(cuda, m, k, n, dtype):
+    """A call launches one kernel, or two where its plan splits K (the
+    parts, then their sum): the count says which."""
+    rng = np.random.default_rng(m + n)
+    x, wp, alpha = _xnor_operands(rng, m, k, n, dtype, cuda)
+    planes = 3 if dtype == torch.float32 else 1
+    splits = tile_plan(m, n, k // 32,
+                       torch.cuda.get_device_properties(
+                           cuda).multi_processor_count, planes)["splits"]
+    _build.reset_launch_counts()
+    xnor_gemm(x, wp, alpha)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["xnor_gemm"] == (1 if splits == 1 else 2)
 
 
 def test_binary_dense_launches_xnor_gemm(cuda):

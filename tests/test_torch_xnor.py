@@ -12,7 +12,10 @@ rtol * max|y|).  Where equality must be exact — thresholds and packed
 words — x is integer-valued in [-3, 3] and alpha in {0.5, 1, 2}, so
 every sum is exact in float32 in any order.  Also pins the
 ValueErrors of binary_dense's contract, plan_dense_launch for the
-xnor_gemm op, and params_from_numpy on bfloat16 leaves.
+xnor_gemm op, and params_from_numpy on bfloat16 leaves.  The Hopper
+kernel's own arithmetic is held here too: its exact three-way bf16 split
+of float32 x (a torch copy of the bit operations), the three products
+summed against the oracle, and its launch plan (tiles, parts of K).
 """
 import numpy as np
 import pytest
@@ -31,8 +34,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.packed import (PackedArray, as_uint32,  # noqa: E402
                                         from_uint32)
 from repro_torch.kernels.ref import xnor_gemm_ref  # noqa: E402
-from repro_torch.kernels.xnor_gemm import (xnor_gemm,  # noqa: E402
-                                           xnor_gemm_plain)
+from repro_torch.kernels.xnor_gemm import (H100_SMS,  # noqa: E402
+                                           MAX_SPLITS, MIN_SPLIT_WORDS,
+                                           TILES, _launch, tile_plan,
+                                           xnor_gemm, xnor_gemm_plain)
 
 BACKENDS = ["cuda", "torch"]
 SHAPES = [(128, 128, 128), (256, 512, 128), (128, 1024, 256),
@@ -324,3 +329,198 @@ def test_params_from_numpy_carries_bfloat16_bit_for_bit():
         y = ops.binary_dense(tx, wp, got["alpha"], backend=backend)
         assert y.dtype == torch.bfloat16
         np.testing.assert_array_equal(_f32(y), _f32(want))
+
+
+# ------------------------------------------------------------------ #
+# the tensor-core kernel's arithmetic and launch plan, on the CPU      #
+# ------------------------------------------------------------------ #
+def _split3(x: torch.Tensor):
+    """The kernel's three-way split of float32 x (csrc/xnor_gemm.cu,
+    ``split3``) with the same bit operations: hi = the top 16 bits of x,
+    r = x - hi, mid = the top 16 bits of r, lo = r - mid; inf and NaN go
+    whole into hi.  Returns the three pieces as float32 tensors."""
+    top = torch.tensor(-65536, dtype=torch.int32)          # 0xFFFF0000
+    hi = (x.view(torch.int32) & top).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & top).view(torch.float32)
+    lo = r - mid
+    finite = torch.isfinite(x)
+    zero = torch.zeros_like(x)
+    return (torch.where(finite, hi, x), torch.where(finite, mid, zero),
+            torch.where(finite, lo, zero))
+
+
+def _finite_samples(rng, n=4000):
+    """+-0, +-FLT_MAX, values above bf16's largest finite, and random
+    finite x with |x| in [2^-100, FLT_MAX) over every exponent."""
+    f32 = np.finfo(np.float32)
+    bf16_max = float(torch.finfo(torch.bfloat16).max)
+    mant = rng.uniform(1.0, 2.0, size=n)
+    expo = rng.integers(-100, 128, size=n)
+    x = (rng.choice([-1.0, 1.0], size=n) * mant * 2.0 ** expo)
+    x = np.clip(x, -float(f32.max), float(f32.max)).astype(np.float32)
+    above = np.linspace(bf16_max, float(f32.max), 50).astype(np.float32)
+    special = np.array([0.0, -0.0, f32.max, -f32.max, 2.0 ** -100,
+                        -(2.0 ** -100)], np.float32)
+    return torch.from_numpy(np.concatenate([x, above, -above, special]))
+
+
+def _in_bf16(t: torch.Tensor) -> bool:
+    return torch.equal(t.to(torch.bfloat16).to(torch.float32), t)
+
+
+def test_split3_is_exact_in_float32_and_float64():
+    """hi + mid + lo == x exactly, summed in float32 and in float64, each
+    piece a bf16 value with the sign of x (or zero), for +-0 and every
+    finite |x| >= 2^-100, including values above bf16's largest finite
+    and +-FLT_MAX (truncation never rounds hi up to inf)."""
+    x = _finite_samples(np.random.default_rng(0))
+    hi, mid, lo = _split3(x)
+    assert torch.equal((hi + mid) + lo, x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    for piece in (hi, mid, lo):
+        assert _in_bf16(piece) and torch.isfinite(piece).all()
+        assert ((piece == 0) | (torch.sign(piece) == torch.sign(x))).all()
+
+
+def test_split3_non_finite_goes_whole_into_hi():
+    x = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    hi, mid, lo = _split3(x)
+    assert hi[0] == float("inf") and hi[1] == float("-inf")
+    assert torch.isnan(hi[2])
+    assert torch.equal(mid, torch.zeros(3)) and torch.equal(lo, torch.zeros(3))
+
+
+def test_split3_below_2_to_the_minus_100_within_tolerance():
+    """Below 2^-100 mid and lo fall into bf16's subnormal range, which
+    the tensor cores may flush to zero, so there the split is held only
+    to the kernel's float tolerance, 1e-5 * max|y|: with every subnormal
+    piece flushed, the three products still sum to xnor_gemm_ref's y
+    within it."""
+    rng = np.random.default_rng(1)
+    m, k, n = 6, 256, 24
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    tiny = rng.uniform(-1, 1, size=(m, k)) * 2.0 ** rng.integers(
+        -149, -100, size=(m, k))
+    x[::2] = tiny[::2].astype(np.float32)              # half the rows tiny
+    tx = torch.from_numpy(x)
+    _, tw = _weights(rng, k, n)
+    ta = torch.ones(n)
+    w = tw.unpack(torch.float32)
+
+    def flush(t):
+        return torch.where(t.abs() < 2.0 ** -126, torch.zeros_like(t), t)
+
+    hi, mid, lo = _split3(tx)
+    assert torch.equal(hi + mid + lo, tx)
+    y = flush(hi) @ w + flush(mid) @ w + flush(lo) @ w
+    want = xnor_gemm_ref(tx, tw.words, ta)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((y - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m,k,n", [(37, 544, 200), (1, 2048, 97),
+                                   (65, 1024, 130)])
+def test_three_bf16_products_match_the_oracle(m, k, n, integer):
+    """The kernel's float32 path: three bf16 products against the same
+    +-1 weights, summed in float32, times alpha, equal xnor_gemm_ref
+    within 1e-5 * max|y| on normal x, and exactly on integer x (mid and
+    lo are 0 there and every sum is exact)."""
+    rng = np.random.default_rng(m + k + n)
+    _, tx = _x(rng, (m, k), jnp.float32, integer=integer)
+    _, tw = _weights(rng, k, n)
+    _, ta = _alpha(rng, n, exact=integer)
+    w = tw.unpack(torch.float32)
+    planes = _split3(tx)
+    assert all(_in_bf16(p) for p in planes)
+    y = (planes[0] @ w + planes[1] @ w + planes[2] @ w) * ta
+    want = xnor_gemm_ref(tx, tw.words, ta)
+    if integer:
+        assert torch.equal(y, want)
+    else:
+        tol = 1e-5 * float(want.abs().max())
+        assert float((y - want).abs().max()) <= tol
+
+
+PLAN_SHAPES = [(128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192),
+               (37, 96, 40), (111, 544, 200), (5, 1024, 65),
+               (1, 2048, 97), (16, 544, 97), (17, 544, 97),
+               (65, 1024, 130), (150, 544, 200), (384, 256, 384),
+               (1024, 4096, 4096)]
+
+
+def _split_words(k32, splits):
+    """The kernel's parts of K (csrc/xnor_gemm.cu): part z takes words
+    [min(k32, z*w), min(k32, z*w + w)) with w = ceil(k32 / splits)."""
+    w = -(-k32 // splits)
+    return [(min(k32, z * w), min(k32, min(k32, z * w) + w))
+            for z in range(splits)]
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_tile_plan_covers_the_output_and_k_once(m, k, n, planes):
+    """BM is 16 up to M = 16 and 64 above; the grid covers every row,
+    column and word of K exactly once; blocks and waves follow."""
+    k32 = k // 32
+    p = tile_plan(m, n, k32, planes=planes)
+    bm, bn, s = p["bm"], p["bn"], p["splits"]
+    assert (bm, bn) in TILES and bm == (16 if m <= 16 else 64)
+    assert 1 <= s <= MAX_SPLITS
+    assert s == 1 or -(-k32 // s) >= MIN_SPLIT_WORDS
+    gm, gn, gz = p["grid"]
+    assert gz == s and p["blocks"] == gm * gn * s
+    assert p["waves"] == -(-p["blocks"] // H100_SMS)
+    rows = np.zeros(m, int)
+    for i in range(gm):
+        rows[i * bm:min(m, (i + 1) * bm)] += 1
+    cols = np.zeros(n, int)
+    for j in range(gn):
+        cols[j * bn:min(n, (j + 1) * bn)] += 1
+    words = np.zeros(k32, int)
+    for lo, hi in _split_words(k32, s):
+        words[lo:hi] += 1
+    assert (rows == 1).all() and (cols == 1).all() and (words == 1).all()
+    assert (gm - 1) * bm < m and (gn - 1) * bn < n
+
+
+@pytest.mark.parametrize("m,k,n,planes,want", [
+    (128, 4096, 4096, 1, (64, 128, 2)), (128, 4096, 4096, 3, (64, 128, 2)),
+    (128, 12288, 12288, 1, (64, 128, 2)),
+    (128, 12288, 12288, 3, (64, 128, 2)),
+    (1, 8192, 8192, 1, (16, 64, 1)), (1, 8192, 8192, 3, (16, 128, 2))])
+def test_tile_plan_at_the_decode_shapes(m, k, n, planes, want):
+    """The plans the chip runs measured best (PERF.md): at M = 128 two
+    parts of K over 64 x 128 tiles (384 blocks at N = 12288: three
+    rounds of the 132 SMs, evenly filled); at M = 1 one 16 x 64 tile per
+    SM for bf16, two parts of K over 16 x 128 tiles for float32."""
+    p = tile_plan(m, n, k // 32, planes=planes)
+    assert (p["bm"], p["bn"], p["splits"]) == want
+
+
+def test_plan_dense_launch_reports_the_tile_plan():
+    for m, k, n in PLAN_SHAPES:
+        d = ops.plan_dense_launch(m, n, k, op="xnor_gemm")
+        assert d["tiles"] == tile_plan(m, n, k // 32)
+    assert "tiles" not in ops.plan_dense_launch(128, 64, 256)
+
+
+def test_tile_argument_is_checked_and_cpu_takes_the_plain_version():
+    """The entry point takes no tile: a CPU tensor takes the plain
+    version.  The private launch helper, which the checks on the card
+    use to force each tile, refuses a tile that is no kernel variant
+    before anything else, and CPU tensors after that."""
+    rng = np.random.default_rng(2)
+    _, tx = _x(rng, (5, 96), jnp.float32, integer=True)
+    _, tw = _weights(rng, 96, 40)
+    a = torch.ones(40)
+    assert torch.equal(xnor_gemm(tx, tw.words, a),
+                       xnor_gemm_plain(tx, tw.words, a))
+    with pytest.raises(TypeError):
+        xnor_gemm(tx, tw.words, a, tile=(16, 64, 1))
+    for bad in [(32, 64, 1), (64, 128), (16, 64, 0), (16, 64, MAX_SPLITS + 1)]:
+        with pytest.raises(ValueError, match="tile"):
+            _launch(tx, tw.words, a, bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        _launch(tx, tw.words, a, (16, 64, 1))
