@@ -25,7 +25,17 @@
    finite outputs within 1e-5 of their row's max |y|), and two calls on
    the same input must give the same bits; its ptxas report
    (registers, spills), shared memory per variant and the count of HMMA
-   instructions in its library (cuobjdump) are printed;
+   instructions in its library (cuobjdump) are printed.  packed_conv2d
+   (b1 mma.sync on the tensor cores) is held bit for bit on the edge
+   shapes (C32 = 1, 2, 12; odd F; stride 2; a 5x5 VALID window; valid_f
+   masking) through its plan and with every tile forced in turn, and on
+   the eight main-path convs (BinaryNet conv2-conv6, AlexNet
+   conv3-conv5) at batches 256 and 1 in all three epilogues, two calls
+   giving the same words; each main conv is timed beside ``F.conv2d``
+   (TF32 off) and its bound at the b1 rate, and its library's BMMA/IMMA
+   count must not be 0.  Its ``kernels`` entry sums BinaryNet
+   conv2-conv6 at batch 256, as in earlier slices.  Before the phases, the
+   ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
    random weights from a seeded generator: the ``"cuda"`` logits must
@@ -65,6 +75,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MEM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 INT8_OPS = 1979e12         # H100 SXM int8 tensor-core peak, dense ops/s
+# +-1 products in b1 (AND-popcount) MMAs: 8x the int8 rate, as the b1
+# mma.sync ceiling measured on the card stands to the s8 one
+B1_OPS = 8 * INT8_OPS
 BF16_OPS = 989e12          # H100 SXM bf16 tensor-core peak, dense FLOP/s
 FP32_OPS = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH = 256                # the batch kernel shapes are taken at
@@ -109,32 +122,10 @@ def time_ms(fn, iters=10, warmup=2):
 
 def kernel_ms(fn, symbol, iters=20):
     """Device time of one call's launches of the kernels whose symbol
-    contains ``symbol``, from torch.profiler over ``iters`` calls of
-    ``fn``.  (A back-to-back CUDA-event timing of a kernel shorter than
-    the host's launch path through the wrapper measures the host.)  The
-    profiler has, rarely, reported no device time at all: it is asked
-    three times, then this raises — a kernel whose symbol the profiler
-    never shows is a failure, never a time taken another way."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and \
-                    symbol in e.key:
-                t = getattr(e, "self_device_time_total", None)
-                us += e.self_cuda_time_total if t is None else t
-        if us > 0:
-            return us / iters / 1e3
-    raise AssertionError(f"the profiler saw no device time of a kernel "
-                         f"named like {symbol} in three tries")
+    contains ``symbol`` (``repro_torch.trace.kernel_ms``: torch.profiler,
+    never a time taken another way)."""
+    from repro_torch.trace import kernel_ms as device_ms
+    return device_ms(fn, symbol, iters)
 
 
 def max_abs_err(a, b):
@@ -219,66 +210,161 @@ def conv_inputs(rnd, nb, h, w, c, f, k, s, pad):
     return x, wt, xw, ww, geo, (ph, pw)
 
 
+# the edge shapes of the conv: (N, H=W, C, F, K, stride, padding,
+# threshold, pack_out, cut): odd C and F (C32 = 1, 2, 12; F = 10, 20,
+# 33, 40, 37), stride 2, a 5x5 VALID window, C32 = 12 at 13x13 with
+# F = 384; packed outputs with valid_f = F (a last word partial where
+# F % 32 != 0) and, where cut = 3, valid_f = F - 3
+CONV_EDGES = [(2, 8, 33, 20, 3, 1, "same", None, False, 0),
+              (1, 9, 64, 32, 3, 2, "same", "scalar", True, 0),
+              (1, 9, 64, 32, 3, 2, "same", "scalar", False, 0),
+              (1, 7, 16, 10, 5, 1, "valid", "vector", False, 0),
+              (2, 6, 3, 40, 3, 1, "same", "vector", True, 0),
+              (2, 6, 50, 33, 3, 1, "same", "vector", True, 0),
+              (1, 9, 64, 32, 3, 2, "same", "scalar", True, 3),
+              (2, 6, 3, 40, 3, 1, "same", "vector", True, 3),
+              (2, 6, 50, 33, 3, 1, "same", "vector", True, 3),
+              (2, 13, 384, 384, 3, 1, "same", "vector", True, 0),
+              (2, 13, 384, 384, 3, 1, "same", "vector", True, 3),
+              (1, 13, 384, 37, 3, 1, "same", None, False, 0),
+              (3, 11, 96, 70, 3, 2, "valid", "scalar", False, 0)]
+CONV_BATCHES = (256, 1)
+
+
+def conv_epilogues(rnd, f):
+    """Keyword sets of the three epilogues, the main path's first: the
+    packed decisions of a per-channel threshold, the dot, and +-1."""
+    tvec = rnd.ints(-3, 4, f)
+    return [dict(threshold_vec=tvec, pack_out=True), dict(),
+            dict(threshold_vec=tvec)]
+
+
+def conv_sass():
+    """The count of b1 (BMMA) and int8 (IMMA) tensor-core instructions,
+    and of POPC, in the conv's library (cuobjdump): the kernel must have
+    tensor-core MMAs.  (Its POPCs count pc_x and pc_w from the MMA
+    fragments; no CUDA-core XNOR-popcount sums over K.)"""
+    import shutil
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise AssertionError("cuobjdump not found: the conv's tensor-core "
+                             "instructions cannot be counted")
+    import ctypes
+
+    from repro_torch.kernels.packed_conv import TILES
+    lib = _build._load("packed_conv")
+    lib.packed_conv2d_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.packed_conv2d_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    print("packed_conv per tile (16-byte copies, K = 144 words): dynamic "
+          "shared memory bytes, blocks per SM: " + str({
+              f"{bm}x{bn}": (lib.packed_conv2d_smem_bytes(bm, bn),
+                             lib.packed_conv2d_blocks_per_sm(bm, bn, 144))
+              for bm, bn in TILES}))
+    sass = subprocess.run([tool, "-sass",
+                           str(_build._lib_path("packed_conv"))],
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    counts = {op: sum(op in line for line in sass)
+              for op in ("BMMA", "IMMA", "POPC", "LDSM")}
+    print(f"packed_conv SASS: {counts}")
+    if counts["BMMA"] + counts["IMMA"] == 0:
+        raise AssertionError("packed_conv's library holds no BMMA or IMMA")
+    return counts
+
+
 def check_conv(rnd, rec):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.packed_conv import (packed_conv2d,
-                                                 packed_conv2d_plain)
+    from repro_torch.conv_tiles import MAIN_CONVS
+    from repro_torch.kernels.packed_conv import (TILES, _launch,
+                                                 packed_conv2d,
+                                                 packed_conv2d_plain,
+                                                 tile_plan)
     from repro_torch.kernels.ref import full_fp32
     err = 0
-    for nb, h, w, c, f, k, s, pad, thr, pack_out in [
-            (2, 8, 8, 33, 20, 3, 1, "same", None, False),
-            (1, 9, 9, 64, 32, 3, 2, "same", "scalar", True),
-            (1, 9, 9, 64, 32, 3, 2, "same", "scalar", False),
-            (1, 7, 7, 16, 10, 5, 1, "valid", "vector", False),
-            (2, 6, 6, 3, 40, 3, 1, "same", "vector", True),
-            (2, 6, 6, 50, 33, 3, 1, "same", "vector", True)]:
-        _, _, xw, ww, geo, _ = conv_inputs(rnd, nb, h, w, c, f, k, s, pad)
-        kw = dict(geo, pack_out=pack_out,
+    # the edge shapes through the plan, then with every tile forced
+    for nb, h, c, f, k, s, pad, thr, pack_out, cut in CONV_EDGES:
+        _, _, xw, ww, geo, _ = conv_inputs(rnd, nb, h, h, c, f, k, s, pad)
+        kw = dict(geo, pack_out=pack_out, valid_f=f - cut,
                   threshold=2 if thr == "scalar" else None,
                   threshold_vec=rnd.ints(-4, 4, f) if thr == "vector"
                   else None)
-        err = max(err, check_equal(f"packed_conv2d edge {nb}x{h}x{w}x{c}"
-                                   f"->{f} s{s} {pad} {thr} {pack_out}",
-                                   packed_conv2d(xw, ww, **kw),
-                                   packed_conv2d_plain(xw, ww, **kw)))
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        tag = (f"packed_conv2d edge {nb}x{h}x{h}x{c}->{f} k{k} s{s} {pad} "
+               f"{thr} pack_out={pack_out} valid_f={f - cut}")
+        want = packed_conv2d_plain(xw, ww, **kw)
+        err = max(err, check_equal(tag, packed_conv2d(xw, ww, **kw), want))
+        for tile in TILES:
+            err = max(err, check_equal(f"{tag} tile {tile}",
+                                       _launch(xw, ww, tile, **kw), want))
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               bound_int8_ms=0.0)
     ops_t = bytes_t = 0.0
-    # conv2..conv6 of BinaryNet at batch 256: (H, C, F)
-    for name, hw, c, f in [("conv2", 32, 128, 128), ("conv3", 16, 128, 256),
-                           ("conv4", 16, 256, 256), ("conv5", 8, 256, 512),
-                           ("conv6", 8, 512, 512)]:
+    shapes = []
+    for batch, (name, hw, c, f) in itertools.product(CONV_BATCHES,
+                                                     MAIN_CONVS):
         x, wt, xw, ww, geo, (ph, pw) = conv_inputs(
-            rnd, BATCH, hw, hw, c, f, 3, 1, "same")
-        tvec = rnd.ints(-3, 4, f)
-        kw = dict(geo, threshold_vec=tvec, pack_out=True)
-        err = max(err, check_equal(f"packed_conv2d {name}",
-                                   packed_conv2d(xw, ww, **kw),
-                                   packed_conv2d_plain(xw, ww, **kw)))
+            rnd, batch, hw, hw, c, f, 3, 1, "same")
+        tag = f"packed_conv2d {name} B={batch}"
+        kws = conv_epilogues(rnd, f)
+        for kw in kws:
+            err = max(err, check_equal(f"{tag} {sorted(kw)}",
+                                       packed_conv2d(xw, ww, **geo, **kw),
+                                       packed_conv2d_plain(xw, ww, **geo,
+                                                           **kw)))
+        kw = dict(geo, **kws[0])            # the main path's epilogue
+        if not torch.equal(packed_conv2d(xw, ww, **kw),
+                           packed_conv2d(xw, ww, **kw)):
+            raise AssertionError(f"{tag}: two calls differ")
+        m = batch * geo["ho"] * geo["wo"]
+        plan = tile_plan(m, f, ww.shape[0])
         ms = kernel_ms(lambda: packed_conv2d(xw, ww, **kw),
                        "packed_conv_kernel", 10)
-        plain = time_ms(lambda: packed_conv2d_plain(xw, ww, **kw), 2, 1)
+        plain = time_ms(lambda: packed_conv2d_plain(xw, ww, **kw), 1, 1)
         xf = F.pad(x.permute(0, 3, 1, 2), (pw, pw, ph, ph), value=-1.0)
         wf = wt.permute(3, 2, 0, 1).contiguous()
         with full_fp32():
             lib = time_ms(lambda: F.conv2d(xf, wf))
-        m = BATCH * geo["ho"] * geo["wo"]
-        nbytes = 4 * (xw.numel() + ww.numel() + f + m * f // 32)
+        del xf, wf
+        nbytes = 4 * (xw.numel() + ww.numel() + f + m * ((f + 31) // 32))
         ops = 2 * m * f * 9 * c
-        b, _ = bound(nbytes, ops, INT8_OPS)
-        print(f"packed_conv2d {name} B={BATCH}: kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={b:.5f}")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
-                       ("library_ms", lib)):
-            tot[key] += v
-        ops_t += ops
-        bytes_t += nbytes
+        b, by = bound(nbytes, ops, B1_OPS)
+        b8 = bound(nbytes, ops, INT8_OPS)[0]
+        shapes.append(dict(name=name, batch=batch, m=m, f=f,
+                           k_words=ww.shape[0], ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b, bound_by=by,
+                           bound_int8_ms=b8, plan=plan))
+        print(f"{tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} bound_ms={b:.5f} ({by}; at the int8 "
+              f"rate {b8:.5f}); {ms and b / ms:.3f} of the bound; plan "
+              f"{plan}")
+        # the kernels line: BinaryNet conv2-conv6 at batch 256, as in
+        # earlier slices
+        if batch == BATCH and name.startswith("BinaryNet"):
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
+                           ("library_ms", lib), ("bound_int8_ms", b8)):
+                tot[key] += v
+            ops_t += ops
+            bytes_t += nbytes
+    sass = conv_sass()
+    sums = {}
+    for group in ("BinaryNet", "AlexNet"):
+        for batch in CONV_BATCHES:
+            rows = [r for r in shapes
+                    if r["name"].startswith(group) and r["batch"] == batch]
+            sums[f"{group} B={batch}"] = {
+                key: sum(r[key] for r in rows)
+                for key in ("ms", "bound_ms", "bound_int8_ms", "library_ms")}
+            print(f"packed_conv2d {group} B={batch} summed: " + " ".join(
+                f"{key}={v:.5f}" for key, v in
+                sums[f"{group} B={batch}"].items()))
     rec.append(dict(name="packed_conv2d", route="cuda",
                     source="src/repro_torch/kernels/csrc/packed_conv.cu",
                     replaces="src/repro/kernels/packed_conv.py:187",
                     max_abs_err=err, **tot,
-                    bound_by=bound(bytes_t, ops_t, INT8_OPS)[1]))
+                    bound_by=bound(bytes_t, ops_t, B1_OPS)[1],
+                    shapes=shapes, sums=sums, sass=sass))
 
 
 def packed_rows(rnd, m, k):
@@ -793,33 +879,51 @@ MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 // 16 independent mma.sync chains per warp, operands in registers
-__global__ void mma_probe(float* out, int iters) {
-  float d[16][4] = {};
-  const uint32_t a = threadIdx.x * 0x9E3779B9u, b = a * 3u;
-  for (int it = 0; it < iters; ++it)
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-                   : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]),
-                     "+f"(d[c][3])
-                   : "r"(a), "r"(b), "r"(a ^ b), "r"(a + b), "r"(b), "r"(a));
-  float s = 0.f;
-  for (int c = 0; c < 16; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-extern "C" int mma_probe_launch(float* out, int blocks, int iters) {
-  mma_probe<<<blocks, 512>>>(out, iters);
+#define REPRO_PROBE(NAME, ACC, CONS, INSTR)                                  \
+  __global__ void NAME(float* out, int iters) {                             \
+    ACC d[16][4] = {};                                                       \
+    const uint32_t a = threadIdx.x * 0x9E3779B9u, b = a * 3u;                \
+    for (int it = 0; it < iters; ++it)                                       \
+      _Pragma("unroll") for (int c = 0; c < 16; ++c)                         \
+        asm volatile(INSTR " {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "        \
+                     "{%0,%1,%2,%3};"                                        \
+                     : "+" CONS(d[c][0]), "+" CONS(d[c][1]),                 \
+                       "+" CONS(d[c][2]), "+" CONS(d[c][3])                  \
+                     : "r"(a), "r"(b), "r"(a ^ b), "r"(a + b), "r"(b),      \
+                       "r"(a));                                              \
+    float s = 0.f;                                                           \
+    for (int c = 0; c < 16; ++c)                                             \
+      s += (float)d[c][0] + (float)d[c][1] + (float)d[c][2] + (float)d[c][3]; \
+    out[blockIdx.x * blockDim.x + threadIdx.x] = s;                          \
+  }
+REPRO_PROBE(probe_bf16, float, "f",
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32")
+REPRO_PROBE(probe_s8, int, "r",
+            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32")
+REPRO_PROBE(probe_b1, int, "r",
+            "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc")
+extern "C" int mma_probe_launch(int kind, float* out, int blocks,
+                                int iters) {
+  if (kind == 0) probe_bf16<<<blocks, 512>>>(out, iters);
+  else if (kind == 1) probe_s8<<<blocks, 512>>>(out, iters);
+  else probe_b1<<<blocks, 512>>>(out, iters);
   return (int)cudaGetLastError();
 }
 """
+# kind code of the probe, its multiply-accumulates per instruction (one
+# per +-1 product for s8 and b1), and the dense rate it is held against
+MMA_KINDS = {"bf16 m16n8k16": (0, 16 * 8 * 16, BF16_OPS, "bf16"),
+             "s8 m16n8k32": (1, 16 * 8 * 32, INT8_OPS, "int8"),
+             "b1 m16n8k256 and.popc": (2, 16 * 8 * 256, INT8_OPS, "int8")}
 
 
-def mma_sync_peak():
-    """The bf16 mma.sync.m16n8k16 rate this card reaches from registers
-    (16 warps per block, 2 blocks per SM, 16 independent chains a warp):
-    the ceiling of a kernel built on mma.sync, which is not the card's
-    dense bf16 rate (that needs wgmma).  TFLOP/s, CUDA events."""
+def mma_sync_ceilings():
+    """The rate each mma.sync variant reaches on this card from
+    registers (16 warps per block, 2 blocks per SM, 16 independent
+    chains a warp), in 2 x multiply-accumulates per second (TFLOP/s for
+    bf16, TOP/s of +-1 products for s8 and b1): the ceiling of a kernel
+    built on that instruction, which is not the card's dense rate (that
+    needs wgmma).  CUDA events."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -831,17 +935,20 @@ def mma_sync_peak():
                     str(lib_path), str(src)], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.mma_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_int]
+    lib.mma_probe_launch.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int]
     blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(blocks * 512, device=DEVICE)
     iters = 4000
-
-    def run():
-        if lib.mma_probe_launch(out.data_ptr(), blocks, iters) != 0:
-            raise AssertionError("mma probe launch failed")
-    ms = time_ms(run, 3, 1)
-    return 2 * 16 * 8 * 16 * 16 * iters * 16 * blocks / ms / 1e9
+    rates = {}
+    for name, (kind, macs, _, _) in MMA_KINDS.items():
+        def run():
+            if lib.mma_probe_launch(kind, out.data_ptr(), blocks,
+                                    iters) != 0:
+                raise AssertionError(f"mma probe {name} launch failed")
+        ms = time_ms(run, 3, 1)
+        rates[name] = 2 * macs * 16 * iters * 16 * blocks / ms / 1e9
+    return rates
 
 
 def xnor_sass():
@@ -893,12 +1000,16 @@ def main():
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or (
-                    src == "xnor_gemm" and "Compiling entry" in line):
+                    src in ("xnor_gemm", "packed_conv")
+                    and "Compiling entry" in line):
                 print(f"ptxas {src}: {line.strip()}")
     xnor_sass()
-    peak = mma_sync_peak()
-    print(f"mma.sync bf16 m16n8k16 from registers: {peak:.1f} TFLOP/s "
-          f"({peak / (BF16_OPS / 1e12):.3f} of the dense bf16 rate)")
+    peak = mma_sync_ceilings()
+    for name, rate in peak.items():
+        _, _, dense, dense_name = MMA_KINDS[name]
+        print(f"mma.sync {name} from registers: {rate:.1f} T ops/s "
+              f"(2 x multiply-accumulates; {rate / (dense / 1e12):.3f} of "
+              f"the dense {dense_name} rate)")
 
     rec = []
     rnd = Rand(1234, DEVICE)
@@ -936,8 +1047,10 @@ def main():
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
-         "kernels": kernels, "xnor_gemm_shapes": rec[-1]["shapes"],
-         "mma_sync_tflops": peak,
+         "kernels": kernels,
+         **{f"{r['name']}_{part}": r[part] for r in rec
+            for part in ("shapes", "sums") if part in r},
+         "mma_sync_tops": peak,
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "device": device},
         indent=1))

@@ -135,8 +135,10 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 padding=nd.pad, backend=backend, pack_out=True,
                 impl=conv_impl, nb=batch)
             thr = nodes[i + 1]         # BNThreshold, by validation
-            why = "forced" if conv_impl != "auto" else \
-                "8 pixels x 32 filters per warp, no resident image"
+            tiles = d.get("tiles")
+            why = "forced" if conv_impl != "auto" else (
+                f"b1 tensor-core implicit GEMM, tile {tiles['bm']}x"
+                f"{tiles['bn']}")
             steps.append(PlanStep(
                 "binary_conv", nd.name,
                 {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad,

@@ -37,6 +37,7 @@ SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -153,7 +154,7 @@ POPCOUNT_GEMM = Kernel("popcount_gemm", "popcount_gemm",
                        [P, P, P, P, I, I, I, I, I, I, I, I])
 PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
                      [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
-                      I, I])
+                      I, I, I, I])
 FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
                    [P, P, I, I, I, P, P, P, P, P, P, I, I])
 
@@ -170,6 +171,16 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def device_sms(device: torch.device) -> int:
+    """The card's SM count, which the launch plans round blocks to."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sms[idx]
 
 
 def require_cuda_tensor(t: torch.Tensor, what: str) -> None:

@@ -31,6 +31,7 @@ from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
 from repro_torch.kernels.packed_conv import (im2col_words, out_size,
                                              packed_conv2d,
                                              pad_words_spatial)
+from repro_torch.kernels.packed_conv import tile_plan as conv_tile_plan
 from repro_torch.kernels.popcount_gemm import popcount_gemm
 from repro_torch.kernels.xnor_gemm import tile_plan, xnor_gemm
 
@@ -258,11 +259,14 @@ def plan_conv_launch(h: int, w: int, c: int, f: int, kh: int, kw: int,
     """Static twin of the binary_conv2d dispatch: output geometry and
     the direct-vs-im2col choice.
 
-    The port's rule: "auto" is "direct".  The Hopper direct kernel tiles
-    8 output pixels x 32 filters per warp and keeps no image resident,
-    so unlike the TPU kernel (one whole padded image in VMEM) it has no
-    footprint that could overflow shared memory; im2col only pays the
-    KH*KW-fold patch matrix in device memory.  im2col runs when forced.
+    The port's rule: "auto" is "direct".  The Hopper direct kernel is an
+    implicit GEMM on the tensor cores that gathers each stage's window
+    words into shared memory and keeps no image resident, so unlike the
+    TPU kernel (one whole padded image in VMEM) it has no footprint that
+    could overflow shared memory; im2col only pays the KH*KW-fold patch
+    matrix in device memory.  im2col runs when forced.  For "direct" it
+    also reports the kernel's launch plan (``tiles``:
+    ``packed_conv.tile_plan`` on an H100's 132 SMs).
     """
     if impl not in ("auto", "direct", "im2col"):
         raise ValueError(f"impl must be 'auto', 'direct', or 'im2col', "
@@ -283,7 +287,8 @@ def plan_conv_launch(h: int, w: int, c: int, f: int, kh: int, kw: int,
     else:
         op = "packed_conv+pack" if pack_out else "packed_conv"
         d.update(impl="direct", op=op,
-                 key=(op, kb.name, ho * wo, f, kh * kw * c32))
+                 key=(op, kb.name, ho * wo, f, kh * kw * c32),
+                 tiles=conv_tile_plan(nb * ho * wo, f, kh * kw * c32))
     return d
 
 

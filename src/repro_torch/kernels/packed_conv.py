@@ -7,12 +7,17 @@ zero words), filters are ``[KH*KW*C32, F]`` words in tap-major order,
 and the closed form ``dot = 2*(pc - (K_p - K)) - K`` with
 ``K = KH*KW*C`` cancels the per-tap channel pad bits.
 
+The kernel is an implicit GEMM on the tensor cores: N*HO*WO pixels by F
+filters over the KH*KW*C32 words of each window, b1 ``mma.sync`` with
+AND-popcount, ``dot = K - 2*(pc_x + pc_w) + 4*popc(x & w)``, one
+launch per call.  Its output tile is chosen here, by :func:`tile_plan`.
+
 ``im2col_words`` is the fallback: a word-granularity patch matrix that
 drops into ``popcount_gemm``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +29,34 @@ from repro_torch.kernels.popcount_gemm import (apply_threshold_plain,
                                                threshold_mode)
 
 __all__ = ["im2col_words", "out_size", "packed_conv2d",
-           "packed_conv2d_plain", "pad_words_spatial"]
+           "packed_conv2d_plain", "pad_words_spatial", "tile_plan"]
+
+MMA_WORDS = 8           # K of one b1 m16n8k256 MMA, in words
+# the kernel's output tiles (BM pixels x BN filters), largest first
+TILES = ((128, 128), (64, 128), (64, 64))
+H100_SMS = 132
+
+
+def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS) -> dict:
+    """The launch plan of a conv with ``m`` output pixels, ``f`` filters
+    and ``k32`` = KH*KW*C32 words per window.
+
+    The tile is the largest of ``TILES`` whose grid has at least half
+    as many blocks as the card has SMs.  Each tile in ``TILES`` halves
+    the one before, so the next has twice the blocks: from that point on
+    it would not spread the work over more SMs, and the larger tile
+    loads each word for more MMAs.  Where no grid is that large (batch
+    1), the smallest tile spreads the work furthest.  ``python -m
+    repro_torch.conv_tiles`` times every tile at the main paths' convs
+    beside this choice.  K is zero-padded to ``k_words``, a multiple of
+    the MMA depth (8 words).  Returns ``bm``, ``bn``, ``k_words``, the
+    grid (pixel tiles, filter tiles) and its block count."""
+    for bm, bn in TILES:
+        grid = (-(-m // bm), -(-f // bn))
+        if 2 * grid[0] * grid[1] >= sms:
+            break
+    return {"bm": bm, "bn": bn, "k_words": -(-k32 // MMA_WORDS) * MMA_WORDS,
+            "grid": grid, "blocks": grid[0] * grid[1]}
 
 
 def out_size(n: int, k: int, stride: int, pad: int) -> int:
@@ -95,7 +127,8 @@ def packed_conv2d(xw: torch.Tensor, ww: torch.Tensor, *, kh: int, kw: int,
     channel count; ho, wo: the output extent.  Returns int32
     [N, HO*WO, F] (the dot, or +-1 with a threshold), or with
     ``pack_out`` int32 words [N, HO*WO, ceil(F/32)].  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel."""
+    the plain version; a CUDA tensor launches the kernel with the plan
+    of :func:`tile_plan`."""
     if xw.ndim != 4 or ww.ndim != 2:
         raise ValueError(f"packed_conv2d takes [N, H, W, C32] x "
                          f"[KH*KW*C32, F], got {tuple(xw.shape)} x "
@@ -119,15 +152,47 @@ def packed_conv2d(xw: torch.Tensor, ww: torch.Tensor, *, kh: int, kw: int,
     if xw.device.type == "cpu":
         return packed_conv2d_plain(xw, ww, **args)
     _build.require_cuda_tensor(xw, "packed_conv2d")
+    p = tile_plan(n * ho * wo, f, taps_words, _build.device_sms(xw.device))
+    return _launch(xw, ww, (p["bm"], p["bn"]), **args)
+
+
+def _launch(xw: torch.Tensor, ww: torch.Tensor, tile: Tuple[int, int],
+            *, kh: int, kw: int, c: int, stride: int, ho: int, wo: int,
+            threshold: Optional[int] = None,
+            threshold_vec: Optional[torch.Tensor] = None,
+            pack_out: bool = False,
+            valid_f: Optional[int] = None) -> torch.Tensor:
+    """The kernel on CUDA operands whose shapes :func:`packed_conv2d`
+    checked, with the tile ``(BM, BN)`` given, one of ``TILES``:
+    :func:`packed_conv2d` passes its plan, and the checks on the card
+    pass every tile in turn."""
+    if tuple(tile) not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    if xw.device.type != "cuda":
+        raise ValueError(f"packed_conv2d's kernel takes CUDA tensors, got "
+                         f"device {xw.device}")
     for t, name in ((xw, "xw"), (ww, "ww")):
         if t.dtype != WORD or not t.is_contiguous() or t.device != xw.device:
             raise ValueError(f"packed_conv2d: {name} must be contiguous "
                              f"int32 words on {xw.device}")
-    shape = (n, ho * wo, (f + 31) // 32 if pack_out else f)
-    out = torch.empty(shape, dtype=WORD, device=xw.device)
+    n, h_pad, w_pad, c32 = xw.shape
+    f = ww.shape[1]
+    valid_f = f if valid_f is None else valid_f
+    if threshold_vec is not None:
+        threshold_vec = threshold_vec.contiguous()
+    m = n * ho * wo
+    if m >= 2 ** 31:
+        raise ValueError(f"packed_conv2d's kernel takes fewer than 2^31 "
+                         f"output pixels, got {m}")
+    out = torch.empty((n, ho * wo, (f + 31) // 32 if pack_out else f),
+                      dtype=WORD, device=xw.device)
+    if m == 0 or f == 0:
+        return out
+    bm, bn = tile
     _build.PACKED_CONV.launch(
         xw.device, _build.ptr(xw), _build.ptr(ww), _build.ptr(threshold_vec),
         _build.ptr(out), n, h_pad, w_pad, c32, kh, kw, stride, ho, wo, f,
         kh * kw * c, threshold_mode(threshold, threshold_vec),
-        0 if threshold is None else int(threshold), int(pack_out), valid_f)
+        0 if threshold is None else int(threshold), int(pack_out), valid_f,
+        bm, bn)
     return out

@@ -44,7 +44,6 @@ H100_SMS = 132
 MAC_PER_US = 1.03e6     # bf16 multiply-accumulates per microsecond per SM
 BYTES_PER_US = 3.0e6    # device memory, for the partial sums
 REDUCE_US = 2.0         # the second pass's launch
-_sms = {}
 
 
 def tile_plan(m: int, n: int, k32: int, sms: int = H100_SMS,
@@ -80,15 +79,6 @@ def tile_plan(m: int, n: int, k32: int, sms: int = H100_SMS,
                         "grid": (gm, gn, splits), "blocks": blocks,
                         "waves": waves, "est_us": est}
     return best
-
-
-def _device_sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sms[idx]
 
 
 def _check_args(x: torch.Tensor, wp: torch.Tensor, alpha: torch.Tensor,
@@ -158,7 +148,7 @@ def xnor_gemm(x: torch.Tensor, wp: torch.Tensor, alpha: torch.Tensor,
                                pack_out, valid_n)
     _build.require_cuda_tensor(x, "xnor_gemm")
     p = tile_plan(x.shape[0], wp.shape[1], wp.shape[0],
-                  _device_sms(x.device),
+                  _build.device_sms(x.device),
                   planes=3 if x.dtype == torch.float32 else 1)
     return _launch(x, wp, alpha, (p["bm"], p["bn"], p["splits"]),
                    threshold, threshold_vec, pack_out, valid_n)

@@ -1,7 +1,7 @@
 """Where the time of a BNN forward goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.trace [--model alexnet]
-        [--batches 1 256]
+    PYTHONPATH=src python -m repro_torch.trace [--model binarynet alexnet]
+        [--batches 1 32 256]
 
 Runs full-width BinaryNet CIFAR-10 or XNOR-AlexNet (random weights from
 a seeded generator, integer images) through ``graph.compile(...).apply``
@@ -9,16 +9,18 @@ under ``torch.profiler`` and prints, per batch, the device time of each
 kernel group per forward, the wall time per forward under the profiler,
 and the device's busy share (device kernel time over wall time; the
 profiler's own overhead inflates the wall time, so the share is a lower
-bound).  Needs a CUDA device; the results also go to
+bound).  Needs a CUDA device; each line names the card and its power
+limit (``nvidia-smi``), and the results also go to
 ``trace_<model>.json`` in the output directory (see ``main``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -38,6 +40,36 @@ def _group(name: str) -> str:
         if frag in name:
             return group
     return "other: " + name[:60]
+
+
+def kernel_ms(fn: Callable[[], object], symbol: str, iters: int = 20
+              ) -> float:
+    """Device time of one call's launches of the kernels whose symbol
+    contains ``symbol``, from torch.profiler over ``iters`` calls of
+    ``fn``.  (A back-to-back CUDA-event timing of a kernel shorter than
+    the host's launch path through the wrapper measures the host.)  The
+    profiler has, rarely, reported no device time at all: it is asked
+    three times, then this raises -- a kernel whose symbol the profiler
+    never shows is a failure, never a time taken another way."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    symbol in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError(f"the profiler saw no device time of a kernel "
+                         f"named like {symbol} in three tries")
 
 
 def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
@@ -74,27 +106,31 @@ def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=sorted(WORKLOADS),
-                    default="binarynet")
+    ap.add_argument("--model", choices=sorted(WORKLOADS), nargs="+",
+                    default=["binarynet"])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 256])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace needs a CUDA device")
-    smi = torch.cuda.get_device_name(0)
-    out = []
-    for b in args.batches:
-        r = trace_forward(WORKLOADS[args.model], b)
-        out.append(r)
-        print(f"{smi} {args.model} B={b}: wall "
-              f"{r['wall_us_per_forward']:.1f} us/forward under the "
-              f"profiler, device {r['device_us_per_forward']:.1f}"
-              f" us, busy share {r['busy_share']:.3f}")
-        for g, us in r["device_us_by_group"].items():
-            print(f"  {us:10.1f} us  {g}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     path = Path("chiprun_out")
     path.mkdir(exist_ok=True)
-    (path / f"trace_{args.model}.json").write_text(json.dumps(out,
-                                                               indent=1))
+    for model in args.model:
+        out = []
+        for b in args.batches:
+            r = trace_forward(WORKLOADS[model], b)
+            out.append(r)
+            print(f"{smi}: {model} B={b}: wall "
+                  f"{r['wall_us_per_forward']:.1f} us/forward under the "
+                  f"profiler, device {r['device_us_per_forward']:.1f}"
+                  f" us, busy share {r['busy_share']:.3f}")
+            for g, us in r["device_us_by_group"].items():
+                print(f"  {us:10.1f} us  {g}")
+        (path / f"trace_{model}.json").write_text(json.dumps(
+            {"card": smi, "batches": out}, indent=1))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ reference's "xla" dispatch on the cases of tests/test_conv.py; (3)
 im2col_words and pad_words_spatial word for word; (4) the OR-pool;
 (5) BN folding: the negated words and T' = 1 - T equal the
 reference's; (6) the float entry conv to a stated tolerance (the
-summation order differs)."""
+summation order differs); (7) the tensor-core kernel's arithmetic,
+written here in torch (im2col words zero-padded to the b1 MMA depth,
+K_p - pc_x - pc_w + 2*popc(x & w), the closed form), bit for bit against the plain version and the Pallas
+kernel, and its launch plan (the kernel itself runs on the card:
+tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
 
@@ -23,11 +27,14 @@ from repro.core import bnn_layers as jbl  # noqa: E402
 from repro.kernels import packed_conv as jpc  # noqa: E402
 from repro.kernels.ops import binary_conv2d as jconv  # noqa: E402
 from repro.kernels.packed import PackedArray as JPacked  # noqa: E402
+from repro_torch import conv_tiles  # noqa: E402
 from repro_torch.core import bnn_layers as tbl  # noqa: E402
 from repro_torch.kernels import packed_conv as tpc  # noqa: E402
 from repro_torch.kernels.ops import binary_conv2d  # noqa: E402
 from repro_torch.kernels.packed import (PackedArray, as_uint32,  # noqa: E402
-                                        from_uint32)
+                                        from_uint32, popcount_u32)
+from repro_torch.kernels.popcount_gemm import (  # noqa: E402
+    apply_threshold_plain)
 
 
 def _pm1(rng, *shape):
@@ -207,3 +214,99 @@ def test_binary_weight_conv_matches_reference():
             np.testing.assert_array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# (N, H=W, C, F, K, stride, padding): the edge shapes of the kernel's
+# checks on the card (C32 = 1, 2, 3; F = 10, 20, 33, 40; stride 2; a 5x5
+# VALID window) and C = 384 (C32 = 12, AlexNet conv4's 108 words, no
+# multiple of the MMA depth) at a small batch
+MMA_CASES = [(2, 8, 33, 20, 3, 1, "same"), (1, 9, 64, 32, 3, 2, "same"),
+             (1, 7, 16, 10, 5, 1, "valid"), (2, 6, 3, 40, 3, 1, "same"),
+             (2, 6, 50, 33, 3, 1, "same"), (1, 5, 384, 40, 3, 1, "same")]
+# the main paths' binary convs: (H=W, C, F)
+MAIN_CONVS = [(h, c, f) for _, h, c, f in conv_tiles.MAIN_CONVS]
+
+
+def _mma_dot(xw, ww, kh, kw, c, stride, ho, wo):
+    """The kernel's arithmetic: the im2col words zero-padded to the MMA
+    depth (8 words) on both operands, the XNOR count K_p - pc_x - pc_w +
+    2*popc(x & w), then the closed form."""
+    kw_words = ww.shape[0]
+    k_words = tpc.tile_plan(1, 1, kw_words)["k_words"]
+    assert k_words % tpc.MMA_WORDS == 0 and k_words - kw_words < 8
+    a = tpc.im2col_words(xw, kh, kw, stride, ho, wo)
+    a = torch.nn.functional.pad(a, (0, k_words - kw_words))
+    b = torch.nn.functional.pad(ww, (0, 0, 0, k_words - kw_words))
+    pc_x = popcount_u32(a).sum(1, dtype=torch.int64)
+    pc_w = popcount_u32(b).sum(0, dtype=torch.int64)
+    both = torch.zeros(a.shape[0], b.shape[1], dtype=torch.int64)
+    for t in range(k_words):
+        both += popcount_u32(a[:, t, None] & b[None, t])
+    xnor = 32 * k_words - pc_x[:, None] - pc_w[None, :] + 2 * both
+    k, k_p = kh * kw * c, 32 * k_words
+    return (2 * (xnor - (k_p - k)) - k).to(torch.int32)
+
+
+@pytest.mark.parametrize("cut", [0, 3])
+@pytest.mark.parametrize("nb,h,c,f,k,s,pad", MMA_CASES)
+def test_mma_arithmetic_matches_plain_and_pallas(nb, h, c, f, k, s, pad,
+                                                 cut):
+    """``cut``: the packed decisions keep the first F - cut filters
+    (valid_f), the rest of the last word zero."""
+    rng = np.random.default_rng(nb * 7 + h + c + f + k + s)
+    jx, jw, _, _ = _pack_io(rng, nb, h, h, c, f, k)
+    p = (k - 1) // 2 if pad == "same" else 0
+    ho = jpc.out_size(h, k, s, p)
+    c32 = jx.n_words
+    jxw = jpc.pad_words_spatial(jx.words, p, p)
+    jww = jw.words.reshape(k * k * c32, f)
+    txw, tww = from_uint32(np.asarray(jxw)), from_uint32(np.asarray(jww))
+    geo = dict(kh=k, kw=k, c=c, stride=s, ho=ho, wo=ho)
+    dot = _mma_dot(txw, tww, k, k, c, s, ho, ho)
+    plain = tpc.packed_conv2d_plain(txw, tww, **geo)
+    np.testing.assert_array_equal(dot.reshape(plain.shape).numpy(),
+                                  plain.numpy())
+    np.testing.assert_array_equal(
+        dot.reshape(plain.shape).numpy(),
+        np.asarray(jpc.packed_conv2d(jxw, jww, interpret=True, **geo)))
+    # the thresholds on those sums: +-1 as the Pallas kernel gives it,
+    # and the main path's packed decisions (bits at filters >= valid_f
+    # zero) as the plain version gives them
+    tv = rng.integers(-4, 4, size=f).astype(np.int32)
+    pm1 = apply_threshold_plain(dot, None, torch.from_numpy(tv), False, f)
+    np.testing.assert_array_equal(
+        pm1.reshape(plain.shape).numpy(),
+        np.asarray(jpc.packed_conv2d(jxw, jww, interpret=True,
+                                     threshold_vec=jnp.asarray(tv), **geo)))
+    valid_f = f - cut
+    packed = apply_threshold_plain(dot, None, torch.from_numpy(tv), True,
+                                   valid_f)
+    want = tpc.packed_conv2d_plain(txw, tww, threshold_vec=torch.from_numpy(
+        tv), pack_out=True, valid_f=valid_f, **geo)
+    np.testing.assert_array_equal(packed.reshape(want.shape).numpy(),
+                                  want.numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("shape", MAIN_CONVS + [
+    (h, c, f) for _, h, c, f, *_ in MMA_CASES])
+def test_conv_tile_plan_covers_the_product(shape, batch):
+    """Every main-path conv shape and edge shape: the plan's tile is one
+    the kernel has, its grid covers M and F, K is padded to whole MMA
+    depths, and the tile is the largest whose grid has at least half as
+    many blocks as SMs, or the smallest where none has."""
+    h, c, f = shape
+    m, k32 = batch * h * h, 9 * -(-c // 32)
+    p = tpc.tile_plan(m, f, k32)
+    tile = (p["bm"], p["bn"])
+    assert tile in tpc.TILES
+    gm, gn = p["grid"]
+    assert gm * p["bm"] >= m > (gm - 1) * p["bm"]
+    assert gn * p["bn"] >= f > (gn - 1) * p["bn"]
+    assert p["blocks"] == gm * gn
+    assert p["k_words"] % tpc.MMA_WORDS == 0
+    assert 0 <= p["k_words"] - k32 < tpc.MMA_WORDS
+    fills = [2 * -(-m // bm) * -(-f // bn) >= tpc.H100_SMS
+             for bm, bn in tpc.TILES]
+    assert tile == (tpc.TILES[fills.index(True)] if any(fills)
+                    else tpc.TILES[-1])

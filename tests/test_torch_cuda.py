@@ -23,6 +23,8 @@ from repro_torch.kernels.fused_mlp import (fused_mlp_words,  # noqa: E402
                                            fused_mlp_words_plain)
 from repro_torch.kernels.pack import pack, pack_plain  # noqa: E402
 from repro_torch.kernels.packed import PackedArray, pack_words  # noqa: E402
+from repro_torch.kernels.packed_conv import TILES as CONV_TILES  # noqa: E402
+from repro_torch.kernels.packed_conv import _launch as _conv_launch  # noqa
 from repro_torch.kernels.packed_conv import (packed_conv2d,  # noqa: E402
                                              packed_conv2d_plain,
                                              pad_words_spatial)
@@ -79,21 +81,85 @@ def test_popcount_gemm_kernel(cuda, m, k, n, thr, pack_out):
     (1, 9, 64, 32, 3, 2, 1, "scalar", True),
     (1, 7, 16, 10, 5, 1, 0, "vector", False),
     (2, 6, 50, 33, 3, 1, 1, "vector", True),
-    (4, 32, 128, 128, 3, 1, 1, "vector", True)])
+    (4, 32, 128, 128, 3, 1, 1, "vector", True),
+    # C32 = 12 (108 words: no multiple of the MMA depth) at 13x13
+    (2, 13, 384, 384, 3, 1, 1, "vector", True),
+    (1, 13, 384, 384, 3, 1, 1, None, False),
+    # odd F
+    (3, 13, 384, 37, 3, 1, 1, "scalar", False),
+    (2, 11, 96, 71, 3, 2, 0, "vector", True)])
 def test_packed_conv2d_kernel(cuda, nb, h, c, f, k, s, pad, thr, pack_out):
     rng = np.random.default_rng(nb + h + c + f)
-    x = _pm1(rng, nb, h, h, c, device=cuda)
-    w = _pm1(rng, k, k, c, f, device=cuda)
+    xw, ww, kw = _conv_operands(rng, nb, h, c, f, k, s, pad, thr, pack_out,
+                                cuda)
+    assert torch.equal(packed_conv2d(xw, ww, **kw),
+                       packed_conv2d_plain(xw, ww, **kw))
+
+
+@pytest.mark.parametrize("nb,h,c,f,k,s,pad,thr", [
+    (1, 9, 64, 32, 3, 2, 1, "scalar"), (2, 6, 50, 33, 3, 1, 1, "vector"),
+    (4, 32, 128, 128, 3, 1, 1, "vector"),
+    (2, 13, 384, 384, 3, 1, 1, "vector"),
+    (2, 11, 96, 71, 3, 2, 0, "scalar")])
+def test_packed_conv2d_kernel_valid_f(cuda, nb, h, c, f, k, s, pad, thr):
+    """Packed decisions of the first F - 3 filters only: the bits of the
+    rest are zero, in the last word and in whole words past it."""
+    rng = np.random.default_rng(nb + h + c + f)
+    xw, ww, kw = _conv_operands(rng, nb, h, c, f, k, s, pad, thr, True,
+                                cuda, cut=3)
+    assert torch.equal(packed_conv2d(xw, ww, **kw),
+                       packed_conv2d_plain(xw, ww, **kw))
+
+
+def _conv_operands(rng, nb, h, c, f, k, s, pad, thr, pack_out, device,
+                   cut=0):
+    """Packed operands and keywords of a conv; with ``cut``, valid_f is
+    F - cut."""
+    x = _pm1(rng, nb, h, h, c, device=device)
+    w = _pm1(rng, k, k, c, f, device=device)
     xw = pad_words_spatial(pack_words(x, -1), pad, pad).contiguous()
     ww = pack_words(w, 2).reshape(k * k * xw.shape[-1], f).contiguous()
     ho = (h + 2 * pad - k) // s + 1
     kw = dict(kh=k, kw=k, c=c, stride=s, ho=ho, wo=ho, pack_out=pack_out,
               threshold=2 if thr == "scalar" else None,
               threshold_vec=torch.from_numpy(rng.integers(
-                  -4, 4, f).astype(np.int32)).to(cuda)
-              if thr == "vector" else None)
-    assert torch.equal(packed_conv2d(xw, ww, **kw),
-                       packed_conv2d_plain(xw, ww, **kw))
+                  -4, 4, f).astype(np.int32)).to(device)
+              if thr == "vector" else None,
+              valid_f=f - cut if cut else None)
+    return xw, ww, kw
+
+
+@pytest.mark.parametrize("tile", list(CONV_TILES))
+@pytest.mark.parametrize("nb,h,c,f,k,s,pad", [
+    (2, 8, 33, 20, 3, 1, 1), (1, 7, 16, 10, 5, 1, 0),
+    (2, 13, 384, 70, 3, 2, 1), (3, 9, 128, 96, 3, 1, 1)])
+def test_packed_conv2d_every_tile(cuda, nb, h, c, f, k, s, pad, tile):
+    """Every output tile on the edge shapes (C32 = 2, 1, 12, 4; 16- and
+    4-byte copies): the three epilogues, the packed one with valid_f = F
+    and F - 3, bit for bit."""
+    rng = np.random.default_rng(nb + h + c + f)
+    for thr, pack_out, cut in ((None, False, 0), ("scalar", False, 0),
+                               ("vector", True, 0), ("vector", True, 3)):
+        xw, ww, kw = _conv_operands(rng, nb, h, c, f, k, s, pad, thr,
+                                    pack_out, cuda, cut)
+        got = _conv_launch(xw, ww, tile, **kw)
+        assert torch.equal(got, packed_conv2d_plain(xw, ww, **kw))
+
+
+@pytest.mark.parametrize("tile", [None] + list(CONV_TILES))
+def test_packed_conv2d_counts_one_launch_per_call(cuda, tile):
+    """A call launches one kernel and counts one, with the plan's tile
+    (None) at an AlexNet conv4 shape or with each tile forced."""
+    rng = np.random.default_rng(7)
+    xw, ww, kw = _conv_operands(rng, 2, 13, 384, 384, 3, 1, 1, "vector",
+                                True, cuda)
+    _build.reset_launch_counts()
+    if tile is None:
+        packed_conv2d(xw, ww, **kw)
+    else:
+        _conv_launch(xw, ww, tile, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["packed_conv2d"] == 1
 
 
 @pytest.mark.parametrize("m,k0,ns", [(37, 50, [20, 33]), (301, 97, [300, 65]),
