@@ -34,7 +34,19 @@
    giving the same words; each main conv is timed beside ``F.conv2d``
    (TF32 off) and its bound at the b1 rate, and its library's BMMA/IMMA
    count must not be 0.  Its ``kernels`` entry sums BinaryNet
-   conv2-conv6 at batch 256, as in earlier slices.  Before the phases, the
+   conv2-conv6 at batch 256, as in earlier slices.  fused_binary_mlp
+   (b1 mma.sync on a thread-block cluster that exchanges activations
+   through distributed shared memory) is held bit for bit on five edge
+   stacks (odd widths with fewer words than a cluster has blocks, K =
+   50 and 97 bits, one layer, AlexNet fc6+fc7 at batch 1, 8 layers) and
+   on the six main shapes (BinaryNet fc1+fc2 and AlexNet fc6+fc7 at
+   batches 1, 32, 256), through its plan and with every (BM, CS) config
+   that fits forced; each config is timed beside the plan's pick, and
+   the chained route (one popcount_gemm launch a layer) beside them; how
+   many of the six shapes the plan got fastest is printed, and every
+   kernel variant in its library must hold BMMAs (cuobjdump).  Its
+   ``kernels`` entry is BinaryNet fc1+fc2 at batch 256, as in earlier
+   slices.  Before the phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -239,20 +251,29 @@ def conv_epilogues(rnd, f):
             dict(threshold_vec=tvec)]
 
 
-def conv_sass():
-    """The count of b1 (BMMA) and int8 (IMMA) tensor-core instructions,
-    and of POPC, in the conv's library (cuobjdump): the kernel must have
-    tensor-core MMAs.  (Its POPCs count pc_x and pc_w from the MMA
-    fragments; no CUDA-core XNOR-popcount sums over K.)"""
+def sass_of(source):
+    """The SASS lines of a kernel library (cuobjdump), to count its
+    instructions; raises where cuobjdump is missing."""
     import shutil
 
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        raise AssertionError("cuobjdump not found: the conv's tensor-core "
-                             "instructions cannot be counted")
+        raise AssertionError(f"cuobjdump not found: {source}'s tensor-core "
+                             f"instructions cannot be counted")
+    return subprocess.run([tool, "-sass", str(_build._lib_path(source))],
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+
+
+def conv_sass():
+    """The count of b1 (BMMA) and int8 (IMMA) tensor-core instructions,
+    and of POPC, in the conv's library (cuobjdump): the kernel must have
+    tensor-core MMAs.  (Its POPCs count pc_x and pc_w from the MMA
+    fragments; no CUDA-core XNOR-popcount sums over K.)"""
     import ctypes
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.packed_conv import TILES
     lib = _build._load("packed_conv")
     lib.packed_conv2d_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -262,10 +283,7 @@ def conv_sass():
               f"{bm}x{bn}": (lib.packed_conv2d_smem_bytes(bm, bn),
                              lib.packed_conv2d_blocks_per_sm(bm, bn, 144))
               for bm, bn in TILES}))
-    sass = subprocess.run([tool, "-sass",
-                           str(_build._lib_path("packed_conv"))],
-                          capture_output=True, text=True,
-                          check=True).stdout.splitlines()
+    sass = sass_of("packed_conv")
     counts = {op: sum(op in line for line in sass)
               for op in ("BMMA", "IMMA", "POPC", "LDSM")}
     print(f"packed_conv SASS: {counts}")
@@ -372,45 +390,156 @@ def packed_rows(rnd, m, k):
     return pack_words(rnd.pm1(m, k), -1).contiguous()
 
 
+# the fused stack's edge stacks (M, K0, widths, thresholds: an int is a
+# scalar): odd widths with fewer words than a cluster has blocks, K = 50
+# and 97 bits (4-byte weight copies), one layer, AlexNet's fc6+fc7 at
+# batch 1 with a scalar fc7 threshold, and 8 layers
+FUSED_EDGES = [(37, 50, [20, 33], [2, "vector"]),
+               (301, 97, [300, 65, 40], ["vector", 1, "vector"]),
+               (5, 64, [32], ["vector"]),
+               (1, 9216, [4096, 4096], ["vector", 0]),
+               (70, 128, [64, 40, 96, 33, 20, 300, 65, 10],
+                ["vector", 1, "vector", -2, "vector", 0, "vector", 3])]
+# the main paths' stacks, each at BATCHES
+FUSED_MAIN = [("BinaryNet fc1+fc2", 8192, [1024, 1024]),
+              ("AlexNet fc6+fc7", 9216, [4096, 4096])]
+
+
+def fused_operands(rnd, m, k0, ns, thr):
+    x = packed_rows(rnd, m, k0)
+    ws, ks, ts, k = [], [], [], k0
+    for n, t in zip(ns, thr):
+        ws.append(packed_rows(rnd, n, k))
+        ks.append(k)
+        ts.append(rnd.ints(-5, 5, n) if t == "vector" else t)
+        k = n
+    return x, ws, ks, ts
+
+
+def fused_sass():
+    """The count of b1 tensor-core instructions (BMMA), POPC and LDSM in
+    the fused stack's library (cuobjdump), and of BMMA in each kernel
+    variant: every variant must sum on the tensor cores.  (Its POPCs
+    count pc_x once a layer from the activation buffer; no CUDA-core
+    XNOR-popcount sums over K.)"""
+    sass = sass_of("fused_mlp")
+    counts = {op: sum(op in line for line in sass)
+              for op in ("BMMA", "POPC", "LDSM", "IMMA")}
+    per_kernel, name = {}, None
+    for line in sass:
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            per_kernel[name] = 0
+        elif name and "BMMA" in line:
+            per_kernel[name] += 1
+    print(f"fused_mlp SASS: {counts}; BMMA per kernel variant: "
+          f"{sorted(per_kernel.values())}")
+    if not per_kernel or min(per_kernel.values()) == 0:
+        raise AssertionError("a fused_mlp kernel variant holds no BMMA")
+    return dict(counts, bmma_per_variant=sorted(per_kernel.values()))
+
+
 def check_fused(rnd, rec):
-    from repro_torch.kernels.fused_mlp import (fused_mlp_words,
-                                               fused_mlp_words_plain)
+    from repro_torch.kernels.fused_mlp import (CLUSTERS, ROW_TILES,
+                                               SMEM_BYTES, _launch,
+                                               fused_mlp_words,
+                                               fused_mlp_words_plain,
+                                               launch_config, smem_bytes,
+                                               stack_plan)
+    from repro_torch.kernels.ops import binary_binary_dense
+    from repro_torch.kernels.packed import PackedArray
+    configs = [(bm, cs) for bm in ROW_TILES for cs in CLUSTERS]
+
+    def fitting(m, k0, ns):
+        buf = stack_plan(m, k0, ns)["buf_words"]
+        return [c for c in configs if smem_bytes(c[0], buf) <= SMEM_BYTES]
+
+    from repro_torch.kernels import fused_mlp
+    dev = torch.device(DEVICE)
+    active = {cs: fused_mlp._active_clusters(dev, 16, cs, 288)
+              for cs in CLUSTERS}
+    print(f"fused_binary_mlp: clusters the card runs at once (BM = 16, "
+          f"AlexNet's buffers): {active}")
     err = 0
-    for m, k0, ns, thr in [(37, 50, [20, 33], [2, "vector"]),
-                           (301, 97, [300, 65, 40],
-                            ["vector", 1, "vector"]),
-                           (5, 64, [32], ["vector"])]:
-        x = packed_rows(rnd, m, k0)
-        ws, ks, ts, k = [], [], [], k0
-        for n, t in zip(ns, thr):
-            ws.append(packed_rows(rnd, n, k))
-            ks.append(k)
-            ts.append(rnd.ints(-5, 5, n) if t == "vector" else t)
-            k = n
-        err = max(err, check_equal(f"fused_mlp edge m={m} {k0}->{ns}",
-                                   fused_mlp_words(x, ws, ks, ts),
-                                   fused_mlp_words_plain(x, ws, ks, ts)))
-    # fc1 + fc2 of BinaryNet at batch 256
-    x = packed_rows(rnd, BATCH, 8192)
-    ws = [packed_rows(rnd, 1024, 8192), packed_rows(rnd, 1024, 1024)]
-    ks = [8192, 1024]
-    ts = [rnd.ints(-3, 4, 1024), rnd.ints(-3, 4, 1024)]
-    err = max(err, check_equal("fused_mlp main",
-                               fused_mlp_words(x, ws, ks, ts),
-                               fused_mlp_words_plain(x, ws, ks, ts)))
-    nbytes = 4 * (x.numel() + sum(w.numel() for w in ws) + 2048
-                  + BATCH * 32)
-    b, by = bound(nbytes, 2 * BATCH * (8192 * 1024 + 1024 * 1024),
-                  INT8_OPS)
+    # the edge stacks through the plan, then with every config forced
+    for m, k0, ns, thr in FUSED_EDGES:
+        x, ws, ks, ts = fused_operands(rnd, m, k0, ns, thr)
+        tag = f"fused_mlp edge m={m} {k0}->{ns}"
+        want = fused_mlp_words_plain(x, ws, ks, ts)
+        err = max(err, check_equal(tag, fused_mlp_words(x, ws, ks, ts),
+                                   want))
+        for config in fitting(m, k0, ns):
+            err = max(err, check_equal(f"{tag} config {config}",
+                                       _launch(x, ws, ks, ts, config), want))
+    shapes, fastest = [], 0
+    for (name, k0, ns), batch in itertools.product(FUSED_MAIN, BATCHES):
+        x, ws, ks, ts = fused_operands(rnd, batch, k0, ns,
+                                       ["vector"] * len(ns))
+        tag = f"fused_binary_mlp {name} B={batch}"
+        want = fused_mlp_words_plain(x, ws, ks, ts)
+        got = fused_mlp_words(x, ws, ks, ts)
+        err = max(err, check_equal(tag, got, want))
+        if not torch.equal(got, fused_mlp_words(x, ws, ks, ts)):
+            raise AssertionError(f"{tag}: two calls differ")
+        plan = launch_config(x.device, batch, k0, ns, x.shape[1])
+        times = {}
+        for config in fitting(batch, k0, ns):
+            err = max(err, check_equal(f"{tag} config {config}",
+                                       _launch(x, ws, ks, ts, config), want))
+            times[config] = kernel_ms(
+                lambda: _launch(x, ws, ks, ts, config), "fused_mlp_kernel")
+        ms = kernel_ms(lambda: fused_mlp_words(x, ws, ks, ts),
+                       "fused_mlp_kernel")
+        # the chained route: one thresholded, packed popcount_gemm launch
+        # a layer, as the plan takes where a stack does not fit
+        xp = PackedArray(x, length=k0, axis=-1)
+        wps = [PackedArray(w, length=k, axis=-1) for w, k in zip(ws, ks)]
+
+        def chained():
+            h = xp
+            for w, t in zip(wps, ts):
+                h = binary_binary_dense(h, w, threshold=t, pack_out=True)
+            return h.words
+
+        err = max(err, check_equal(f"{tag} chained", chained(), want))
+        chained_ms = kernel_ms(chained, "popcount_gemm_kernel")
+        plain = time_ms(lambda: fused_mlp_words_plain(x, ws, ks, ts), 2, 1)
+        nbytes = 4 * (x.numel() + sum(w.numel() for w in ws) + sum(ns)
+                      + batch * ((ns[-1] + 31) // 32))
+        ops = 2 * batch * sum(n * k for n, k in zip(ns, ks))
+        b, by = bound(nbytes, ops, B1_OPS)
+        best = min(times, key=times.get)
+        fastest += best == plan
+        shapes.append(dict(name=name, batch=batch, ms=ms, plain_ms=plain,
+                           chained_ms=chained_ms, bound_ms=b, bound_by=by,
+                           bound_int8_ms=bound(nbytes, ops, INT8_OPS)[0],
+                           plan=list(plan), fastest=list(best),
+                           config_ms={f"{bm}x{cs}": t for (bm, cs), t
+                                      in times.items()}))
+        print(f"{tag}: kernel_ms={ms:.4f} (plan BM={plan[0]} CS={plan[1]}) "
+              f"chained_ms={chained_ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={b:.5f} ({by}); {ms and b / ms:.3f} of the bound; "
+              f"every config: " + ", ".join(
+                  f"{bm}x{cs} {t:.4f}" for (bm, cs), t in times.items()))
+    print(f"fused_binary_mlp: the plan's config is the fastest at "
+          f"{fastest} of {len(shapes)} main shapes")
+    sass = fused_sass()
+    sums = {key: sum(r[key] for r in shapes)
+            for key in ("ms", "chained_ms", "bound_ms")}
+    print(f"fused_binary_mlp summed over the {len(shapes)} shapes: " + " ".join(
+        f"{key}={v:.5f}" for key, v in sums.items()))
+    # the kernels line: BinaryNet fc1+fc2 at batch 256, as in earlier
+    # slices
+    main = next(r for r in shapes if r["name"].startswith("BinaryNet")
+                and r["batch"] == BATCH)
     rec.append(dict(name="fused_binary_mlp", route="cuda",
                     source="src/repro_torch/kernels/csrc/fused_mlp.cu",
                     replaces="src/repro/kernels/fused_mlp.py:143",
-                    max_abs_err=err,
-                    ms=kernel_ms(lambda: fused_mlp_words(x, ws, ks, ts),
-                                 "fused_mlp_kernel"),
-                    plain_ms=time_ms(
-                        lambda: fused_mlp_words_plain(x, ws, ks, ts), 2, 1),
-                    bound_ms=b, bound_by=by, library_ms=None))
+                    max_abs_err=err, ms=main["ms"],
+                    plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"], library_ms=None,
+                    shapes=shapes, sums=sums, sass=sass,
+                    plan_fastest=fastest, clusters_at_once=active))
 
 
 def check_gemm(rnd, rec):

@@ -8,6 +8,11 @@ pattern, and tensors for every other array, on ``device``.  The caller
 does the unwrapping; the port never sees a JAX object.  bfloat16
 leaves (numpy arrays of the ``ml_dtypes`` bfloat16 dtype, which torch
 cannot read) are carried bit for bit through their uint16 pattern.
+A NamedTuple with the fields ``(T, flip)`` is the reference's
+``FoldedThreshold`` (folded batch norm, from ``quantize_for_serving``):
+it becomes the port's ``FoldedThreshold``, T int32 and flip bool, which
+the binary conv and dense layers rewrite at bind time.  It is known by
+its fields, so nothing of the reference is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.bnn_layers import FoldedThreshold
 from repro_torch.kernels.packed import PM1, PackedArray, from_uint32
 
 __all__ = ["params_from_numpy"]
@@ -33,6 +39,14 @@ def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
                                axis=int(tree["axis"]),
                                values=tree.get("values", PM1))
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        if tree._fields == FoldedThreshold._fields:
+            return FoldedThreshold(
+                T=torch.tensor(np.asarray(tree.T), dtype=torch.int32,
+                               device=device),
+                flip=torch.tensor(np.asarray(tree.flip), dtype=torch.bool,
+                                  device=device))
+        return type(tree)(*(params_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if isinstance(tree, np.ndarray):

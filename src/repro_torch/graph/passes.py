@@ -60,8 +60,8 @@ def _fmt_kb(b: int) -> str:
 def _segment_dense_run(run, k0: int, batch: int):
     """Pass 3: greedily grow fused segments over a contiguous run of
     thresholded dense layers; each segment must fit one launch under
-    the Hopper rule (two shared-memory activation buffers of bm rows
-    beside one streamed weight tile, at most 8 layers)."""
+    the Hopper rule (two shared-memory activation buffers of 16 rows
+    beside the weight ring, at most 8 layers)."""
     steps = []
     i = 0
     while i < len(run):
@@ -90,10 +90,11 @@ def _segment_dense_run(run, k0: int, batch: int):
             steps.append(PlanStep(
                 "fused_stack", run[i][1].name, {"fc_indices": idxs},
                 f"fused_mlp over {j - i} layers ({k0}->{names}), "
-                f"activations of bm={sp['bm']} rows in two shared-memory "
-                f"buffers, weights streamed from L2 "
-                f"({_fmt_kb(sp['smem_bytes'])} shared memory per block), "
-                f"1 launch vs {j - i} chained"))
+                f"row tiles of BM={sp['bm']} rows, each on a cluster of "
+                f"CS={sp['cs']} blocks that split every layer's output "
+                f"words and exchange activations through distributed "
+                f"shared memory ({_fmt_kb(sp['smem_bytes'])} shared "
+                f"memory per block), 1 launch vs {j - i} chained"))
             k0 = run[j - 1][1].n_out
             i = j
     return steps

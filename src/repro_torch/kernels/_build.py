@@ -156,7 +156,7 @@ PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
                      [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
                       I, I, I, I])
 FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
-                   [P, P, I, I, I, P, P, P, P, P, P, I, I])
+                   [P, P, I, I, I, P, P, P, P, P, P, I, I, I])
 
 XNOR_GEMM = Kernel("xnor_gemm", "xnor_gemm", "xnor_gemm_launch",
                    [P, I, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P])

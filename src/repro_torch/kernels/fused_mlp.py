@@ -2,22 +2,26 @@
 
 The counterpart of ``repro.kernels.fused_mlp``; the kernel is
 ``csrc/fused_mlp.cu``.  The TULIP-PE schedule never lets an
-intermediate activation leave the processing element; here one block
-per tile of ``bm`` rows keeps its rows' packed activations in two
-shared-memory buffers across the layers and streams each layer's
-weights from device memory and L2 — the weights are not resident (fc1
-of BinaryNet alone is 1 MiB, and a Hopper block has 227 KB).  Only the
-first layer's input and the last layer's output cross device memory.
+intermediate activation leave the processing element; here the
+activation of a tile of ``bm`` rows stays in shared memory across the
+layers, and the layers' output words are split over a thread-block
+cluster of ``cs`` blocks, which hand their words to each other through
+distributed shared memory after each layer.  Each block streams only
+its slice of each layer's weights (the weights are not resident: fc1 of
+BinaryNet alone is 1 MiB, and a Hopper block has 227 KB).  Only the
+first layer's input and the last layer's output cross device memory;
+the dots run on the b1 tensor cores.
 
 The words equal chaining ``binary_binary_dense(pack_out=True)``; the
 plain version is exactly that chain of ``popcount_gemm_plain``.
 ``stack_plan`` is THE fused-vs-chained rule, shared with the graph
-compiler's dense-run segmentation.
+compiler's dense-run segmentation, and picks the launch's row tile and
+cluster size.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -26,45 +30,86 @@ from repro_torch.kernels.ops import binary_binary_dense, kernel_threshold
 from repro_torch.kernels.packed import WORD, PackedArray, get_backend
 from repro_torch.kernels.popcount_gemm import popcount_gemm_plain
 
-__all__ = ["fused_binary_mlp", "fused_mlp_words", "fused_mlp_words_plain",
-           "stack_plan"]
+__all__ = ["block_slices", "fused_binary_mlp", "fused_mlp_words",
+           "fused_mlp_words_plain", "launch_config", "stack_plan"]
 
 LayerThreshold = Union[int, torch.Tensor]
 
-# the Hopper residency rule's constants (csrc/fused_mlp.cu)
+# the kernel's constants (csrc/fused_mlp.cu)
 SMEM_BYTES = 232448          # shared memory one H100 block may use
 MAX_LAYERS = 8               # layers one launch takes
-MAX_BM = 32                  # rows per block
-N_SM = 132                   # SMs: at most one block each
-TILE_BYTES = 4 * 32 * 257    # the streamed weight tile (32 words x 256+1)
+ROW_TILES = (64, 32, 16)     # BM, rows per cluster, largest first
+CLUSTERS = (16, 8)           # CS, blocks per cluster
+RING = 4                     # stages of the weight ring
+STAGE_BYTES = 4 * 9216       # one stage: 256 columns x (32 + 4) words
+PAD_WORDS = 4                # words after each row of a buffer or stage
+MMA_WORDS = 8                # K of one b1 m16n8k256 MMA, in words
+# clusters of 16 and of 8 blocks an H100 SXM runs at once, one block an
+# SM (cudaOccupancyMaxActiveClusters at any row tile: every block needs
+# more than half an SM's shared memory)
+H100_CLUSTERS = {16: 7, 8: 15}
+
+
+def _round8(words: int) -> int:
+    return -(-words // MMA_WORDS) * MMA_WORDS
+
+
+def smem_bytes(bm: int, buf_words: int) -> int:
+    """Dynamic shared memory of one block: the weight ring, two
+    activation buffers of ``bm`` rows and the rows' popcounts."""
+    return RING * STAGE_BYTES + 4 * (2 * bm * (buf_words + PAD_WORDS) + bm)
+
+
+def block_slices(n: int, cs: int) -> List[Tuple[int, int]]:
+    """The output words ``[lo, hi)`` of a layer of ``n`` columns that
+    each block of a cluster of ``cs`` owns: whole 32-column words, as
+    equal as they divide (a block may own none)."""
+    nw = -(-n // 32)
+    return [(nw * r // cs, nw * (r + 1) // cs) for r in range(cs)]
 
 
 def stack_plan(m: int, k0: int, ns: Sequence[int],
-               w0: Optional[int] = None) -> dict:
-    """Geometry + residency decision for one fused-stack launch.
+               w0: Optional[int] = None,
+               clusters: Optional[Dict[int, int]] = None) -> dict:
+    """Geometry and fit of one fused-stack launch.
 
     ``m`` rows of a ``k0``-bit input (``w0`` words, if padded wider)
-    through layers of widths ``ns``.  The Hopper rule: a block holds the
-    packed activations of ``bm`` rows in two shared-memory buffers (each
-    as wide as the widest layer input) beside one streamed weight tile;
-    weights and per-channel thresholds stay in device memory and cost no
-    shared memory.  ``bm`` is the smallest power of two (at most 32)
-    that needs no more blocks than the card has SMs — every block then
-    streams the weights once, in parallel — halved until the buffers
-    fit.  The stack fits when some ``bm`` >= 1 fits and it has at most 8
-    layers."""
+    through layers of widths ``ns``, on a card that runs ``clusters[cs]``
+    clusters of ``cs`` blocks at once (``H100_CLUSTERS`` by default; the
+    wrapper asks the card).  A cluster of ``cs`` blocks owns a row tile of
+    ``bm`` rows and splits each layer's output words, so each block
+    streams 1/cs of the weights; a block holds the tile's whole
+    activation in two buffers of ``buf_words`` words a row (the widest
+    layer input, rounded to whole MMA depths) beside a ring of weight
+    stages.  Of the row tiles 16, 32, 64 that fit the 232,448 B a block
+    may use, and the cluster sizes the card can run, the plan takes the
+    fewest waves (ceil(row tiles / clusters at once)), then the larger
+    cluster (half the weight bytes a block), then the smaller row tile.
+    The stack fits one launch when ``bm`` = 16 fits and it has at most
+    8 layers."""
+    clusters = H100_CLUSTERS if clusters is None else clusters
     if w0 is None:
         w0 = (k0 + 31) // 32
     # the last layer writes device memory directly, not a buffer
-    buf_words = max([w0] + [(n + 31) // 32 for n in ns[:-1]])
-    bm = 1                       # a power of two: the kernel's template
-    while bm < MAX_BM and bm * N_SM < m:
-        bm *= 2
-    while bm > 1 and 8 * bm * buf_words + TILE_BYTES > SMEM_BYTES:
-        bm //= 2
-    smem = 8 * bm * buf_words + TILE_BYTES
-    return {"bm": bm, "w0": w0, "buf_words": buf_words, "smem_bytes": smem,
-            "fits": smem <= SMEM_BYTES and len(ns) <= MAX_LAYERS}
+    buf_words = max(_round8(w) for w in
+                    [w0] + [(n + 31) // 32 for n in ns[:-1]])
+    runnable = [cs for cs in CLUSTERS if clusters.get(cs, 0) > 0]
+    if not runnable:
+        raise ValueError(f"no cluster of {CLUSTERS} blocks can run: "
+                         f"{clusters}")
+    options = []            # (waves, -cs, bm): the first is the plan
+    for bm in ROW_TILES:
+        if smem_bytes(bm, buf_words) <= SMEM_BYTES:
+            tiles = -(-m // bm)
+            options += [(-(-tiles // clusters[cs]), -cs, bm)
+                        for cs in runnable]
+    waves, neg_cs, bm = min(options, default=(0, -runnable[0],
+                                              ROW_TILES[-1]))
+    cs = -neg_cs
+    return {"bm": bm, "cs": cs, "blocks": -(-m // bm) * cs,
+            "waves": waves, "w0": w0, "buf_words": buf_words,
+            "smem_bytes": smem_bytes(bm, buf_words), "ring": RING,
+            "fits": bool(options) and len(ns) <= MAX_LAYERS}
 
 
 def fused_mlp_words_plain(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -83,15 +128,9 @@ def fused_mlp_words_plain(x: torch.Tensor, ws: Sequence[torch.Tensor],
     return h
 
 
-def fused_mlp_words(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                    ks: Sequence[int],
-                    thresholds: Sequence[LayerThreshold]) -> torch.Tensor:
-    """x: int32 words [M, W0]; ws[l]: int32 words [N_l, KW_l] with
-    KW_0 = W0 and KW_{l+1} = ceil(N_l/32); ks[l]: valid bits of layer
-    l's input; thresholds[l]: int, or int32 [N_l] per channel.  Returns
-    the last layer's words [M, ceil(N_L/32)].  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel with
-    ``stack_plan``'s row tile."""
+def _check_stack(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                 ks: Sequence[int],
+                 thresholds: Sequence[LayerThreshold]) -> None:
     if not (len(ws) == len(ks) == len(thresholds)) or not ws:
         raise ValueError(f"{len(ws)} weights, {len(ks)} ks, "
                          f"{len(thresholds)} thresholds")
@@ -109,26 +148,111 @@ def fused_mlp_words(x: torch.Tensor, ws: Sequence[torch.Tensor],
             raise ValueError(f"layer {li}: per-channel threshold must be "
                              f"int32 [{w.shape[0]}]")
         kw = (w.shape[0] + 31) // 32
+
+
+def fused_mlp_words(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                    ks: Sequence[int],
+                    thresholds: Sequence[LayerThreshold]) -> torch.Tensor:
+    """x: int32 words [M, W0]; ws[l]: int32 words [N_l, KW_l] with
+    KW_0 = W0 and KW_{l+1} = ceil(N_l/32); ks[l]: valid bits of layer
+    l's input; thresholds[l]: int, or int32 [N_l] per channel.  Returns
+    the last layer's words [M, ceil(N_L/32)].  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel with the row tile
+    and cluster size of :func:`launch_config`.  A stack that does not
+    fit one launch, or a card that can schedule neither cluster, raises."""
+    _check_stack(x, ws, ks, thresholds)
     if x.device.type == "cpu":
         return fused_mlp_words_plain(x, ws, ks, thresholds)
     _build.require_cuda_tensor(x, "fused_mlp_words")
-    tensors = [x, *ws] + [t for t in thresholds
-                          if isinstance(t, torch.Tensor)]
-    for t in tensors:
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"fused_mlp_words: every operand must be "
-                             f"contiguous on {x.device}")
-    if x.dtype != WORD or any(w.dtype != WORD for w in ws):
-        raise ValueError("fused_mlp_words: words must be int32")
-    ns = [w.shape[0] for w in ws]
-    m = x.shape[0]
-    sp = stack_plan(m, ks[0], ns, w0=x.shape[1])
+    config = launch_config(x.device, x.shape[0], ks[0],
+                           [w.shape[0] for w in ws], x.shape[1])
+    return _launch(x, ws, ks, thresholds, config)
+
+
+def launch_config(device: torch.device, m: int, k0: int, ns: Sequence[int],
+                  w0: Optional[int] = None) -> Tuple[int, int]:
+    """The ``(BM, CS)`` a launch on ``device`` takes: ``stack_plan`` with
+    the clusters of 16 and of 8 blocks the card runs at once
+    (``cudaOccupancyMaxActiveClusters``).  Raises where the stack does
+    not fit one launch or the card can schedule neither cluster."""
+    buf_words = stack_plan(m, k0, ns, w0=w0)["buf_words"]
+    clusters = {cs: _active_clusters(device, ROW_TILES[-1], cs, buf_words)
+                for cs in CLUSTERS}
+    if not any(clusters.values()):
+        raise RuntimeError(f"fused_mlp: {device} can schedule no cluster "
+                           f"of {' or '.join(map(str, CLUSTERS))} blocks "
+                           f"with {smem_bytes(ROW_TILES[-1], buf_words)} B "
+                           f"each")
+    sp = stack_plan(m, k0, ns, w0=w0, clusters=clusters)
     if not sp["fits"]:
         raise ValueError(f"stack does not fit one launch "
                          f"({sp['smem_bytes']} B of shared memory, "
                          f"{len(ns)} layers)")
+    return sp["bm"], sp["cs"]
+
+
+_clusters: Dict[tuple, int] = {}
+
+
+def _active_clusters(device: torch.device, bm: int, cs: int,
+                     buf_words: int) -> int:
+    """Clusters of ``cs`` blocks of row tile ``bm`` the card can run at
+    once (``cudaOccupancyMaxActiveClusters``; 0: none can be
+    scheduled)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, bm, cs, buf_words)
+    if key not in _clusters:
+        lib = _build._load("fused_mlp")
+        fn = lib.fused_mlp_active_clusters
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(idx):
+            n = fn(bm, cs, buf_words)
+        if n < 0:
+            raise RuntimeError(f"fused_mlp: occupancy query for BM={bm}, "
+                               f"CS={cs} failed (CUDA error {-n})")
+        _clusters[key] = n
+    return _clusters[key]
+
+
+def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], ks: Sequence[int],
+            thresholds: Sequence[LayerThreshold],
+            config: Tuple[int, int]) -> torch.Tensor:
+    """The kernel on CUDA operands with the launch ``(BM, CS)`` given:
+    :func:`fused_mlp_words` passes its plan, and the checks on the card
+    pass every config in turn.  A config whose block does not fit the
+    shared memory, or whose cluster the card cannot schedule, raises."""
+    bm, cs = config
+    if bm not in ROW_TILES or cs not in CLUSTERS:
+        raise ValueError(f"config must be (BM, CS) with BM in {ROW_TILES} "
+                         f"and CS in {CLUSTERS}, got {config}")
+    _check_stack(x, ws, ks, thresholds)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp's kernel takes CUDA tensors, got "
+                         f"device {x.device}")
+    tvecs = [t for t in thresholds if isinstance(t, torch.Tensor)]
+    for t in [x, *ws, *tvecs]:
+        if t.dtype != WORD or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"fused_mlp_words: every operand must be "
+                             f"contiguous int32 on {x.device}")
+    ns = [w.shape[0] for w in ws]
+    if len(ns) > MAX_LAYERS:
+        raise ValueError(f"one launch takes at most {MAX_LAYERS} layers, "
+                         f"got {len(ns)}")
+    m = x.shape[0]
+    buf_words = stack_plan(m, ks[0], ns, w0=x.shape[1])["buf_words"]
+    smem = smem_bytes(bm, buf_words)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"config {config} needs {smem} B of shared memory "
+                         f"a block, more than {SMEM_BYTES}")
+    if _active_clusters(x.device, bm, cs, buf_words) < 1:
+        raise RuntimeError(f"config {config}: {x.device} cannot schedule a "
+                           f"cluster of {cs} blocks with {smem} B each")
     nl = len(ws)
     out = torch.empty(m, (ns[-1] + 31) // 32, dtype=WORD, device=x.device)
+    if m == 0:
+        return out
     w_ptrs = (ctypes.c_void_p * nl)(*[w.data_ptr() for w in ws])
     t_ptrs = (ctypes.c_void_p * nl)(
         *[t.data_ptr() if isinstance(t, torch.Tensor) else None
@@ -143,7 +267,7 @@ def fused_mlp_words(x: torch.Tensor, ws: Sequence[torch.Tensor],
         ctypes.cast(ints(*ks), ctypes.c_void_p),
         ctypes.cast(ints(*[0 if isinstance(t, torch.Tensor) else int(t)
                            for t in thresholds]), ctypes.c_void_p),
-        sp["bm"], sp["buf_words"])
+        bm, cs, buf_words)
     return out
 
 

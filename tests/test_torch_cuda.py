@@ -8,6 +8,8 @@ Run them on a GPU host with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -19,8 +21,14 @@ from repro_torch import graph  # noqa: E402
 from repro_torch.core.workloads import (alexnet_imagenet,  # noqa: E402
                                         binarynet_cifar10)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import fused_mlp  # noqa: E402
+from repro_torch.kernels.fused_mlp import CLUSTERS as FUSED_CLUSTERS  # noqa
+from repro_torch.kernels.fused_mlp import ROW_TILES as FUSED_ROW_TILES  # noqa
+from repro_torch.kernels.fused_mlp import _launch as _fused_launch  # noqa
 from repro_torch.kernels.fused_mlp import (fused_mlp_words,  # noqa: E402
-                                           fused_mlp_words_plain)
+                                           fused_mlp_words_plain, stack_plan)
+from repro_torch.kernels.fused_mlp import \
+    smem_bytes as fused_smem_bytes  # noqa: E402
 from repro_torch.kernels.pack import pack, pack_plain  # noqa: E402
 from repro_torch.kernels.packed import PackedArray, pack_words  # noqa: E402
 from repro_torch.kernels.packed_conv import TILES as CONV_TILES  # noqa: E402
@@ -162,20 +170,83 @@ def test_packed_conv2d_counts_one_launch_per_call(cuda, tile):
     assert _build.launch_counts()["packed_conv2d"] == 1
 
 
-@pytest.mark.parametrize("m,k0,ns", [(37, 50, [20, 33]), (301, 97, [300, 65]),
-                                     (256, 8192, [1024, 1024])])
-def test_fused_mlp_kernel(cuda, m, k0, ns):
-    rng = np.random.default_rng(m + k0)
-    x = _words(rng, m, k0, cuda)
+# the edge stacks: odd N with fewer words than a cluster has blocks (20,
+# 33, 300, 65, 40), K = 50 and 97 bits (4-byte weight copies), one layer,
+# AlexNet's fc6 + fc7 at batch 1 (BM = 64 does not fit it), and 8 layers
+FUSED_STACKS = [(37, 50, [20, 33]), (301, 97, [300, 65, 40]), (5, 64, [32]),
+                (1, 9216, [4096, 4096]),
+                (70, 128, [64, 40, 96, 33, 20, 300, 65, 10])]
+FUSED_CONFIGS = [(bm, cs) for bm in FUSED_ROW_TILES for cs in FUSED_CLUSTERS]
+
+
+def _fused_operands(rng, m, k0, ns, thr, device):
+    x = _words(rng, m, k0, device)
     ws, ks, ts, k = [], [], [], k0
     for i, n in enumerate(ns):
-        ws.append(_words(rng, n, k, cuda))
+        ws.append(_words(rng, n, k, device))
         ks.append(k)
-        ts.append(1 if i % 2 else torch.from_numpy(
-            rng.integers(-3, 4, n).astype(np.int32)).to(cuda))
+        vector = thr == "vector" or (thr == "mixed" and i % 2 == 0)
+        ts.append(torch.from_numpy(rng.integers(-3, 4, n).astype(np.int32)
+                                   ).to(device) if vector
+                  else int(rng.integers(-3, 4)))
         k = n
-    assert torch.equal(fused_mlp_words(x, ws, ks, ts),
-                       fused_mlp_words_plain(x, ws, ks, ts))
+    return x, ws, ks, ts
+
+
+@pytest.mark.parametrize("thr", ["scalar", "vector", "mixed"])
+@pytest.mark.parametrize("m,k0,ns", FUSED_STACKS + [(256, 8192, [1024, 1024])])
+def test_fused_mlp_kernel(cuda, m, k0, ns, thr):
+    """The plan's config and every forced (BM, CS) bit for bit against
+    the plain chain; a config whose block does not fit raises."""
+    rng = np.random.default_rng(m + k0 + len(ns))
+    x, ws, ks, ts = _fused_operands(rng, m, k0, ns, thr, cuda)
+    want = fused_mlp_words_plain(x, ws, ks, ts)
+    assert torch.equal(fused_mlp_words(x, ws, ks, ts), want)
+    buf_words = stack_plan(m, k0, ns)["buf_words"]
+    for config in FUSED_CONFIGS:
+        if fused_smem_bytes(config[0], buf_words) > 232448:
+            with pytest.raises(ValueError, match="shared memory"):
+                _fused_launch(x, ws, ks, ts, config)
+        else:
+            assert torch.equal(_fused_launch(x, ws, ks, ts, config), want)
+
+
+def test_fused_mlp_unschedulable_config_raises(cuda, monkeypatch):
+    """No silent fallback: a block too large for shared memory raises; a
+    cluster the card cannot schedule raises; the plan takes clusters of
+    8 where 16 cannot be scheduled, and raises where neither can."""
+    rng = np.random.default_rng(3)
+    x, ws, ks, ts = _fused_operands(rng, 1, 9216, [4096, 4096], "vector",
+                                    cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        _fused_launch(x, ws, ks, ts, (64, 16))
+    want = fused_mlp_words_plain(x, ws, ks, ts)
+    real = fused_mlp._active_clusters
+    monkeypatch.setattr(fused_mlp, "_active_clusters",
+                        lambda d, bm, cs, bw: 0 if cs == 16
+                        else real(d, bm, cs, bw))
+    with pytest.raises(RuntimeError, match="cannot schedule"):
+        _fused_launch(x, ws, ks, ts, (16, 16))
+    _build.reset_launch_counts()
+    assert torch.equal(fused_mlp_words(x, ws, ks, ts), want)
+    assert _build.launch_counts()["fused_binary_mlp"] == 1
+    monkeypatch.setattr(fused_mlp, "_active_clusters", lambda *a: 0)
+    with pytest.raises(RuntimeError, match="can schedule no cluster"):
+        fused_mlp_words(x, ws, ks, ts)
+
+
+def test_fused_mlp_occupancy_and_shared_memory(cuda):
+    """The card schedules a cluster of 16 and of 8 at every row tile that
+    fits; the library's shared memory per block is the plan's."""
+    lib = _build._load("fused_mlp")
+    lib.fused_mlp_smem_bytes.argtypes = [ctypes.c_int] * 2
+    for bm in FUSED_ROW_TILES:
+        for buf_words in (8, 256, 288):
+            assert lib.fused_mlp_smem_bytes(bm, buf_words) == \
+                fused_smem_bytes(bm, buf_words)
+    for cs in FUSED_CLUSTERS:
+        assert fused_mlp._active_clusters(cuda, 16, cs, 288) >= 1
+        assert fused_mlp._active_clusters(cuda, 32, cs, 288) >= 1
 
 
 def test_binarynet_launch_counts_and_logits(cuda):

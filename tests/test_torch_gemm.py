@@ -7,7 +7,9 @@ M/K/N; (2) binary_binary_dense on both port backends against the
 reference's "xla" dispatch on the odd shapes of tests/test_fused.py;
 (3) fused_mlp_words and fused_binary_mlp against the Pallas fused_mlp
 kernel in interpret mode and the chained path; (4) the Hopper
-residency rule of stack_plan."""
+rule of stack_plan (row tile, cluster size, shared memory, fit) and the
+cluster's block slices; (5) the cluster kernel's arithmetic, emulated in
+torch, against the Pallas fused_mlp kernel."""
 import numpy as np
 import pytest
 
@@ -23,10 +25,12 @@ from repro.kernels.fused_mlp import fused_binary_mlp as jfused  # noqa: E402
 from repro.kernels.packed import PackedArray as JPacked  # noqa: E402
 from repro.kernels.popcount_gemm import popcount_gemm as jgemm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.fused_mlp import (fused_binary_mlp,  # noqa: E402
+from repro_torch.kernels.fused_mlp import (_launch,  # noqa: E402
+                                           block_slices, fused_binary_mlp,
                                            fused_mlp_words, stack_plan)
 from repro_torch.kernels.packed import (PackedArray, as_uint32,  # noqa: E402
-                                        from_uint32)
+                                        from_uint32, pack_words,
+                                        popcount_u32)
 from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
                                                popcount_gemm_plain)
 from repro_torch.kernels.ref import popcount_gemm_ref  # noqa: E402
@@ -161,19 +165,129 @@ def test_fused_mlp_validates_chain():
 
 
 def test_stack_plan_hopper_residency_rule():
-    # BinaryNet fc1+fc2 at batch 256: 2 rows per block, 128 blocks
-    sp = stack_plan(256, 8192, [1024, 1024])
-    assert sp["fits"] and sp["bm"] == 2 and sp["buf_words"] == 256
-    assert sp["smem_bytes"] == 8 * 2 * 256 + 4 * 32 * 257
-    # large M caps the row tile at 32
-    assert stack_plan(100000, 8192, [1024])["bm"] == 32
-    # a very wide input shrinks the row tile until the buffers fit
-    wide = stack_plan(100000, 32 * 20000, [64])
-    assert wide["fits"] and wide["bm"] < 32
-    assert wide["smem_bytes"] <= 232448
-    # one launch takes at most 8 layers; too wide for even 1 row: no fit
+    """The rule of the cluster kernel: it splits N over a cluster, so
+    the plan picks a row tile of 16, 32 or 64 and a cluster of 16 or 8
+    blocks by the waves of clusters the card runs at once."""
+    main = ((8192, [1024, 1024]), (9216, [4096, 4096]))
+    # the six main shapes on an H100 (7 clusters of 16 or 15 of 8 at
+    # once): batches 1 and 32 fit one wave of clusters of 16 at BM = 16;
+    # batch 256 needs 2 waves of 16 (8 tiles of 32) but 1 of 8
+    for k0, ns in main:
+        for m, bm, cs in ((1, 16, 16), (32, 16, 16), (256, 32, 8)):
+            sp = stack_plan(m, k0, ns)
+            assert (sp["bm"], sp["cs"], sp["waves"]) == (bm, cs, 1)
+            assert sp["blocks"] == -(-m // bm) * cs and sp["fits"]
+            assert sp["ring"] == 4
+        # 128 rows: 8 tiles of 16 take 2 waves, 4 tiles of 32 one
+        assert (stack_plan(128, k0, ns)["bm"],
+                stack_plan(128, k0, ns)["cs"]) == (32, 16)
+        # a card that runs 8 clusters of 16 keeps them at batch 256
+        assert stack_plan(256, k0, ns, clusters={16: 8, 8: 16})["cs"] == 16
+        # one that cannot schedule 16 takes 8
+        assert stack_plan(1, k0, ns, clusters={16: 0, 8: 15})["cs"] == 8
+    # AlexNet's buffers: rows of 288 + 4 words beside a 4 x 36 KB ring
+    # and the rows' popcounts
+    sp = stack_plan(256, 9216, [4096, 4096])
+    assert sp["buf_words"] == 288
+    assert sp["smem_bytes"] == 4 * 36864 + 2 * 4 * 32 * 292 + 4 * 32
+    # within one block's shared memory whatever M, and both stacks fit
+    for k0, ns in main:
+        for m in (1, 7, 32, 33, 255, 256, 1000, 100000):
+            sp = stack_plan(m, k0, ns)
+            assert sp["smem_bytes"] <= 232448 and sp["fits"]
+            tiles = -(-m // sp["bm"])
+            assert sp["waves"] == -(-tiles // {16: 7, 8: 15}[sp["cs"]])
+    # BM = 64 only where its buffers fit: a narrow stack takes it, the
+    # wide ones stop at 32
+    assert stack_plan(100000, 97, [300, 65])["bm"] == 64
+    assert stack_plan(100000, 9216, [4096, 4096])["bm"] == 32
+    assert (stack_plan(256, 97, [300, 65])["bm"],
+            stack_plan(256, 97, [300, 65])["cs"]) == (64, 16)
+    # one launch takes at most 8 layers, and inputs up to 656 words
+    # (BM = 16: 2 x 16 x (656 + 4) x 4 B and the popcounts beside the ring)
+    assert stack_plan(4, 64, [64] * 8)["fits"]
     assert not stack_plan(4, 64, [64] * 9)["fits"]
+    assert stack_plan(1, 32 * 656, [64])["fits"]
+    assert not stack_plan(1, 32 * 657, [64])["fits"]
     assert not stack_plan(4, 32 * 40000, [64])["fits"]
+    with pytest.raises(ValueError):
+        stack_plan(4, 64, [64], clusters={16: 0, 8: 0})
+
+
+@pytest.mark.parametrize("cs", [16, 8])
+@pytest.mark.parametrize("n", [1, 20, 32, 33, 300, 1000, 1024, 4096])
+def test_block_slices_cover_every_word_once(n, cs):
+    """Block r of a cluster owns the words [r*nw/CS, (r+1)*nw/CS): whole
+    words, every one owned once, sizes within one of each other; with
+    fewer words than blocks (N = 1, 20, 32, 33, 300 at CS = 16) some
+    blocks own none (and still join every cluster barrier)."""
+    nw = -(-n // 32)
+    slices = block_slices(n, cs)
+    assert len(slices) == cs
+    assert [w for lo, hi in slices for w in range(lo, hi)] == list(range(nw))
+    sizes = [hi - lo for lo, hi in slices]
+    assert max(sizes) - min(sizes) <= 1
+    assert (0 in sizes) == (nw < cs)
+
+
+def _cluster_emulation(x, ws, ks, ts, cs):
+    """csrc/fused_mlp.cu's arithmetic in torch: K zero-padded to whole
+    MMA depths of 8 words; each block of a cluster of ``cs`` computes its
+    slice of the output words as dot = K - 2*(pc_x + pc_w) + 4*popc(x &
+    w), tested as 4*and - 2*pc_x - 2*pc_w >= T - K with the right side
+    clamped to int32 (a saturated folded threshold); columns past N
+    never pass."""
+    h = x
+    for w, k, t in zip(ws, ks, ts):
+        n, kw = w.shape
+        pad = -(-kw // 8) * 8 - kw
+        hp = torch.nn.functional.pad(h, (0, pad))
+        wp = torch.nn.functional.pad(w, (0, pad))
+        pcx = popcount_u32(hp).sum(1, dtype=torch.int64)
+        bits = torch.zeros(h.shape[0], 32 * (-(-n // 32)), dtype=torch.bool)
+        for lo, hi in block_slices(n, cs):
+            for col in range(32 * lo, min(32 * hi, n)):
+                both = popcount_u32(hp & wp[col]).sum(1, dtype=torch.int64)
+                pcw = int(popcount_u32(wp[col]).sum())
+                thr = int(t[col]) if isinstance(t, torch.Tensor) else t
+                tk = min(max(thr - k, -2 ** 31), 2 ** 31 - 1)
+                bits[:, col] = 4 * both - 2 * pcx - 2 * pcw >= tk
+        h = pack_words(torch.where(bits[:, :n], 1.0, -1.0), -1)
+    return h
+
+
+@pytest.mark.parametrize("cs", [16, 8])
+@pytest.mark.parametrize("m,k0,ns,per_channel", [
+    (37, 50, [20, 33], [False, True]),
+    (9, 97, [300, 65, 40], [True, False, True]),
+    (4, 64, [32], [True]),
+])
+def test_cluster_arithmetic_matches_pallas_interpret(m, k0, ns, per_channel,
+                                                     cs):
+    """The kernel's closed form and threshold fold, per block slice,
+    against the Pallas fused_mlp kernel in interpret mode; the first
+    per-channel layer holds the int32 extremes of a saturated fold."""
+    rng = np.random.default_rng(m + k0 + cs)
+    jx, tx, jws, tws, jts, tts = _stack(rng, m, k0, ns, per_channel)
+    li = per_channel.index(True)
+    tv = np.asarray(jts[li]).copy()
+    tv[:2] = [-2 ** 31, 2 ** 31 - 1]
+    jts[li], tts[li] = jnp.asarray(tv), torch.from_numpy(tv)
+    want = jfused(jx, jws, jts, backend="interpret")
+    got = _cluster_emulation(tx.words, [w.words for w in tws],
+                             [k0] + ns[:-1], tts, cs)
+    np.testing.assert_array_equal(as_uint32(got), np.asarray(want.words))
+
+
+def test_launch_refuses_bad_configs_and_cpu_tensors():
+    rng = np.random.default_rng(5)
+    _, tx, _, tws, _, tts = _stack(rng, 4, 64, [32, 16], [True, False])
+    ws = [w.words for w in tws]
+    for config in ((8, 16), (16, 4), (128, 8)):
+        with pytest.raises(ValueError, match="config"):
+            _launch(tx.words, ws, [64, 32], tts, config)
+    with pytest.raises(ValueError, match="CUDA"):
+        _launch(tx.words, ws, [64, 32], tts, (16, 16))
 
 
 def test_wrappers_refuse_bad_operands():

@@ -49,6 +49,8 @@ def np_tree(tree):
                 "axis": tree.axis}
     if isinstance(tree, dict):
         return {k: np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(np_tree(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(np_tree(v) for v in tree)
     return np.asarray(tree)
