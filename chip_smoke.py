@@ -14,7 +14,19 @@
    the kernel (its device time per launch, from torch.profiler), the
    plain version and, where one exists, the single PyTorch call that
    computes the same function (``library_ms``, never used by the port;
-   both with CUDA events).  The binary kernels and every xnor_gemm
+   both with CUDA events).  pack is held on ragged K (K % 4 != 0, K % 32
+   != 0), a view at a 4-byte offset, NaN, -0.0 and denormal products,
+   with and without a scale, through its path rule and every path the
+   operands allow, and timed at both models' pack shapes at batches 1,
+   32 and 256 (BinaryNet's with conv1's alpha as the scale) with every
+   path, beside the multiply-then-pack route it replaces; its library
+   must load 16 bytes a thread (LDG.E.128) in the vectorised variants.
+   popcount_gemm (b1 mma.sync) is held on its edge shapes and on fc3
+   and fc8 at batches 1, 32 and 256 in every epilogue, through its plan
+   and with every tile forced, each tile timed beside ``torch.matmul``
+   on float32 +-1; how many of the six shapes the plan got fastest is
+   printed, and every kernel variant must hold BMMAs.  The binary
+   kernels and every xnor_gemm
    output with exact sums (integer x, alpha a power of two) must be bit
    for bit equal; xnor_gemm's float outputs on normal x within
    1e-5 * max|y| (float32) or that plus one bf16 ulp (bf16).  xnor_gemm
@@ -52,11 +64,15 @@
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
    random weights from a seeded generator: the ``"cuda"`` logits must
    equal the ``"torch"`` backend's on the card exactly (and, at batch 1,
-   the CPU's), and each forward must launch exactly 1 pack, 5
-   packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm;
+   the CPU's, with the head split off at binarize@conv2 returning the
+   CPU's alpha-scaled activations), each forward must launch exactly 1
+   pack, 5 packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm, and no
+   elementwise multiply (conv1's alpha is taken in the pack's load);
 4. runs full-width XNOR-AlexNet the same way at batches 1, 32 and 256:
    6 launches per forward (1 pack, 3 packed_conv2d, fc6+fc7 in one
-   fused_binary_mlp, 1 popcount_gemm), ``"cuda"`` logits equal to the
+   fused_binary_mlp, 1 popcount_gemm), conv1's and conv2's alpha
+   multiplies kept (a float pool follows each: exactly 2 elementwise
+   multiplies per forward), ``"cuda"`` logits equal to the
    ``"torch"`` backend's on the card; against the CPU it is split at
    ``binarize@conv3``: the float entry layers (cuDNN, TF32 off) within
    1e-5 * max|h|, then the CPU's float activations through the card's
@@ -190,22 +206,138 @@ def expect_launches(what, counts, per_call):
 # ------------------------------------------------------------------ #
 # kernel phases                                                        #
 # ------------------------------------------------------------------ #
+# the main paths' pack shapes [rows per image, K]: BinaryNet's
+# binarize@conv2 (with conv1's alpha as the scale) and AlexNet's
+# binarize@conv3
+PACK_MAIN = [("BinaryNet binarize@conv2", 1024, 128, True),
+             ("AlexNet binarize@conv3", 169, 256, False)]
+# edge shapes (M, K): K % 4 != 0, K % 32 != 0, K < 32
+PACK_EDGES = [(37, 100), (5, 33), (70, 68), (9, 1), (300, 256)]
+
+
+def pack_operands(rnd, m, k):
+    """Normal x with NaN, -0.0 and 0.0 in row 0; a scale [K] with
+    negative entries, a zero, and values that make row 1's products
+    denormal or round them to 0."""
+    x, scale = rnd.normal(m, k), rnd.normal(k)
+    x[0, :3] = torch.tensor([float("nan"), -0.0, 0.0])[:k]
+    scale[3:4] = 0.0
+    if m > 1 and k > 7:
+        x[1, 4:8] = torch.tensor([1e-20, -1e-20, 1e-30, 3e-23])
+        scale[4:8] = torch.tensor([1e-20, 1e-20, 1e-30, -2e-23])
+    return x, scale
+
+
+def pack_sass():
+    """The count of 128-bit global loads (LDG.E.128, with any cache
+    qualifier: the loads of x are evict-first, LDG.E.EF.128) in each
+    variant of the pack library (cuobjdump): the flat variants must load
+    16 bytes a thread."""
+    import re
+    wide_load = re.compile(r"LDG\.E(\.\w+)*\.128")
+    per_kernel, ops, name = {}, set(), None
+    for line in sass_of("pack"):
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            per_kernel[name] = 0
+        elif name and wide_load.search(line):
+            per_kernel[name] += 1
+            ops.add(wide_load.search(line).group(0))
+    print(f"pack SASS: 128-bit loads ({sorted(ops)}) per kernel variant: "
+          f"{per_kernel}")
+    wide = [n for n in per_kernel if "flat" in n]
+    if len(wide) != 2 or min(per_kernel[n] for n in wide) == 0:
+        raise AssertionError("a vectorised pack variant holds no LDG.E.128")
+    return per_kernel
+
+
 def check_pack(rnd, rec):
-    from repro_torch.kernels.pack import pack, pack_plain
-    edge = rnd.normal(37, 100)
-    edge[0, :4] = torch.tensor([float("nan"), -0.0, 0.0, 1.0])
-    err = check_equal("pack edge 37x100", pack(edge), pack_plain(edge))
-    x = rnd.normal(BATCH * 1024, 128)      # binarize@conv2
-    err = max(err, check_equal("pack main", pack(x), pack_plain(x)))
-    m, k = x.shape
-    b, by = bound(4 * m * k + 4 * m * k // 32, m * k, FP32_OPS)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pack import (PATHS, _launch, pack, pack_path,
+                                          pack_plain)
+    err = 0
+
+    def paths(k, x, scale):
+        """The plan's path first, then every other the operands allow."""
+        first = pack_path(k, x.data_ptr(), _build.ptr(scale))
+        return [first] + [p for p in PATHS[PATHS.index(first) + 1:]]
+
+    # the edge shapes and a view at a 4-byte offset, with and without
+    # the scale, through every path the operands allow
+    for m, k in PACK_EDGES:
+        x, scale = pack_operands(rnd, m, k)
+        xo = torch.empty(m * k + 1, device=DEVICE)[1:].view(m, k)
+        xo.copy_(x)
+        for xx, sc in itertools.product((x, xo), (None, scale)):
+            want = pack_plain(xx, sc)
+            tag = (f"pack edge {m}x{k} scale={sc is not None} offset="
+                   f"{xx.data_ptr() % 16}")
+            err = max(err, check_equal(tag, pack(xx, sc), want))
+            for path in paths(k, xx, sc):
+                err = max(err, check_equal(f"{tag} {path}",
+                                           _launch(xx, sc, path), want))
+    x, scale = pack_operands(rnd, 4, 128)
+    if [(int(pack(x, scale)[1, 0]) >> b) & 1 for b in range(4, 8)] != \
+            [1, 0, 0, 0]:
+        raise AssertionError("pack: a denormal product must give 1, one "
+                             "that rounds to 0 must give 0")
+    shapes = []
+    # written before a timed call, as the forward's producer writes just
+    # before its pack: dirty lines in the L2 that the pack's reads evict
+    dirt = torch.empty(134 << 18, device=DEVICE)        # 134 MiB
+    for (name, rows, k, scaled), batch in itertools.product(PACK_MAIN,
+                                                            BATCHES):
+        m = batch * rows
+        x = rnd.normal(m, k)
+        scale = (0.5 + rnd.normal(k).abs()) if scaled else None
+        want = pack_plain(x, scale)
+        tag = f"pack {name} B={batch} [{m}, {k}] scale={scaled}"
+        err = max(err, check_equal(tag, pack(x, scale), want))
+        path_ms = {}
+        for path in paths(k, x, scale):
+            err = max(err, check_equal(f"{tag} {path}",
+                                       _launch(x, scale, path), want))
+            path_ms[path] = kernel_ms(lambda: _launch(x, scale, path),
+                                      "pack_kernel")
+        ms = kernel_ms(lambda: pack(x, scale), "pack_kernel")
+        after_write = kernel_ms(lambda: (dirt.fill_(1.0), pack(x, scale)),
+                                "pack_kernel")
+        plain = time_ms(lambda: pack_plain(x, scale), 3)
+        nbytes = 4 * (m * k + m * ((k + 31) // 32)) + (4 * k if scaled else 0)
+        b, by = bound(nbytes, m * k * (2 if scaled else 1), FP32_OPS)
+        row = dict(name=name, batch=batch, m=m, k=k, scale=scaled, ms=ms,
+                   after_write_ms=after_write, plain_ms=plain, bound_ms=b,
+                   bound_by=by, path_ms=path_ms,
+                   plan=pack_path(k, x.data_ptr(), _build.ptr(scale)))
+        if scaled:
+            # what the forward paid before: the separate multiply, then
+            # the pack (CUDA events, host included)
+            row["two_pass_event_ms"] = time_ms(lambda: pack(x * scale), 10)
+            row["one_pass_event_ms"] = time_ms(lambda: pack(x, scale), 10)
+        shapes.append(row)
+        print(f"{tag}: kernel_ms={ms:.4f} (after a 134 MiB write "
+              f"{after_write:.4f}) plain_ms={plain:.4f} "
+              f"bound_ms={b:.5f} ({by}); {ms and b / ms:.3f} of the bound; "
+              f"path {row['plan']}; every path: " + ", ".join(
+                  f"{p} {t:.4f}" for p, t in path_ms.items()) +
+              (f"; events: multiply then pack {row['two_pass_event_ms']:.4f}"
+               f", pack with the scale {row['one_pass_event_ms']:.4f}"
+               if scaled else ""))
+    del dirt
+    sums = {key: sum(r[key] for r in shapes)
+            for key in ("ms", "after_write_ms", "bound_ms")}
+    print("pack summed over the six forwards' shapes: " + " ".join(
+        f"{key}={v:.5f}" for key, v in sums.items()))
+    sass = pack_sass()
+    # the kernels line: BinaryNet at batch 256, as in earlier slices
+    main = next(r for r in shapes if r["name"].startswith("BinaryNet")
+                and r["batch"] == BATCH)
     rec.append(dict(name="pack", route="cuda",
                     source="src/repro_torch/kernels/csrc/pack.cu",
                     replaces="src/repro/kernels/pack.py:40",
-                    max_abs_err=err,
-                    ms=kernel_ms(lambda: pack(x), "pack_kernel"),
-                    plain_ms=time_ms(lambda: pack_plain(x), 3),
-                    bound_ms=b, bound_by=by, library_ms=None))
+                    max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=None, shapes=shapes, sums=sums, sass=sass))
 
 
 def conv_inputs(rnd, nb, h, w, c, f, k, s, pad):
@@ -542,47 +674,133 @@ def check_fused(rnd, rec):
                     plan_fastest=fastest, clusters_at_once=active))
 
 
+# the main paths' classifier heads: (name, K, N), unthresholded
+GEMM_MAIN = [("BinaryNet fc3", 1024, 10), ("AlexNet fc8", 4096, 1000)]
+# edge shapes (M, K, N, threshold, pack_out): odd K and N, M = 1, 17, 300
+GEMM_EDGES = [(37, 50, 20, "scalar", True), (5, 97, 33, "vector", True),
+              (64, 128, 96, "vector", False), (3, 33, 65, None, False),
+              (300, 2000, 70, "scalar", False),
+              (130, 2000, 70, "vector", True), (1, 4096, 1000, None, False),
+              (17, 1061, 65, "vector", True), (300, 1024, 10, "scalar", False)]
+
+
+def gemm_epilogues(rnd, n):
+    """The four epilogues, the main path's first: the dot, +-1 after a
+    scalar threshold, +-1 after a per-channel one holding the int32
+    extremes, packed decisions with valid_n = N - 3."""
+    tvec = rnd.ints(-40, 41, n)
+    tvec[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
+    return [dict(), dict(threshold=-3), dict(threshold_vec=tvec),
+            dict(threshold_vec=tvec, pack_out=True, valid_n=n - 3)]
+
+
+def gemm_sass():
+    """The count of b1 tensor-core instructions (BMMA), POPC and LDSM in
+    the popcount_gemm library (cuobjdump), and of BMMA in each kernel
+    variant: every variant must sum on the tensor cores."""
+    sass = sass_of("popcount_gemm")
+    counts = {op: sum(op in line for line in sass)
+              for op in ("BMMA", "POPC", "LDSM", "IMMA")}
+    per_kernel, name = {}, None
+    for line in sass:
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            per_kernel[name] = 0
+        elif name and "BMMA" in line:
+            per_kernel[name] += 1
+    print(f"popcount_gemm SASS: {counts}; BMMA per kernel variant: "
+          f"{sorted(per_kernel.values())}")
+    if not per_kernel or min(per_kernel.values()) == 0:
+        raise AssertionError("a popcount_gemm kernel variant holds no BMMA")
+    return dict(counts, bmma_per_variant=sorted(per_kernel.values()))
+
+
 def check_gemm(rnd, rec):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.packed import unpack_words
-    from repro_torch.kernels.popcount_gemm import (popcount_gemm,
-                                                   popcount_gemm_plain)
+    from repro_torch.kernels.popcount_gemm import (TILES, _launch,
+                                                   popcount_gemm,
+                                                   popcount_gemm_plain,
+                                                   tile_plan)
     err = 0
-    for m, k, n, thr, pack_out in [(37, 50, 20, "scalar", True),
-                                   (5, 97, 33, "vector", True),
-                                   (64, 128, 96, "vector", False),
-                                   (3, 33, 65, None, False),
-                                   (300, 2000, 70, "scalar", False),
-                                   (130, 2000, 70, "vector", True)]:
+
+    def tiles_for(kw):
+        return [t for t in TILES if not kw.get("pack_out") or t[1] >= 32]
+
+    # the edge shapes through the plan, then with every tile forced
+    for m, k, n, thr, pack_out in GEMM_EDGES:
         xp, wp = packed_rows(rnd, m, k), packed_rows(rnd, n, k)
         kw = dict(threshold=2 if thr == "scalar" else None,
                   threshold_vec=rnd.ints(-5, 5, n) if thr == "vector"
-                  else None, pack_out=pack_out)
-        err = max(err, check_equal(f"popcount_gemm edge {m}x{k}x{n} "
-                                   f"{thr} {pack_out}",
-                                   popcount_gemm(xp, wp, k, **kw),
-                                   popcount_gemm_plain(xp, wp, k, **kw)))
-    # fc3, the classifier head of BinaryNet at batch 256
-    xp, wp = packed_rows(rnd, BATCH, 1024), packed_rows(rnd, 10, 1024)
-    err = max(err, check_equal("popcount_gemm main",
-                               popcount_gemm(xp, wp, 1024),
-                               popcount_gemm_plain(xp, wp, 1024)))
-    xf = unpack_words(xp, -1)
-    wf = unpack_words(wp, -1).t().contiguous()
-    if not torch.equal(torch.matmul(xf, wf).to(torch.int32),
-                       popcount_gemm(xp, wp, 1024)):
-        raise AssertionError("float32 matmul yardstick disagrees")
-    b, by = bound(4 * (xp.numel() + wp.numel() + BATCH * 10),
-                  2 * BATCH * 10 * 1024, INT8_OPS)
+                  else None, pack_out=pack_out,
+                  valid_n=n - 3 if pack_out else None)
+        tag = f"popcount_gemm edge {m}x{k}x{n} {thr} pack_out={pack_out}"
+        want = popcount_gemm_plain(xp, wp, k, **kw)
+        err = max(err, check_equal(tag, popcount_gemm(xp, wp, k, **kw), want))
+        for tile in tiles_for(kw):
+            err = max(err, check_equal(f"{tag} tile {tile}",
+                                       _launch(xp, wp, k, tile, **kw), want))
+    shapes, fastest = [], 0
+    for (name, k, n), batch in itertools.product(GEMM_MAIN, BATCHES):
+        xp, wp = packed_rows(rnd, batch, k), packed_rows(rnd, n, k)
+        tag = f"popcount_gemm {name} B={batch}"
+        for kw in gemm_epilogues(rnd, n):
+            want = popcount_gemm_plain(xp, wp, k, **kw)
+            got = popcount_gemm(xp, wp, k, **kw)
+            err = max(err, check_equal(f"{tag} {sorted(kw)}", got, want))
+            if not torch.equal(got, popcount_gemm(xp, wp, k, **kw)):
+                raise AssertionError(f"{tag}: two calls differ")
+            for tile in tiles_for(kw):
+                err = max(err, check_equal(f"{tag} {sorted(kw)} tile {tile}",
+                                           _launch(xp, wp, k, tile, **kw),
+                                           want))
+        p = tile_plan(batch, n, k // 32, _build.device_sms(xp.device))
+        plan = (p["bm"], p["bn"], p["wk"])
+        times = {tile: kernel_ms(lambda: _launch(xp, wp, k, tile),
+                                 "popcount_gemm_kernel")
+                 for tile in TILES}
+        ms = kernel_ms(lambda: popcount_gemm(xp, wp, k),
+                       "popcount_gemm_kernel")
+        plain = time_ms(lambda: popcount_gemm_plain(xp, wp, k), 5)
+        xf = unpack_words(xp, -1)
+        wf = unpack_words(wp, -1).t().contiguous()
+        if not torch.equal(torch.matmul(xf, wf).to(torch.int32),
+                           popcount_gemm(xp, wp, k)):
+            raise AssertionError(f"{tag}: float32 matmul yardstick "
+                                 f"disagrees")
+        lib = time_ms(lambda: torch.matmul(xf, wf), 20)
+        nbytes = 4 * (xp.numel() + wp.numel() + batch * n)
+        b, by = bound(nbytes, 2 * batch * n * k, B1_OPS)
+        best = min(times, key=times.get)
+        fastest += best == plan
+        shapes.append(dict(name=name, batch=batch, m=batch, k=k, n=n, ms=ms,
+                           plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by, plan=list(plan), fastest=list(best),
+                           blocks=p["blocks"],
+                           tile_ms={"x".join(map(str, t)): v
+                                    for t, v in times.items()}))
+        print(f"{tag}: kernel_ms={ms:.4f} (plan {plan}, {p['blocks']} "
+              f"blocks) plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={b:.5f} ({by}); {ms and b / ms:.3f} of the bound; "
+              f"every tile: " + ", ".join(
+                  f"{t} {v:.4f}" for t, v in times.items()))
+    print(f"popcount_gemm: the plan's tile is the fastest at {fastest} of "
+          f"{len(shapes)} main shapes")
+    sums = {key: sum(r[key] for r in shapes)
+            for key in ("ms", "bound_ms", "library_ms")}
+    print("popcount_gemm summed over the six forwards' shapes: " + " ".join(
+        f"{key}={v:.5f}" for key, v in sums.items()))
+    sass = gemm_sass()
+    # the kernels line: fc3 at batch 256, as in earlier slices
+    main = next(r for r in shapes if r["name"] == "BinaryNet fc3"
+                and r["batch"] == BATCH)
     rec.append(dict(name="popcount_gemm", route="cuda",
                     source="src/repro_torch/kernels/csrc/popcount_gemm.cu",
                     replaces="src/repro/kernels/popcount_gemm.py:144",
-                    max_abs_err=err,
-                    ms=kernel_ms(lambda: popcount_gemm(xp, wp, 1024),
-                                 "popcount_gemm_kernel"),
-                    plain_ms=time_ms(
-                        lambda: popcount_gemm_plain(xp, wp, 1024), 5),
-                    bound_ms=b, bound_by=by,
-                    library_ms=time_ms(lambda: torch.matmul(xf, wf), 20)))
+                    max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shapes=shapes, sums=sums,
+                    sass=sass, plan_fastest=fastest))
 
 
 # the decode-shape GEMMs of the repo's LLM configs (the reference's
@@ -863,13 +1081,38 @@ def to_cpu(tree):
 
 def binarynet_vs_cpu(spec, cb, params, x):
     """Integer images: BinaryNet's one float entry conv sums exactly in
-    any order, so the card's logits equal the CPU's bit for bit."""
+    any order, so the card's logits equal the CPU's bit for bit.  The
+    head split off at binarize@conv2 keeps conv1's alpha multiply: its
+    float activations equal the CPU's and ``binary_weight_conv``'s, and
+    the tail on them gives the logits."""
     from repro_torch import graph
+    from repro_torch.core.bnn_layers import (binary_weight_conv,
+                                             sign_weight_conv)
+    # cuDNN's output follows the channels-last input, so the unscaled
+    # NHWC view that the pack reads is contiguous: no copy before it
+    if not sign_weight_conv(x, params["conv"][0]["w"],
+                            padding=1).is_contiguous():
+        raise AssertionError("conv1's NHWC output is not contiguous")
     cpu = graph.compile(spec, backend="torch", device="cpu"
                         ).apply(to_cpu(params), x.cpu())
-    if not torch.equal(cb.apply(params, x).cpu(), cpu):
+    logits = cb.apply(params, x)
+    if not torch.equal(logits.cpu(), cpu):
         raise AssertionError("card logits differ from the CPU's")
-    return "card logits equal to the CPU's"
+    head, tail = cb.split("binarize@conv2")
+    cpu_head = graph.compile(spec, backend="torch", device="cpu"
+                             ).split("binarize@conv2")[0]
+    h = head.apply(params, x)
+    p0 = params["conv"][0]
+    if not (torch.equal(h.cpu(), cpu_head.apply(to_cpu(params), x.cpu()))
+            and torch.equal(h, binary_weight_conv(x, p0["w"], padding=1,
+                                                  alpha=p0["alpha"]))
+            and torch.equal(tail.apply(params, h), logits)):
+        raise AssertionError("BinaryNet split at binarize@conv2: the head's "
+                             "scaled activations or the tail's logits "
+                             "differ")
+    return ("card logits equal to the CPU's; conv1's NHWC output "
+            "contiguous; the split head's scaled activations equal the "
+            "CPU's")
 
 
 def alexnet_vs_cpu(spec, cb, params, x):
@@ -900,14 +1143,24 @@ def alexnet_vs_cpu(spec, cb, params, x):
             f"the CPU's activations equal to the CPU's logits")
 
 
+def mul_kernels(fn):
+    """The elementwise multiply kernels (torch's MulFunctor) that one
+    call of ``fn`` launches on the card, by torch.profiler."""
+    from repro_torch.trace import device_kernels
+    return sum(c for name, c in device_kernels(fn).items()
+               if "MulFunctor" in name)
+
+
 def forward_path(label, workload, per_forward, n_classes, vs_cpu,
-                 cpu_batches, launches):
+                 cpu_batches, launches, multiplies):
     """Compile ``workload`` for the card at batches 1, 32 and 256 and run
     ``apply`` with random weights from a seeded generator; integer
     images in [-3, 3].  Checks the launch counts, the logits against the
     ``"torch"`` backend on the card (exact) and, at ``cpu_batches``,
-    against the CPU with ``vs_cpu``; prints images/s, ms per forward and
-    peak device memory."""
+    against the CPU with ``vs_cpu``, and that a forward launches exactly
+    ``multiplies`` elementwise multiply kernels, as many as the plan's
+    integer convs that keep their alpha; prints images/s, ms per forward
+    and peak device memory."""
     from repro_torch import graph
     from repro_torch.kernels import _build
     spec = graph.from_workload(workload)
@@ -943,6 +1196,17 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
             raise AssertionError(f"{label} batch {batch}: cuda logits "
                                  f"differ from the torch backend's")
         note = vs_cpu(spec, cb, params, x) if batch in cpu_batches else ""
+        # the float entry convs' alpha passes: BinaryNet's conv1 leaves its
+        # alpha to the pack, AlexNet's conv1 and conv2 keep theirs; the
+        # plan's integer convs that keep theirs must be that many too
+        kept = sum(step.kind == "integer_conv" and not cb._alpha_in_pack(i)
+                   for i, step in enumerate(cb.plan))
+        muls = mul_kernels(lambda: cb.apply(params, x))
+        if muls != multiplies or kept != multiplies:
+            raise AssertionError(f"{label} batch {batch}: {muls} elementwise "
+                                 f"multiply kernels per forward and {kept} "
+                                 f"integer convs that keep their alpha "
+                                 f"multiply, expected {multiplies}")
 
         iters = 20 if batch < 256 else 10
         cb.apply(params, x)
@@ -957,11 +1221,13 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
         out[batch] = dict(images_per_s=batch * iters / dt,
                           ms_per_forward=dt / iters * 1e3,
                           peak_mem_bytes=peak,
-                          launches_per_forward=sum(counts.values()))
+                          launches_per_forward=sum(counts.values()),
+                          multiply_kernels=muls)
         print(f"{label} B={batch}: {batch * iters / dt:.1f} images/s, "
               f"{dt / iters * 1e3:.3f} ms/forward, peak device memory "
-              f"{peak / 2**20:.1f} MiB, launches {counts}, logits equal "
-              f"to the torch backend" + (f"; {note}" if note else ""))
+              f"{peak / 2**20:.1f} MiB, launches {counts}, {muls} "
+              f"elementwise multiply kernels, logits equal to the torch "
+              f"backend" + (f"; {note}" if note else ""))
     return out
 
 
@@ -1157,10 +1423,10 @@ def main():
     launches = {}
     perf = forward_path("BinaryNet", binarynet_cifar10(),
                         BINARYNET_PER_FORWARD, 10, binarynet_vs_cpu, (1,),
-                        launches)
+                        launches, 0)
     alexnet = forward_path("AlexNet", alexnet_imagenet(),
                            ALEXNET_PER_FORWARD, 1000, alexnet_vs_cpu,
-                           (1, 32), launches)
+                           (1, 32), launches, 2)
     dense = dense_path(rnd, launches)
     for r in rec:
         r["launches"] = launches[r["name"]]

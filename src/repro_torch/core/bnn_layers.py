@@ -18,7 +18,7 @@ from repro_torch.kernels.ref import full_fp32
 
 __all__ = ["FoldedThreshold", "binary_conv", "binary_weight_conv",
            "fold_conv_to_channel_thresholds", "fold_to_channel_thresholds",
-           "maxpool_packed"]
+           "maxpool_packed", "sign_weight_conv"]
 
 
 class FoldedThreshold(NamedTuple):
@@ -94,24 +94,32 @@ def binary_conv(xp: PackedArray, wf: PackedArray,
                          backend=backend, impl=impl)
 
 
-def binary_weight_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-                       padding="same",
-                       alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """First-layer ("integer") conv: real-valued NHWC input against
-    alpha * sign(w), w [KH, KW, C, F].  Spatial padding is real zero
-    padding (the input is not bit-packed).  Plain XLA in the reference,
-    so cuDNN computes it here, in full float32 (TF32 off).  Returns
-    float32 [N, HO, WO, F]."""
+def sign_weight_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     padding="same") -> torch.Tensor:
+    """The first-layer conv before its alpha: real-valued NHWC input
+    against sign(w), w [KH, KW, C, F], real zero padding.  Plain XLA in
+    the reference, so cuDNN computes it here, in full float32 (TF32 off).
+    Returns float32 [N, HO, WO, F] (an NHWC view of cuDNN's output,
+    which follows the channels-last input)."""
     kh, kw = w.shape[0], w.shape[1]
     pad_h, pad_w = conv_padding(padding, kh, kw)
     wb = torch.where(w > 0, 1.0, -1.0).to(torch.float32)
-    if alpha is None:
-        alpha = torch.mean(torch.abs(w.to(torch.float32)), dim=(0, 1, 2))
     with full_fp32():
         y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2),
                      wb.permute(3, 2, 0, 1), stride=stride,
                      padding=(pad_h, pad_w))
-    return y.permute(0, 2, 3, 1) * alpha
+    return y.permute(0, 2, 3, 1)
+
+
+def binary_weight_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                       padding="same",
+                       alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """First-layer ("integer") conv: real-valued NHWC input against
+    alpha * sign(w) (:func:`sign_weight_conv`, then one float32
+    multiply by alpha [F]).  Returns float32 [N, HO, WO, F]."""
+    if alpha is None:
+        alpha = torch.mean(torch.abs(w.to(torch.float32)), dim=(0, 1, 2))
+    return sign_weight_conv(x, w, stride, padding) * alpha
 
 
 def maxpool_packed(xp: PackedArray, window: int = 2,

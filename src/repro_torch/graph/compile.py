@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.core.bnn_layers import (FoldedThreshold, binary_conv,
                                          binary_weight_conv,
                                          fold_to_channel_thresholds,
-                                         maxpool_packed)
+                                         maxpool_packed, sign_weight_conv)
 from repro_torch.core.workloads import Workload
 from repro_torch.graph.ir import BNNSpec, IntegerEntry, from_workload
 from repro_torch.graph.passes import PlanStep, build_plan
@@ -143,6 +143,18 @@ class CompiledBNN:
             params["fc"].append(p)
         return params
 
+    def _alpha_in_pack(self, i: int) -> bool:
+        """Whether the integer conv at plan step ``i`` leaves its alpha
+        multiply to the pack of the next step: only where that step is
+        a binarize without a flatten (the scale is per channel, the
+        packed axis), so ``x * alpha > 0`` is the same float32 product
+        the separate pass would have formed, and one pass over the
+        activation is saved.  A float pool after the conv (AlexNet), or
+        no next step (a head cut off by ``split``), keeps the multiply."""
+        nxt = self.plan[i + 1] if i + 1 < len(self.plan) else None
+        return nxt is not None and nxt.kind == "binarize" \
+            and not nxt.args["flatten"]
+
     # -------------------------------------------------------------- #
     def apply(self, params: Dict[str, Any], x: Any,
               valid_rows: Optional[int] = None) -> Any:
@@ -156,18 +168,26 @@ class CompiledBNN:
         ``apply(params, x)[:valid_rows]``."""
         be = self.backend
         h: Any = x if valid_rows is None else kops.mask_rows(x, valid_rows)
-        for step in self.plan:
+        scale = None         # an entry conv's alpha, left to the pack
+        for i, step in enumerate(self.plan):
             a = step.args
             if step.kind == "integer_conv":
                 p = params["conv"][a["conv_idx"]]
-                h = binary_weight_conv(h, p["w"], stride=a["stride"],
-                                       padding=a["pad"], alpha=p["alpha"])
+                if self._alpha_in_pack(i):
+                    h = sign_weight_conv(h, p["w"], stride=a["stride"],
+                                         padding=a["pad"])
+                    scale = p["alpha"]
+                else:
+                    h = binary_weight_conv(h, p["w"], stride=a["stride"],
+                                           padding=a["pad"],
+                                           alpha=p["alpha"])
             elif step.kind == "float_pool":
                 h = _maxpool_float(h, a["window"], a["stride"])
             elif step.kind == "binarize":
                 if a["flatten"]:
                     h = h.reshape(h.shape[0], -1)
-                h = kops.binarize_pack(h, backend=be)
+                h = kops.binarize_pack(h, backend=be, scale=scale)
+                scale = None
             elif step.kind == "binary_conv":
                 p = params["conv"][a["conv_idx"]]
                 h = binary_conv(h, p["wf"], fold=p["t"],

@@ -15,7 +15,8 @@ plain torch versions.
                     activations kept in shared memory (csrc/fused_mlp.cu)
   ops.py            public wrappers, dispatch through the registry
   _build.py         nvcc build, ctypes binding and launch counts
-  csrc/binary.cuh   device helpers: XNOR popcount, closed form, ballot pack
+  csrc/binary.cuh   device helpers: threshold modes, ballot pack
+  csrc/b1_mma.cuh   cp.async, ldmatrix and the b1 AND-popcount mma.sync
 
 No module builds or loads a kernel when it is imported: the libraries
 are compiled on first launch.

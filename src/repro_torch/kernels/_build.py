@@ -148,10 +148,10 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-PACK = Kernel("pack", "pack", "pack_launch", [P, P, I, I, I])
+PACK = Kernel("pack", "pack", "pack_launch", [P, P, P, I, I, I, I, I])
 POPCOUNT_GEMM = Kernel("popcount_gemm", "popcount_gemm",
                        "popcount_gemm_launch",
-                       [P, P, P, P, I, I, I, I, I, I, I, I])
+                       [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I])
 PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
                      [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
                       I, I, I, I])

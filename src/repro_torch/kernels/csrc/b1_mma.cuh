@@ -1,6 +1,7 @@
 // Device helpers of the kernels that sum on the b1 tensor cores
-// (packed_conv.cu, fused_mlp.cu): cp.async copies into shared memory,
-// ldmatrix fragment loads and the b1 AND-popcount mma.sync.
+// (packed_conv.cu, fused_mlp.cu, popcount_gemm.cu): cp.async copies into
+// shared memory, ldmatrix fragment loads and the b1 AND-popcount
+// mma.sync.
 //
 // mma.sync.m16n8k256.row.col.s32.b1.b1.s32.and.popc gives, for a
 // 16 x 256-bit A tile (rows, K) and a 256 x 8-bit B tile (K, columns),

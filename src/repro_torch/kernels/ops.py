@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.pack import pack as _pack_kernel
+from repro_torch.kernels.pack import pack_plain as _pack_plain
 from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
                                         round_up)
 from repro_torch.kernels.packed_conv import (im2col_words, out_size,
@@ -114,16 +115,21 @@ def mask_rows(x: Packable, valid_m: int) -> Packable:
     return x[:valid_m]
 
 
-def binarize_pack(x: torch.Tensor,
-                  backend: Optional[str] = None) -> PackedArray:
+def binarize_pack(x: torch.Tensor, backend: Optional[str] = None,
+                  scale: Optional[torch.Tensor] = None) -> PackedArray:
     """sign+pack along the last axis -> PackedArray (length=x.shape[-1]);
-    any length is accepted."""
+    any length is accepted.  ``scale`` ([K]) is multiplied in first, in
+    float32: bit = ``x * scale > 0`` (the "cuda" kernel takes it in its
+    load, the "torch" backend through ``pack_plain``)."""
     be = get_backend(backend)
-    if not be.uses_kernels:
-        return PackedArray.pack(x, axis=-1)
     lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
-    words = _pack_kernel(x2)
+    x2 = x.reshape(-1, k)
+    if scale is not None:
+        scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    if be.uses_kernels:
+        words = _pack_kernel(x2.to(torch.float32).contiguous(), scale)
+    else:
+        words = _pack_plain(x2, scale)
     return PackedArray(words.reshape(*lead, words.shape[-1]), length=k,
                        axis=-1)
 

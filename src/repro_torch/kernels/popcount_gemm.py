@@ -5,10 +5,14 @@ kernel is ``csrc/popcount_gemm.cu``.  Outputs: the int32 signed dot,
 +-1 after a scalar or per-channel threshold, or (``pack_out``) the
 decisions packed into words with columns >= ``valid_n`` zeroed, so the
 int32 [M, N] never reaches device memory.
+
+The kernel sums on the b1 tensor cores (``mma.sync`` with AND-popcount,
+``dot = K - 2*(pc_x + pc_w) + 4*popc(x & w)``), one launch per call;
+its tile is chosen here, by :func:`tile_plan`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,8 +20,43 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.packed import WORD, pack_words
 from repro_torch.kernels.ref import popcount_gemm_ref
 
-__all__ = ["check_threshold_args", "popcount_gemm", "popcount_gemm_plain",
-           "threshold_mode"]
+__all__ = ["TILES", "check_threshold_args", "popcount_gemm",
+           "popcount_gemm_plain", "threshold_mode", "tile_plan"]
+
+MMA_WORDS = 8           # K of one b1 m16n8k256 MMA, in words
+# the kernel's tiles (BM rows, BN columns, WK warps that split K), most
+# work a block first; warps own 16 x 32 outputs (16 x 8 in the 8-column
+# tile, which cannot pack: a word spans 4 of its blocks)
+TILES = ((64, 64, 1), (64, 32, 2), (16, 32, 4), (16, 8, 4))
+
+
+def tile_plan(m: int, n: int, k32: int, sms: int,
+              pack_out: bool = False) -> dict:
+    """The launch plan of an [m, k32] x [n, k32] word GEMM on a card of
+    ``sms`` SMs.
+
+    The candidates are the tiles no taller than M rounded up to 16 rows
+    (a taller one only multiplies zero rows) and, where ``pack_out``,
+    whose warps own 32 columns.  The tile is the first candidate whose
+    grid has at least half as many blocks as the card has SMs: beyond
+    that point a smaller tile would not spread the work over more SMs,
+    and the larger one reads each word for more MMAs.  Where no grid is
+    that large (AlexNet's fc8 at batch 1, BinaryNet's fc3 with N = 10),
+    the last candidate spreads the work furthest.  K is zero-filled to
+    ``k_words``, whole stages of ``MMA_WORDS * wk`` words.  Returns
+    ``bm``, ``bn``, ``wk``, ``k_words``, the grid (row tiles, column
+    tiles) and its block count."""
+    rows = max(16, -(-m // 16) * 16)
+    tiles = [t for t in TILES
+             if t[0] <= rows and (not pack_out or t[1] >= 32)]
+    for bm, bn, wk in tiles:
+        grid = (-(-m // bm), -(-n // bn))
+        if 2 * grid[0] * grid[1] >= sms:
+            break
+    stage = MMA_WORDS * wk
+    return {"bm": bm, "bn": bn, "wk": wk,
+            "k_words": -(-k32 // stage) * stage, "grid": grid,
+            "blocks": grid[0] * grid[1]}
 
 
 def check_threshold_args(threshold: Optional[int],
@@ -100,15 +139,46 @@ def popcount_gemm(xp: torch.Tensor, wp: torch.Tensor, k: int,
         return popcount_gemm_plain(xp, wp, k, threshold, threshold_vec,
                                    pack_out, valid_n)
     _build.require_cuda_tensor(xp, "popcount_gemm")
+    p = tile_plan(m, n, k32, _build.device_sms(xp.device), pack_out)
+    return _launch(xp, wp, k, (p["bm"], p["bn"], p["wk"]), threshold,
+                   threshold_vec, pack_out, valid_n)
+
+
+def _launch(xp: torch.Tensor, wp: torch.Tensor, k: int,
+            tile: Tuple[int, int, int], threshold: Optional[int] = None,
+            threshold_vec: Optional[torch.Tensor] = None,
+            pack_out: bool = False,
+            valid_n: Optional[int] = None) -> torch.Tensor:
+    """The kernel on CUDA operands whose shapes :func:`popcount_gemm`
+    checked, with the tile ``(BM, BN, WK)`` given, one of ``TILES``:
+    :func:`popcount_gemm` passes its plan, and the checks on the card
+    pass every tile in turn (pack_out refuses the 8-column tile)."""
+    if tuple(tile) not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    if pack_out and tile[1] < 32:
+        raise ValueError(f"pack_out needs a tile of >= 32 columns, got "
+                         f"{tile}")
+    if xp.device.type != "cuda":
+        raise ValueError(f"popcount_gemm's kernel takes CUDA tensors, got "
+                         f"device {xp.device}")
     for t, name in ((xp, "xp"), (wp, "wp")):
         if t.dtype != WORD or not t.is_contiguous() or t.device != xp.device:
             raise ValueError(f"popcount_gemm: {name} must be contiguous "
                              f"int32 words on {xp.device}")
+    m, k32 = xp.shape
+    n = wp.shape[0]
+    valid_n = n if valid_n is None else valid_n
+    if -(-n // tile[1]) > 65535:
+        raise ValueError(f"popcount_gemm's kernel takes at most 65535 "
+                         f"column tiles, got N={n}")
+    if threshold_vec is not None:
+        threshold_vec = threshold_vec.contiguous()
     shape = (m, (n + 31) // 32) if pack_out else (m, n)
     out = torch.empty(shape, dtype=WORD, device=xp.device)
     _build.POPCOUNT_GEMM.launch(
         xp.device, _build.ptr(xp), _build.ptr(wp), _build.ptr(threshold_vec),
         _build.ptr(out), m, n, k32, k,
         threshold_mode(threshold, threshold_vec),
-        0 if threshold is None else int(threshold), int(pack_out), valid_n)
+        0 if threshold is None else int(threshold), int(pack_out), valid_n,
+        *tile)
     return out

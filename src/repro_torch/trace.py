@@ -6,7 +6,8 @@
 Runs full-width BinaryNet CIFAR-10 or XNOR-AlexNet (random weights from
 a seeded generator, integer images) through ``graph.compile(...).apply``
 under ``torch.profiler`` and prints, per batch, the device time of each
-kernel group per forward, the wall time per forward under the profiler,
+kernel group per forward (and, in the JSON, every kernel's launches per
+forward), the wall time per forward under the profiler,
 and the device's busy share (device kernel time over wall time; the
 profiler's own overhead inflates the wall time, so the share is a lower
 bound).  Needs a CUDA device; each line names the card and its power
@@ -28,11 +29,19 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import graph
 from repro_torch.core.workloads import WORKLOADS, Workload
 
-# kernel-name fragment -> group (the port's five kernels by symbol)
+# kernel-name fragment -> group: the port's five kernels by symbol, then
+# the float entry convs (the kernels cuDNN chose, with its layout
+# transposes and FFT stages) and torch's own kernels (elementwise, pools,
+# copies); the first fragment a name holds decides
+CUDNN = "cuDNN float convs"
+TORCH = "torch elementwise, pools, copies"
 GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("fused_mlp_kernel", "fused_binary_mlp"),
           ("popcount_gemm_kernel", "popcount_gemm"),
-          ("xnor_gemm_kernel", "xnor_gemm"))
+          ("xnor_gemm_kernel", "xnor_gemm"),
+          ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
+          ("xmma_", CUDNN), ("flip_filter", CUDNN),
+          ("at::native::", TORCH))
 
 
 def _group(name: str) -> str:
@@ -72,6 +81,19 @@ def kernel_ms(fn: Callable[[], object], symbol: str, iters: int = 20
                          f"named like {symbol} in three tries")
 
 
+def device_kernels(fn: Callable[[], object]) -> Dict[str, int]:
+    """The device kernels one call of ``fn`` launches (after a warm-up
+    call), by name, with how many times each ran (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
     cb = graph.compile(workload, batch=batch)
     params = cb.init(torch.Generator().manual_seed(0))
@@ -89,6 +111,7 @@ def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups: Dict[str, float] = {}
+    kernels: Dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -96,12 +119,14 @@ def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
         if us is None:
             us = e.self_cuda_time_total
         groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + us / iters
+        kernels[e.key[:160]] = kernels.get(e.key[:160], 0) + e.count / iters
     device_us = sum(groups.values())
     return {"batch": batch, "wall_us_per_forward": wall_us / iters,
             "device_us_per_forward": device_us,
             "busy_share": device_us / (wall_us / iters),
             "device_us_by_group": dict(sorted(groups.items(),
-                                              key=lambda kv: -kv[1]))}
+                                              key=lambda kv: -kv[1])),
+            "kernels_per_forward": kernels}
 
 
 def main() -> None:

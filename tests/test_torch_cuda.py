@@ -29,13 +29,17 @@ from repro_torch.kernels.fused_mlp import (fused_mlp_words,  # noqa: E402
                                            fused_mlp_words_plain, stack_plan)
 from repro_torch.kernels.fused_mlp import \
     smem_bytes as fused_smem_bytes  # noqa: E402
-from repro_torch.kernels.pack import pack, pack_plain  # noqa: E402
+from repro_torch.kernels.pack import PATHS as PACK_PATHS  # noqa: E402
+from repro_torch.kernels.pack import _launch as _pack_launch  # noqa: E402
+from repro_torch.kernels.pack import pack, pack_path, pack_plain  # noqa
 from repro_torch.kernels.packed import PackedArray, pack_words  # noqa: E402
 from repro_torch.kernels.packed_conv import TILES as CONV_TILES  # noqa: E402
 from repro_torch.kernels.packed_conv import _launch as _conv_launch  # noqa
 from repro_torch.kernels.packed_conv import (packed_conv2d,  # noqa: E402
                                              packed_conv2d_plain,
                                              pad_words_spatial)
+from repro_torch.kernels.popcount_gemm import TILES as GEMM_TILES  # noqa
+from repro_torch.kernels.popcount_gemm import _launch as _gemm_launch  # noqa
 from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
                                                popcount_gemm_plain)
 from repro_torch.kernels.xnor_gemm import (TILES, _launch,  # noqa: E402
@@ -69,10 +73,95 @@ def test_pack_kernel(cuda, m, k):
     assert torch.equal(pack(x), pack_plain(x))
 
 
+def _pack_operands(rng, m, k, device):
+    """Normal x with NaN, -0.0 and 0.0 in row 0, and a scale [K] with
+    negative entries, a zero and (columns 4-7) values that make the
+    products of row 1 denormal or round them to 0."""
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    scale = rng.standard_normal(k).astype(np.float32)
+    x[0, :3] = [np.nan, -0.0, 0.0][:k]
+    scale[3:4] = 0.0
+    if m > 1 and k > 7:
+        x[1, 4:8] = [1e-20, -1e-20, 1e-30, 3e-23]
+        scale[4:8] = [1e-20, 1e-20, 1e-30, -2e-23]
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(scale).to(device))
+
+
+def _pack_paths(k):
+    """The kernel paths an aligned [M, K] operand allows."""
+    return [p for p in PACK_PATHS if p == "rows" or k % 32 == 0]
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("m,k", [(37, 100), (1024, 128), (5, 33), (3, 32),
+                                 (300, 256), (9, 1), (70, 68)])
+def test_pack_every_path(cuda, m, k, scaled):
+    """The plan's path and every path the operands allow (K % 32 != 0:
+    rows only; else flat as well), with and
+    without the scale, bit for bit; a path they do not allow raises."""
+    x, scale = _pack_operands(np.random.default_rng(m * k), m, k, cuda)
+    s = scale if scaled else None
+    want = pack_plain(x, s)
+    assert torch.equal(pack(x, s), want)
+    for path in PACK_PATHS:
+        if path in _pack_paths(k):
+            assert torch.equal(_pack_launch(x, s, path), want), path
+        else:
+            with pytest.raises(RuntimeError):
+                _pack_launch(x, s, path)
+
+
+def test_pack_scale_keeps_denormal_products(cuda):
+    """A product that is denormal gives bit 1, one that rounds to 0 bit
+    0 (no flush to zero), as torch's multiply does."""
+    x, scale = _pack_operands(np.random.default_rng(3), 4, 128, cuda)
+    bits = pack_plain(x, scale)[1, 0]
+    assert [(int(bits) >> b) & 1 for b in range(4, 8)] == [1, 0, 0, 0]
+    for path in _pack_paths(128):
+        assert torch.equal(_pack_launch(x, scale, path),
+                           pack_plain(x, scale))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_pack_view_at_an_offset(cuda, scaled):
+    """x and scale 4 bytes past a 16-byte boundary (contiguous views at
+    a storage offset) take the 4-byte path and read nothing outside."""
+    m, k = 33, 256
+    x, scale = _pack_operands(np.random.default_rng(5), m, k, cuda)
+    xo = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+    xo.copy_(x)
+    so = torch.empty(k + 1, device=cuda)[1:]
+    so.copy_(scale)
+    s = so if scaled else None
+    assert xo.data_ptr() % 16 == 4
+    assert pack_path(k, xo.data_ptr(), _build.ptr(s)) == "rows"
+    assert torch.equal(pack(xo, s), pack_plain(xo, s))
+    with pytest.raises(RuntimeError):
+        _pack_launch(xo, s, "flat")
+    # an aligned x with a scale at an offset: 4-byte loads as well
+    assert torch.equal(pack(x, so), pack_plain(x, so))
+
+
+@pytest.mark.parametrize("path", [None, "flat", "rows"])
+def test_pack_counts_one_launch_per_call(cuda, path):
+    x, scale = _pack_operands(np.random.default_rng(9), 2048, 128, cuda)
+    _build.reset_launch_counts()
+    if path is None:
+        pack(x, scale)
+    else:
+        _pack_launch(x, scale, path)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["pack"] == 1
+
+
 @pytest.mark.parametrize("m,k,n,thr,pack_out", [
     (37, 50, 20, "scalar", True), (5, 97, 33, "vector", True),
     (64, 128, 96, "vector", False), (3, 33, 65, None, False),
-    (300, 2000, 70, "scalar", False), (256, 1024, 10, None, False)])
+    (300, 2000, 70, "scalar", False), (256, 1024, 10, None, False),
+    (1, 4096, 1000, None, False), (32, 4096, 1000, None, False),
+    (256, 4096, 1000, None, False), (1, 1024, 10, None, False),
+    (17, 9216, 4096, "vector", True), (1, 4096, 4096, "vector", True)])
 def test_popcount_gemm_kernel(cuda, m, k, n, thr, pack_out):
     rng = np.random.default_rng(m + k + n)
     xp, wp = _words(rng, m, k, cuda), _words(rng, n, k, cuda)
@@ -82,6 +171,67 @@ def test_popcount_gemm_kernel(cuda, m, k, n, thr, pack_out):
               if thr == "vector" else None, pack_out=pack_out)
     assert torch.equal(popcount_gemm(xp, wp, k, **kw),
                        popcount_gemm_plain(xp, wp, k, **kw))
+
+
+def _gemm_epilogues(rng, n, device):
+    """The four epilogues: the dot, +-1 after a scalar threshold, +-1
+    after a per-channel one holding the int32 extremes, and packed
+    decisions with valid_n = N - 3."""
+    tv = rng.integers(-40, 41, n).astype(np.int32)
+    tv[:2] = [-2 ** 31, 2 ** 31 - 1]
+    tvec = torch.from_numpy(tv).to(device)
+    return [dict(), dict(threshold=-3), dict(threshold_vec=tvec),
+            dict(threshold_vec=tvec, pack_out=True, valid_n=n - 3)]
+
+
+@pytest.mark.parametrize("tile", list(GEMM_TILES))
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 1000), (17, 97, 65),
+                                   (300, 1024, 10), (300, 1061, 1000),
+                                   (17, 50, 10), (1, 33, 65)])
+def test_popcount_gemm_every_tile(cuda, tile, m, k, n):
+    """Every tile on M = 1, 17, 300, N = 10, 65, 1000 and odd K (K32 =
+    2, 4, 34: 4-byte copies where K32 % 4 != 0), in every epilogue, bit
+    for bit; the 8-column tile refuses pack_out; two calls give the same
+    words."""
+    rng = np.random.default_rng(m + k + n + sum(tile))
+    xp, wp = _words(rng, m, k, cuda), _words(rng, n, k, cuda)
+    for kw in _gemm_epilogues(rng, n, cuda):
+        if kw.get("pack_out") and tile[1] < 32:
+            with pytest.raises(ValueError):
+                _gemm_launch(xp, wp, k, tile, **kw)
+            continue
+        got = _gemm_launch(xp, wp, k, tile, **kw)
+        assert torch.equal(got, popcount_gemm_plain(xp, wp, k, **kw)), kw
+        assert torch.equal(got, _gemm_launch(xp, wp, k, tile, **kw))
+
+
+def test_popcount_gemm_operands_at_an_offset(cuda):
+    """Words 4 bytes past a 16-byte boundary with K32 % 4 == 0: 4-byte
+    copies of that operand."""
+    rng = np.random.default_rng(11)
+    m, k, n = 40, 1024, 70
+    xp, wp = _words(rng, m, k, cuda), _words(rng, n, k, cuda)
+    xo = torch.empty(xp.numel() + 1, dtype=torch.int32,
+                     device=cuda)[1:].view(m, k // 32)
+    xo.copy_(xp)
+    for tile in GEMM_TILES:
+        assert torch.equal(_gemm_launch(xo, wp, k, tile),
+                           popcount_gemm_plain(xp, wp, k))
+        assert torch.equal(_gemm_launch(wp, xo, k, tile),
+                           popcount_gemm_plain(wp, xp, k))
+
+
+@pytest.mark.parametrize("tile", [None] + list(GEMM_TILES))
+def test_popcount_gemm_counts_one_launch_per_call(cuda, tile):
+    rng = np.random.default_rng(13)
+    xp, wp = _words(rng, 32, 4096, cuda), _words(rng, 1000, 4096, cuda)
+    _build.reset_launch_counts()
+    if tile is None:
+        popcount_gemm(xp, wp, 4096)
+    else:
+        _gemm_launch(xp, wp, 4096, tile)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["popcount_gemm"] == 1
 
 
 @pytest.mark.parametrize("nb,h,c,f,k,s,pad,thr,pack_out", [

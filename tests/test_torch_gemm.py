@@ -9,7 +9,10 @@ reference's "xla" dispatch on the odd shapes of tests/test_fused.py;
 kernel in interpret mode and the chained path; (4) the Hopper
 rule of stack_plan (row tile, cluster size, shared memory, fit) and the
 cluster's block slices; (5) the cluster kernel's arithmetic, emulated in
-torch, against the Pallas fused_mlp kernel."""
+torch, against the Pallas fused_mlp kernel; (6) the b1 popcount_gemm
+kernel's arithmetic per tile, emulated in torch, against the Pallas
+popcount_gemm kernel in every epilogue, and its tile rule.  Every
+comparison is exact."""
 import numpy as np
 import pytest
 
@@ -31,8 +34,11 @@ from repro_torch.kernels.fused_mlp import (_launch,  # noqa: E402
 from repro_torch.kernels.packed import (PackedArray, as_uint32,  # noqa: E402
                                         from_uint32, pack_words,
                                         popcount_u32)
+from repro_torch.kernels.popcount_gemm import TILES as GEMM_TILES  # noqa
+from repro_torch.kernels.popcount_gemm import _launch as _gemm_launch  # noqa
 from repro_torch.kernels.popcount_gemm import (popcount_gemm,  # noqa: E402
-                                               popcount_gemm_plain)
+                                               popcount_gemm_plain,
+                                               tile_plan)
 from repro_torch.kernels.ref import popcount_gemm_ref  # noqa: E402
 
 
@@ -304,3 +310,162 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError):
         popcount_gemm(xp.to("meta"), xp.to("meta"), 64)
     assert popcount_gemm_plain(xp, xp, 64).shape == (4, 4)
+
+
+def _b1_gemm_emulation(xw, ww, k, tile, threshold=None, threshold_vec=None,
+                       pack_out=False, valid_n=None):
+    """csrc/popcount_gemm.cu's arithmetic in torch, block by block: a
+    (BM, BN) tile of zero-filled rows and columns, K zero-filled to
+    whole stages of 8*WK words, part kk of K = MMA depth kk of every
+    stage summed as popc(x & w), the parts added; pc_x and pc_w over
+    the same words; dot = K - 2*(pc_x + pc_w) + 4*and, thresholds held
+    as 4*and - 2*pc_x >= T - K + 2*pc_w in 64 bits, columns >= N (packed:
+    >= valid_n) never passing; a warp's 32 columns one packed word."""
+    bm, bn, wk = tile
+    m, k32 = xw.shape
+    n = ww.shape[0]
+    valid_n = n if valid_n is None else valid_n
+    stage = 8 * wk
+    kp = -(-k32 // stage) * stage
+    mp, np_ = -(-m // bm) * bm, -(-n // bn) * bn
+    xp = torch.nn.functional.pad(xw, (0, kp - k32, 0, mp - m))
+    wp = torch.nn.functional.pad(ww, (0, kp - k32, 0, np_ - n))
+    col = torch.arange(np_)
+    live = (col < n) & ((col < valid_n) if pack_out else True)
+    if threshold_vec is not None:
+        thr = torch.nn.functional.pad(threshold_vec.to(torch.int64),
+                                      (0, np_ - n))
+    else:
+        thr = torch.full((np_,), 0 if threshold is None else threshold,
+                         dtype=torch.int64)
+    out = torch.zeros(mp, np_, dtype=torch.int64)
+    for r0 in range(0, mp, bm):
+        for c0 in range(0, np_, bn):
+            xb, wb = xp[r0:r0 + bm], wp[c0:c0 + bn]
+            parts = [torch.zeros(bm, bn, dtype=torch.int64)
+                     for _ in range(wk)]
+            for st in range(kp // stage):
+                for kk in range(wk):
+                    lo = st * stage + 8 * kk
+                    both = xb[:, None, lo:lo + 8] & wb[None, :, lo:lo + 8]
+                    parts[kk] += popcount_u32(both).sum(-1)
+            both = sum(parts)
+            pcx = popcount_u32(xb).sum(1, dtype=torch.int64)[:, None]
+            pcw = popcount_u32(wb).sum(1, dtype=torch.int64)[None, :]
+            y = 4 * both - 2 * pcx
+            cols = slice(c0, c0 + bn)
+            if threshold is None and threshold_vec is None:
+                out[r0:r0 + bm, cols] = k + y - 2 * pcw
+            else:
+                tc = torch.where(live[cols], thr[cols] - k + 2 * pcw[0],
+                                 torch.iinfo(torch.int64).max)
+                out[r0:r0 + bm, cols] = y >= tc
+    out = out[:m]
+    if threshold is None and threshold_vec is None:
+        return out[:, :n].to(torch.int32)
+    if not pack_out:
+        return torch.where(out[:, :n] == 1, 1, -1).to(torch.int32)
+    return pack_words(torch.where(out == 1, 1.0, -1.0), -1)[:, :-(-n // 32)]
+
+
+@pytest.mark.parametrize("tile", list(GEMM_TILES))
+@pytest.mark.parametrize("m,k,n", [(1, 300, 20), (17, 97, 65),
+                                   (33, 1061, 10), (5, 33, 40)])
+def test_b1_gemm_arithmetic_matches_pallas_interpret(m, k, n, tile):
+    """Every tile's arithmetic against the Pallas popcount_gemm kernel in
+    interpret mode, in every epilogue: the dot, a scalar threshold, a
+    per-channel one holding the int32 extremes, and packed decisions with
+    valid_n = N - 3 (the 8-column tile does not pack).  The reference
+    packs only N % 32 == 0, so it gets zero weight rows to a whole word
+    and the same valid_n."""
+    rng = np.random.default_rng(m + k + n + sum(tile))
+    jx, tx = _both(_pm1(rng, m, k))
+    jw, tw = _both(_pm1(rng, n, k))
+    tv = rng.integers(-30, 31, size=n).astype(np.int32)
+    tv[:2] = [-2 ** 31, 2 ** 31 - 1]
+    n32 = -(-n // 32) * 32
+    jw32 = jnp.pad(jw.words, ((0, n32 - n), (0, 0)))
+    tv32 = np.pad(tv, (0, n32 - n))
+    for kw in (dict(), dict(threshold=-3),
+               dict(threshold_vec=tv),
+               dict(threshold_vec=tv, pack_out=True, valid_n=n - 3)):
+        if kw.get("pack_out"):
+            if tile[1] < 32:
+                continue
+            want = jgemm(jx.words, jw32, k, interpret=True,
+                         threshold_vec=jnp.asarray(tv32), pack_out=True,
+                         valid_n=n - 3)
+        else:
+            jkw = dict(kw)
+            if "threshold_vec" in jkw:
+                jkw["threshold_vec"] = jnp.asarray(tv)
+            want = jgemm(jx.words, jw.words, k, interpret=True, **jkw)
+        tkw = dict(kw)
+        if "threshold_vec" in tkw:
+            tkw["threshold_vec"] = torch.from_numpy(tv)
+        got = _b1_gemm_emulation(tx.words, tw.words, k, tile, **tkw)
+        got_np = as_uint32(got) if kw.get("pack_out") else got.numpy()
+        np.testing.assert_array_equal(got_np, np.asarray(want), str(kw))
+        # and the port's plain version, which the kernel is held to
+        np.testing.assert_array_equal(
+            got, popcount_gemm_plain(tx.words, tw.words, k, **tkw))
+
+
+def test_gemm_tile_plan_main_shapes():
+    """The main paths' heads on an H100 (132 SMs).  AlexNet's fc8 (N =
+    1000, K32 = 128) at batch 1 runs every n8 column tile in a block of
+    its own, 125 blocks: one block on 125 of the 132 SMs, the most any
+    tile gives; at batch 32 250, at batch 256 64 x 32 tiles with K in 2
+    parts, 128 blocks.  BinaryNet's fc3 (N = 10) has 2 column tiles, so
+    the narrowest tile at every batch."""
+    fc8 = {b: tile_plan(b, 1000, 128, 132) for b in (1, 32, 256)}
+    assert [(p["bm"], p["bn"], p["wk"], p["blocks"])
+            for p in fc8.values()] == [(16, 8, 4, 125), (16, 8, 4, 250),
+                                       (64, 32, 2, 128)]
+    assert fc8[1]["grid"] == (1, 125) and fc8[1]["k_words"] == 128
+    assert max(-(-1000 // bn) for _, bn, _ in GEMM_TILES) == 125
+    fc3 = [tile_plan(b, 10, 32, 132) for b in (1, 32, 256)]
+    assert [(p["bm"], p["bn"], p["wk"], p["blocks"]) for p in fc3] == \
+        [(16, 8, 4, 2), (16, 8, 4, 4), (16, 8, 4, 32)]
+    # the chained route packs: 32-column warps, BM = 16 at M = 1
+    assert (tile_plan(1, 4096, 288, 132, pack_out=True)["bm"],
+            tile_plan(1, 4096, 288, 132, pack_out=True)["bn"]) == (16, 32)
+    assert tile_plan(256, 4096, 288, 132, pack_out=True)["bn"] == 64
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("pack_out", [False, True])
+def test_gemm_tile_plan_is_legal_everywhere(sms, pack_out):
+    """At every (m, n, k32) swept: a tile of TILES, no taller than M
+    rounded up to 16 rows (unless none is), 32-column warps where
+    packing, a grid that covers M and N, K zero-filled to whole stages
+    (less than a stage of padding), and either half a block per SM or
+    the most blocks any candidate gives."""
+    for m in (1, 2, 15, 16, 17, 63, 64, 65, 300, 4096, 262144):
+        for n in (1, 8, 10, 33, 65, 1000, 4096):
+            for k32 in (1, 2, 4, 33, 128, 288):
+                p = tile_plan(m, n, k32, sms, pack_out)
+                tile = (p["bm"], p["bn"], p["wk"])
+                assert tile in GEMM_TILES
+                assert p["bm"] <= max(16, -(-m // 16) * 16)
+                assert not pack_out or p["bn"] >= 32
+                assert p["grid"] == (-(-m // p["bm"]), -(-n // p["bn"]))
+                assert p["blocks"] == p["grid"][0] * p["grid"][1]
+                stage = 8 * p["wk"]
+                assert p["k_words"] % stage == 0
+                assert k32 <= p["k_words"] < k32 + stage
+                cands = [t for t in GEMM_TILES
+                         if t[0] <= max(16, -(-m // 16) * 16)
+                         and (not pack_out or t[1] >= 32)]
+                most = max(-(-m // bm) * -(-n // bn) for bm, bn, _ in cands)
+                assert 2 * p["blocks"] >= sms or p["blocks"] == most
+
+
+def test_gemm_launch_refuses_bad_tiles_and_cpu_tensors():
+    xp = torch.zeros(4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="tile"):
+        _gemm_launch(xp, xp, 64, (32, 32, 1))
+    with pytest.raises(ValueError, match="pack_out"):
+        _gemm_launch(xp, xp, 64, (16, 8, 4), threshold=0, pack_out=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        _gemm_launch(xp, xp, 64, (16, 8, 4))

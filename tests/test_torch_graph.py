@@ -179,6 +179,68 @@ def test_split_at_binarize_composes_to_apply(small_ref):
         cb.split("conv9")
 
 
+def test_split_head_keeps_the_alpha_multiply(small_ref):
+    """A head cut off before binarize@conv2 has no pack to hand conv1's
+    alpha to: it returns the scaled float activations, equal to the
+    reference's entry conv (integer images: exact)."""
+    jparams, x, _ = small_ref
+    cb = tgraph.compile(_small_spec(tgraph), device="cpu", batch=5)
+    head, _ = cb.split("binarize@conv2")
+    assert not head._alpha_in_pack(0) and cb._alpha_in_pack(0)
+    h = head.apply(params_from_numpy(np_tree(jparams), "cpu"),
+                   torch.from_numpy(x))
+    p0 = jparams["conv"][0]
+    np.testing.assert_array_equal(
+        h.numpy(), np.asarray(jentry(x, p0["w"], padding=1,
+                                     alpha=p0["alpha"])))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_apply_hands_the_entry_alpha_to_the_pack(small_ref, monkeypatch,
+                                                 backend):
+    """conv1 followed by binarize@conv2: apply leaves the alpha multiply
+    to the pack (binarize_pack gets conv1's alpha as its scale, and
+    binary_weight_conv, the scaled entry conv, is not called), and the
+    logits equal the reference's."""
+    jparams, x, want = small_ref
+    import importlib
+    tcompile = importlib.import_module("repro_torch.graph.compile")
+    from repro_torch.kernels import ops as tops
+    seen = []
+    real = tops.binarize_pack
+
+    def recording(h, backend=None, scale=None):
+        seen.append(scale)
+        return real(h, backend=backend, scale=scale)
+
+    monkeypatch.setattr(tops, "binarize_pack", recording)
+    monkeypatch.setattr(tcompile, "binary_weight_conv", None)
+    cb = tgraph.compile(_small_spec(tgraph), backend=backend, device="cpu",
+                        batch=5)
+    params = params_from_numpy(np_tree(jparams), "cpu")
+    got = cb.apply(params, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the "torch" backend's binary layers pack their outputs through
+    # binarize_pack too, with no scale
+    assert seen[0] is params["conv"][0]["alpha"]
+    assert all(scale is None for scale in seen[1:])
+
+
+def test_which_entry_convs_leave_their_alpha_to_the_pack():
+    """Decided from the plan, with no step kind of its own: BinaryNet's
+    conv1 (a binarize follows) leaves it; AlexNet's conv1 and conv2 (a
+    float pool follows each) keep theirs; kinds, names and launch
+    counts are unchanged."""
+    for workload, want, launches in ((binarynet_cifar10(), [True], 8),
+                                     (alexnet_imagenet(), [False, False],
+                                      6)):
+        cb = tgraph.compile(workload, device="cpu")
+        got = [cb._alpha_in_pack(i) for i, s in enumerate(cb.plan)
+               if s.kind == "integer_conv"]
+        assert got == want and cb.launch_count() == launches
+        assert "integer_conv" in [s.kind for s in cb.plan]
+
+
 def test_binarynet_plan_and_describe():
     cb = tgraph.compile(binarynet_cifar10(), device="cpu", batch=256)
     assert cb.launch_count() == 8 and cb.legacy_launch_count() == 9
