@@ -77,15 +77,36 @@
    ``binarize@conv3``: the float entry layers (cuDNN, TF32 off) within
    1e-5 * max|h|, then the CPU's float activations through the card's
    binary tail, exact;
-5. drives ``binary_dense`` (the float->binary boundary layer, on
+5. replays both models at batches 1, 32 and 256 from one CUDA graph
+   per forward (``graph.replay.GraphedApply``): the replayed logits
+   must equal eager ``apply``'s bit for bit, and a replay must run 8
+   and 6 of the port's kernels (the counts its capture recorded;
+   the profiler's too where it shows a graph's kernels); prints ms per
+   forward and images/s both ways, the capture time and the pool's
+   memory;
+6. serves full-width BinaryNet through ``BNNServer(max_batch=256,
+   prewarm=True)`` — 512 requests of 1..256 rows (seed 0) from 4 client
+   threads, twice (the first burst after start-up and the steady
+   state), then 64 single-row requests one at a time — and XNOR-AlexNet
+   through ``max_batch=32`` with 64 requests: every result must equal
+   eager ``apply`` on its own rows, at most ``trace_bound`` graphs, no
+   fallback
+   and no retry; then one forced ``BackendFault`` must fall back to the
+   ``"torch"`` backend on the card with the same logits, counted once.
+   Prints images/s, p50/p99 latency and the in-flight peak;
+7. times the fused stack against the chained route (one popcount_gemm
+   launch a layer), both replayed from CUDA graphs, at the six main
+   shapes, the words equal;
+8. drives ``binary_dense`` (the float->binary boundary layer, on
    xnor_gemm) at the decode GEMMs of the repo's LLM configs — (M, K, N)
    = (128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192) — in bf16
    and float32 through the public entry point, one launch each (two
    where K is split: the parts, then their sum).
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
-5 ms per call; the launch counts of the ``kernels`` line are those of steps 3-5, each
-counted from 0 just before it runs.  Any failure raises and exits
+8 ms per call; the launch counts of the ``kernels`` line are those of
+steps 3-6 and 8, each counted from 0 just before it runs (a graph's
+replay counts the kernels its capture recorded).  Any failure raises and exits
 non-zero; no phase catches its own failure.  The last line is the
 device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
@@ -1270,6 +1291,392 @@ def dense_path(rnd, launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# the graphed forward and the server                                   #
+# ------------------------------------------------------------------ #
+def images(spec, batch, seed):
+    """Integer images in [-3, 3] for ``spec``, made on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randint(-3, 4, (batch, *spec.input_shape), generator=gen,
+                         device=DEVICE).to(torch.float32)
+
+
+def wall_ms(fn, iters):
+    """Host-clock ms per call of ``fn`` over ``iters`` calls ending in a
+    synchronize, after a warm-up call (the latency a caller sees)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def port_kernels(fn):
+    """The port's kernels one call of ``fn`` runs on the card, by the
+    profiler (name -> launches)."""
+    from repro_torch.trace import GROUPS, device_kernels
+    seen = {}
+    for name, count in device_kernels(fn).items():
+        for frag, group in GROUPS[:5]:
+            if frag in name:
+                seen[group] = seen.get(group, 0) + count
+                break
+    return seen
+
+
+def replay_kernels(what, fn, want, tries=3):
+    """The port's kernels one call of ``fn`` ran on the card, by the
+    profiler, held to ``want`` (the launches a capture recorded, which
+    each replay adds to the counts).  The profiler can drop a graph's
+    kernel records (seen on the H100: a replay of 8 kernels shown as 3)
+    but never shows a kernel that did not run, so a view with fewer is
+    taken again, up to ``tries`` times, and one with more fails at once.
+    Returns (what the profiler saw, profiles taken)."""
+    for n in range(1, tries + 1):
+        seen = port_kernels(fn)
+        if seen == want:
+            return seen, n
+        if any(v > want.get(k, 0) for k, v in seen.items()):
+            break
+    raise AssertionError(f"{what}: the profiler saw {seen or 'no kernel'}"
+                         f", the capture recorded {want}")
+
+
+def graphed_path(launches):
+    """Both models at batches 1, 32 and 256 through ``GraphedApply`` (one
+    CUDA graph per forward, each in its own memory pool):
+    the replayed logits must equal eager ``apply``'s bit for bit, a
+    replay must run 8 and 6 of the port's kernels (the counts its
+    capture recorded, and the profiler's count of the kernels a replay
+    ran on the card); prints ms per forward and images/s both ways, the
+    capture time and the memory the graph holds (``memory_reserved``
+    around its capture, the previous graph freed and the allocator's
+    cache emptied at both readings)."""
+    from repro_torch import graph
+    from repro_torch.core.workloads import (alexnet_imagenet,
+                                            binarynet_cifar10)
+    from repro_torch.graph.replay import GraphedApply
+    from repro_torch.kernels import _build
+    out = {}
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    for label, workload, per_forward in (
+            ("BinaryNet", binarynet_cifar10(), BINARYNET_PER_FORWARD),
+            ("AlexNet", alexnet_imagenet(), ALEXNET_PER_FORWARD)):
+        spec = graph.from_workload(workload)
+        params, g, rows = None, None, []
+        for batch in BATCHES:
+            cb = graph.compile(spec, device=DEVICE, batch=batch)
+            if params is None:
+                params = cb.init(torch.Generator().manual_seed(0))
+            x = images(spec, batch, batch)
+            eager = cb.apply(params, x)
+            g = None
+            r0 = reserved()
+            g = GraphedApply(cb, params, batch)
+            pool_bytes = reserved() - r0
+            if g.launches != per_forward:
+                raise AssertionError(f"{label} B={batch}: the capture "
+                                     f"recorded {g.launches}")
+            _build.reset_launch_counts()
+            got = g(x)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            expect_launches(f"{label} graphed B={batch}", counts,
+                            per_forward)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            if not torch.equal(got, eager):
+                raise AssertionError(f"{label} B={batch}: replayed logits "
+                                     f"differ from eager apply's")
+            seen, profiles = replay_kernels(f"{label} B={batch} replay",
+                                            lambda: g(x), g.launches)
+            iters = 50 if batch < 256 else 20
+            eager_ms = wall_ms(lambda: cb.apply(params, x), iters)
+            graphed_ms = wall_ms(lambda: g(x), iters)
+            rows.append(dict(batch=batch, eager_ms=eager_ms,
+                             graphed_ms=graphed_ms,
+                             eager_images_per_s=batch / eager_ms * 1e3,
+                             graphed_images_per_s=batch / graphed_ms * 1e3,
+                             capture_s=g.capture_s, pool_bytes=pool_bytes,
+                             kernels_per_replay=sum(g.launches.values()),
+                             profiler_kernels=seen, profiles=profiles))
+            print(f"{label} graphed B={batch}: {graphed_ms:.4f} ms/forward "
+                  f"({batch / graphed_ms * 1e3:.1f} images/s) replayed, "
+                  f"{eager_ms:.4f} ms ({batch / eager_ms * 1e3:.1f} "
+                  f"images/s) eager; capture {g.capture_s:.3f} s, pool "
+                  f"{pool_bytes / 2**20:.1f} MiB, {counts} per replay "
+                  f"(the profiler saw {seen}, profile {profiles}); "
+                  f"replayed logits equal "
+                  f"eager apply's")
+        out[label] = rows
+    return out
+
+
+SERVED = (("BinaryNet", 256, 512), ("AlexNet", 32, 64))
+
+
+def serving_path(launches):
+    """``BNNServer(max_batch, prewarm=True)`` over full-width BinaryNet
+    (max_batch 256, 512 requests) and XNOR-AlexNet (32, 64): requests of
+    rows drawn uniformly from 1..max_batch (seed 0) sent by 4 client
+    threads, twice (the first burst after start-up, then the steady
+    state), then 64 single-row requests one at a time.  Every result
+    must equal eager ``apply`` on its own rows, graphs stay within
+    ``trace_bound``, nothing falls back or retries, and the profiler
+    must see one served flight run the kernels its graph's capture
+    recorded (the counts every replay adds).  Then one forced
+    ``BackendFault`` (``ChaosMonkey.fail_next``) must take the degraded
+    step: the same kernels launched eagerly on the card (their counts
+    move by one forward), the same logits, counted once.  Prints
+    images/s, p50/p99 latency, the in-flight peak and how much memory
+    the prewarmed server holds (``memory_reserved`` around its
+    construction)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import graph
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.kernels import _build
+    from repro_torch.robustness import ChaosMonkey
+    from repro_torch.serving import BackendFault, BNNServer, trace_bound
+    from repro_torch.serving.bucketing import bucket_for, ragged_valid
+    out = {}
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def level_launches(srv, n):
+        """The launches the capture of ``n`` rows' level recorded."""
+        bucket = bucket_for(n, srv.max_batch)
+        return srv._graphs[(bucket, ragged_valid(n, bucket))].launches
+
+    for label, max_batch, n_req in SERVED:
+        spec = graph.from_workload(
+            WORKLOADS["binarynet" if label == "BinaryNet" else "alexnet"])
+        cb = graph.compile(spec, device=DEVICE, batch=max_batch)
+        params = cb.init(torch.Generator().manual_seed(0))
+        chaos = ChaosMonkey()
+        srv = None                      # the previous model's graphs go
+        r0 = reserved()
+        t0 = time.perf_counter()
+        # the whole burst is queued at once: no admission bound
+        srv = BNNServer(cb, params, max_batch=max_batch, prewarm=True,
+                        chaos=chaos, max_queue_rows=None, device=DEVICE)
+        prewarm_s = time.perf_counter() - t0
+        pool_bytes = reserved() - r0
+        bound_n = trace_bound(max_batch, ragged=True)
+        rows = np.random.default_rng(0).integers(1, max_batch + 1, n_req)
+        data = images(spec, int(rows.sum()), 0)
+        offs = np.concatenate([[0], np.cumsum(rows)])
+        xs = [data[offs[i]:offs[i + 1]] for i in range(n_req)]
+        torch.cuda.synchronize()
+        srv.start()
+
+        def burst():
+            """The requests from 4 client threads at once; returns the
+            results, the wall time and each request's latency (submit to
+            resolution, ms)."""
+            futs, lat = [None] * n_req, [None] * n_req
+            # a future wakes its waiters before it runs its callbacks:
+            # the latencies are read only once every callback has run
+            timed = threading.Semaphore(0)
+
+            def done(f, i, t):
+                lat[i] = (time.perf_counter() - t) * 1e3
+                timed.release()
+
+            def client(k):
+                for i in range(k, n_req, 4):
+                    t = time.perf_counter()
+                    futs[i] = srv.submit(xs[i])
+                    futs[i].add_done_callback(
+                        lambda f, i=i, t=t: done(f, i, t))
+
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(k,))
+                       for k in range(4)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            out = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            for _ in range(n_req):
+                if not timed.acquire(timeout=60):
+                    raise AssertionError("a latency callback never ran")
+            return out, wall, sorted(lat)
+
+        def pcts(ms):
+            n = len(ms)
+            return dict(p50=ms[n // 2], p99=ms[min(n - 1, int(0.99 * n))])
+
+        _build.reset_launch_counts()
+        # the first burst after start-up pays the allocator's growth and
+        # the threads' first CUDA calls; the second is the steady state
+        bursts, got, seen = [], [], []
+        for _ in range(2):
+            out_b, wall, lat = burst()
+            bursts.append(dict(wall_s=wall,
+                               images_per_s=float(rows.sum()) / wall,
+                               latency_ms=pcts(lat)))
+            got += out_b
+            seen += xs
+        single_ms = []
+        for i in range(64):
+            x1 = data[i % data.shape[0]][None]
+            t1 = time.perf_counter()
+            got.append(srv.submit(x1).result(timeout=60))
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+            seen.append(x1)
+        counts = _build.launch_counts()
+        st = srv.stats()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for x, y in zip(seen, got):
+            if not torch.equal(y, cb.apply(params, x)):
+                raise AssertionError(f"{label}: a served result "
+                                     f"({x.shape[0]} rows) differs from "
+                                     f"eager apply on its rows")
+        faults = st["faults"]
+        if st["jit_traces"] > bound_n or faults["backend_fallbacks"] or \
+                faults["retries"] or faults["flights"]:
+            raise AssertionError(f"{label} served: {st['jit_traces']} "
+                                 f"graphs (bound {bound_n}), faults "
+                                 f"{faults}")
+        if counts.get("packed_conv2d", 0) == 0:
+            raise AssertionError(f"{label} served: no kernel ran")
+        # one served flight under the profiler: the kernels it ran on the
+        # card are the ones its graph's capture recorded, which is what
+        # each replay adds to the counts (two flights: device_kernels
+        # warms up with one)
+        n1 = max_batch * 3 // 4
+        x1 = data[:n1]
+        want1 = level_launches(srv, n1)
+        _build.reset_launch_counts()
+        seen1, profiles1 = replay_kernels(
+            f"{label} served flight of {n1} rows",
+            lambda: srv.submit(x1).result(timeout=60), want1)
+        counted1 = {k: v for k, v in _build.launch_counts().items() if v}
+        if counted1 != {k: 2 * profiles1 * v for k, v in want1.items()}:
+            raise AssertionError(f"{label} served flight of {n1} rows: "
+                                 f"the counts rose by {counted1} in "
+                                 f"{2 * profiles1} flights, the capture "
+                                 f"recorded {want1}")
+        single = pcts(sorted(single_ms))
+        res = dict(max_batch=max_batch, requests=n_req,
+                   rows=int(rows.sum()), bursts=bursts,
+                   single_row_ms=single,
+                   inflight_peak=st["inflight_peak"],
+                   graphs=st["jit_traces"], trace_bound=bound_n,
+                   prewarm_s=prewarm_s, pool_bytes=pool_bytes,
+                   profiled_flight=dict(rows=n1, profiler_kernels=seen1,
+                                        profiles=profiles1),
+                   batches=st["batches"], occupancy=st["occupancy"],
+                   results_checked=len(seen), launches=counts)
+        for name, bu in zip(("first", "steady"), bursts):
+            print(f"{label} served (max_batch {max_batch}), {name} burst: "
+                  f"{n_req} requests, {int(rows.sum())} images from 4 "
+                  f"threads in {bu['wall_s']:.4f} s = "
+                  f"{bu['images_per_s']:.1f} images/s; latency p50 "
+                  f"{bu['latency_ms']['p50']:.3f} ms p99 "
+                  f"{bu['latency_ms']['p99']:.3f} ms")
+        print(f"{label} served: 64 single rows one at a time: p50 "
+              f"{single['p50']:.3f} ms p99 {single['p99']:.3f} ms; "
+              f"inflight_peak {st['inflight_peak']}; {st['batches']} "
+              f"flights, occupancy {st['occupancy']:.3f}; "
+              f"{st['jit_traces']} graphs (bound {bound_n}) captured in "
+              f"{prewarm_s:.2f} s, pool {res['pool_bytes'] / 2**20:.1f} "
+              f"MiB; all {len(seen)} results equal eager apply on their "
+              f"own rows; launches {counts}; a profiled flight of {n1} "
+              f"rows ran {seen1} (profile {profiles1}), as its capture "
+              f"recorded")
+        if label == "BinaryNet":
+            x = data[:8]
+            want8 = level_launches(srv, 8)
+            chaos.fail_next(BackendFault("forced by chip_smoke"))
+            _build.reset_launch_counts()
+            y = srv.submit(x).result(timeout=120)
+            rerun = {k: v for k, v in _build.launch_counts().items() if v}
+            faults = srv.stats()["faults"]
+            if not (y.device.type == torch.device(DEVICE).type
+                    and torch.equal(y, cb.apply(params, x))
+                    and faults["backend_fallbacks"] == 1
+                    and faults["retries"] == 0
+                    and srv._fallback is cb and rerun == want8):
+                raise AssertionError(f"forced BackendFault: faults "
+                                     f"{faults}, the degraded step "
+                                     f"launched {rerun}")
+            res["forced_fault"] = dict(faults, degraded_launches=rerun)
+            print(f"{label} forced BackendFault: the degraded step reran "
+                  f"the same kernels eagerly on {y.device} ({rerun}), "
+                  f"logits equal to eager apply, faults {faults}")
+        srv.stop()
+        out[label] = res
+    return out
+
+
+def replayed_us(fn, reps=20, iters=20):
+    """Device µs per call of ``fn`` inside a CUDA graph of ``reps``
+    back-to-back calls, replayed ``iters`` times (CUDA events)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return time_ms(g.replay, iters, 1) * 1e3 / reps
+
+
+def fused_vs_chained(rnd):
+    """The fused stack (one fused_binary_mlp launch) against the chained
+    route (one popcount_gemm launch a layer), both replayed from CUDA
+    graphs, at the six main shapes: the words must agree."""
+    from repro_torch.kernels.fused_mlp import fused_binary_mlp
+    from repro_torch.kernels.ops import binary_binary_dense
+    from repro_torch.kernels.packed import PackedArray
+    out = []
+    for (name, k0, ns), batch in itertools.product(FUSED_MAIN, BATCHES):
+        x, ws, ks, ts = fused_operands(rnd, batch, k0, ns,
+                                       ["vector"] * len(ns))
+        xp = PackedArray(x, length=k0, axis=-1)
+        wps = [PackedArray(w, length=k, axis=-1) for w, k in zip(ws, ks)]
+
+        def fused():
+            return fused_binary_mlp(xp, wps, ts).words
+
+        def chained():
+            h = xp
+            for w, t in zip(wps, ts):
+                h = binary_binary_dense(h, w, threshold=t, pack_out=True)
+            return h.words
+
+        check_equal(f"{name} B={batch} fused vs chained", fused(),
+                    chained())
+        f_us, c_us = replayed_us(fused), replayed_us(chained)
+        out.append(dict(name=name, batch=batch, fused_us=f_us,
+                        chained_us=c_us))
+        print(f"{name} B={batch} replayed: fused {f_us:.2f} us, chained "
+              f"{c_us:.2f} us per stack")
+    sums = {k: sum(r[k] for r in out) for k in ("fused_us", "chained_us")}
+    print(f"fused vs chained, replayed, summed over the six shapes: {sums}")
+    return dict(shapes=out, sums=sums)
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -1427,6 +1834,9 @@ def main():
     alexnet = forward_path("AlexNet", alexnet_imagenet(),
                            ALEXNET_PER_FORWARD, 1000, alexnet_vs_cpu,
                            (1, 32), launches, 2)
+    graphed = graphed_path(launches)
+    served = serving_path(launches)
+    stack_race = fused_vs_chained(rnd)
     dense = dense_path(rnd, launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
@@ -1447,6 +1857,8 @@ def main():
             for part in ("shapes", "sums") if part in r},
          "mma_sync_tops": peak,
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
+         "graphed": graphed, "served": served,
+         "fused_vs_chained_replayed": stack_race,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,8 @@
     params = cb.init(torch.Generator().manual_seed(0))
     logits = cb.apply(params, images)
     print(cb.describe())                        # every lowering decision
+    g = graph.GraphedApply(cb, params, batch=256)  # one CUDA graph
+    logits = g(images)
 """
 from repro_torch.graph.compile import CompiledBNN, compile
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
@@ -12,8 +14,9 @@ from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   Logits, MaxPool, from_dense_stack,
                                   from_workload)
 from repro_torch.graph.passes import PlanStep, build_plan
+from repro_torch.graph.replay import GraphedApply
 
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
-           "BNThreshold", "CompiledBNN", "IntegerEntry", "Logits",
-           "MaxPool", "PlanStep", "build_plan", "compile",
+           "BNThreshold", "CompiledBNN", "GraphedApply", "IntegerEntry",
+           "Logits", "MaxPool", "PlanStep", "build_plan", "compile",
            "from_dense_stack", "from_workload"]

@@ -102,6 +102,17 @@ class CompiledBNN:
                                  self.batch)
                      for plan in (self.plan[:i], self.plan[i:]))
 
+    def with_backend(self, backend: Optional[str]) -> "CompiledBNN":
+        """Recompile this spec for another backend: the same device and
+        batch hint, the plan derived again under that backend's rules.
+        Every backend is bit-identical on the same inputs, which makes
+        this a CPU server's fallback (on the card the server reruns the
+        same kernels eagerly instead)."""
+        if get_backend(backend).name == self.backend:
+            return self
+        return compile(self.spec, backend=backend, device=self.device,
+                       batch=self.batch)
+
     # -------------------------------------------------------------- #
     def init(self, generator: torch.Generator, threshold_range: int = 3,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:

@@ -12,18 +12,24 @@ never loaded.  The libraries export a plain C interface, loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds.
 
 Every C entry point launches on the stream it is given and returns the
-CUDA error code of the launch; :meth:`Kernel.launch` raises on anything
-but 0 and otherwise adds the kernels the call launched (one, unless the
-caller says more) to the kernel's launch count — the count that shows a
-run really went through the kernel.
+CUDA error code of the launch; :meth:`Kernel.launch` raises
+:class:`LaunchError` on anything but 0 and otherwise adds the kernels
+the call launched (one, unless the caller says more) to the kernel's
+launch count — the count that shows a run really went through the
+kernel.  A launch recorded into a CUDA graph runs when the graph is
+replayed: a capture collects its thread's launches apart
+(:func:`recording`), and every replay adds them to the counts
+(:func:`add_launches`), so the counts are kernels run on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -38,6 +44,13 @@ SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm")
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
 _sms: Dict[int, int] = {}
+_count_lock = threading.Lock()
+_local = threading.local()
+
+
+class LaunchError(RuntimeError):
+    """A kernel launch the CUDA runtime refused (the error code of the
+    C entry point): the backend failed, not the payload."""
 
 
 def _nvcc() -> str:
@@ -135,13 +148,22 @@ class Kernel:
         report it).  ``kernels``: the CUDA kernels the entry point
         launches for these arguments, all added to the count."""
         lib, fn = self._bind()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, stream)
+        cur = torch.cuda.current_device()
+        if device.index is None or device.index == cur:
+            err = fn(*args, torch.cuda.current_stream(cur).cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                err = fn(*args, stream)
         if err != 0:
             msg = lib.repro_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
-        self.launches += kernels
+            raise LaunchError(f"{self.name}: CUDA error {err} ({msg})")
+        rec = getattr(_local, "rec", None)
+        if rec is not None:
+            rec[self.name] = rec.get(self.name, 0) + kernels
+            return
+        with _count_lock:
+            self.launches += kernels
 
 
 P = ctypes.c_void_p
@@ -169,8 +191,32 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _count_lock:
+        for k in KERNELS:
+            k.launches = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the launches this thread makes inside the block in the
+    dict it yields (kernel name -> launches), leaving the counts alone:
+    a CUDA graph's capture records launches that run only when the
+    graph is replayed."""
+    prev = getattr(_local, "rec", None)
+    _local.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _local.rec = prev
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the launch counts: a
+    CUDA graph's replay adds the launches its capture recorded."""
+    by_name = {k.name: k for k in KERNELS}
+    with _count_lock:
+        for name, n in counts.items():
+            by_name[name].launches += n
 
 
 def device_sms(device: torch.device) -> int:

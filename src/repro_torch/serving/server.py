@@ -1,0 +1,1048 @@
+"""BNNServer: continuously-batched, fault-tolerant serving over the
+port's ``compile()`` on one card (DESIGN.md §9 bucketing, §10
+continuous batching, §11 failure handling).
+
+The counterpart of ``repro.serving.server``, with the same constructor
+(less the mesh, which must be None, and donation), ``submit``,
+``apply_batch``, ``flush``, ``start``/``stop``, ``health`` and
+``stats``.  The translations:
+
+* **one CUDA graph per dispatch level** — where the reference jits
+  ``CompiledBNN.apply`` once per (bucket, valid_rows) level, the port
+  captures a :class:`~repro_torch.graph.replay.GraphedApply` per
+  (bucket, valid_rows) level and replays it; ``jit_traces()`` counts
+  the graphs captured, at most ``trace_bound(max_batch, ragged=True)``
+  (a request of another input kind is a payload error).  The graphs
+  share one memory pool and replay in turn on the server's stream, each
+  flight's copy, replay and output clone under one dispatch lock.
+  ``prewarm=True`` captures every ``dispatch_grid`` level at
+  construction (the port has no tuning table yet);
+* **streams and events for jax's async dispatch** — a flight is
+  enqueued on a server-owned ``torch.cuda.Stream`` and records a
+  ``torch.cuda.Event``; only the completer thread (or a synchronous
+  ``apply_batch`` / ``flush`` caller) blocks, in ``event.synchronize()``,
+  before a future resolves.  Results are ready for the device's default
+  stream (their memory is recorded on it, so a caller freeing one can
+  never hand it to a later flight while its own kernels still read it);
+* **the caller's buffer is never written** — every flight copies its
+  rows into the graph's static input buffer (or, on the degraded and
+  CPU paths, pads into a fresh tensor), so there is no donation;
+* **the degraded step** re-executes a flight whose kernels failed,
+  eagerly and without a graph, counted in
+  ``stats()["faults"]["backend_fallbacks"]``.  On the card it launches
+  the same kernels again, one by one, through ``compiled.apply``: the
+  port never gives way to a kernel's plain version there, so a flight
+  that fails again climbs the rest of the ladder and ends in a typed
+  ``BackendFault``.  On the CPU it runs
+  ``compiled.with_backend(fallback_backend)``, the reference's
+  fallback.  Backend faults are
+  :class:`~repro_torch.serving.errors.BackendFault`, a refused kernel
+  launch (``kernels._build.LaunchError``) and a CUDA error the runtime
+  reports at synchronisation; such an error poisons the CUDA context,
+  so it is neither retried nor bisected, and its requests fail with a
+  typed ``BackendFault``.  Payload errors still reach bisection.  A graph whose capture fails raises
+  :class:`~repro_torch.graph.replay.CaptureError` to its requests.
+
+On the CPU (``device="cpu"``, as the tests run it) a flight pads and
+runs ``apply`` synchronously, with the same bookkeeping.
+
+Inputs are float ``[B, H, W, C]`` tensors for image specs or
+``PackedArray [B, K]`` (packed on the last axis) for dense-entry specs;
+outputs keep the compiled pipeline's type (float logits or a
+PackedArray), always sliced back to the request's true row count.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from queue import Empty, Queue
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.graph.replay import (CaptureError, GraphedApply, kind_of,
+                                      rows_of, spec_kind, tensor_of)
+from repro_torch.kernels._build import LaunchError
+from repro_torch.kernels.packed import PackedArray, resolve_device
+from repro_torch.runtime.straggler import StepWatchdog, WatchdogConfig
+from repro_torch.serving.bucketing import (
+    bucket_for,
+    dispatch_grid,
+    pow2_ceil,
+    ragged_valid,
+    split_rows,
+    trace_bound,
+)
+from repro_torch.serving.errors import (
+    BackendFault,
+    PoisonRequest,
+    RequestTimeout,
+    ServerOverloaded,
+    ServingError,
+)
+from repro_torch.serving.placement import replicate, shard_batch
+
+__all__ = ["BNNServer"]
+
+
+def _pad_rows(x: Any, rows: int) -> Any:
+    """Right-pad the batch axis to ``rows`` with zeros (zero words are
+    all-(-1) under pm1; pad rows are masked off by ``valid_rows``).
+    Returns ``x`` itself when already sized."""
+    t = tensor_of(x)
+    n = int(t.shape[0])
+    if n == rows:
+        return x
+    t = torch.cat([t, t.new_zeros((rows - n, *t.shape[1:]))])
+    return x.with_words(t) if isinstance(x, PackedArray) else t
+
+
+def _slice_rows(x: Any, start: int, stop: int) -> Any:
+    if isinstance(x, PackedArray):
+        return x.with_words(x.words[start:stop])
+    return x[start:stop]
+
+
+def _concat_rows(xs: Sequence[Any]) -> Any:
+    """Concatenate request payloads along the batch axis (PackedArray
+    metadata must agree — same spec, so it always does)."""
+    if len(xs) == 1:
+        return xs[0]
+    first = xs[0]
+    if isinstance(first, PackedArray):
+        meta = (first.length, first.axis, first.values)
+        for x in xs[1:]:
+            if (x.length, x.axis, x.values) != meta:
+                raise ValueError("cannot coalesce differently-laid-out rows")
+        return first.with_words(torch.cat([x.words for x in xs]))
+    return torch.cat(list(xs))
+
+
+def _pcts(samples: List[float]) -> Dict[str, float]:
+    """mean/p50/p95/p99/max of a non-empty pre-sorted sample list."""
+    n = len(samples)
+
+    def pct(q: float) -> float:
+        return float(samples[min(n - 1, int(q * n))])
+
+    return {
+        "mean": float(np.mean(samples)),
+        "p50": pct(0.50),
+        "p95": pct(0.95),
+        "p99": pct(0.99),
+        "max": float(samples[-1]),
+    }
+
+
+def _is_kill(e: BaseException) -> bool:
+    """A chaos-injected thread kill.  robustness/chaos.py raises it as
+    a BaseException precisely so the ordinary ``except Exception``
+    recovery paths cannot swallow it; matched by name so the server
+    never imports the chaos layer (no serving -> robustness cycle)."""
+    return type(e).__name__ == "ThreadKill"
+
+
+def _is_sticky(e: BaseException) -> bool:
+    """A CUDA error the runtime reported at synchronisation (torch's
+    ``AcceleratorError``, or a RuntimeError naming a CUDA error): the
+    context is poisoned, so nothing on this card can succeed again."""
+    if isinstance(e, (BackendFault, LaunchError)):
+        return False
+    return type(e).__name__ == "AcceleratorError" or (
+        isinstance(e, RuntimeError) and "CUDA error" in str(e))
+
+
+def _is_backend_fault(e: BaseException) -> bool:
+    """Classify a flight failure as the *backend* failing (a refused
+    kernel launch, a CUDA runtime fault) rather than the payload: these
+    re-execute on the fallback backend.  Matched narrowly — payload
+    errors (shape/value problems) must reach bisection instead."""
+    return isinstance(e, (BackendFault, LaunchError)) or _is_sticky(e)
+
+
+def _is_retryable(e: BaseException) -> bool:
+    """Deterministic payload errors re-raise identically — retrying
+    them wastes device time, as does retrying on a poisoned context;
+    anything else may be transient."""
+    return not isinstance(e, (ValueError, TypeError)) and not _is_sticky(e)
+
+
+class _Request:
+    __slots__ = ("x", "rows", "kind", "future", "t_enqueue", "deadline")
+
+    def __init__(
+        self,
+        x: Any,
+        rows: int,
+        kind: Tuple,
+        future: Future,
+        t_enqueue: float,
+        deadline: Optional[float] = None,
+    ):
+        self.x = x
+        self.rows = rows
+        self.kind = kind
+        self.future = future
+        self.t_enqueue = t_enqueue
+        self.deadline = deadline
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now >= self.deadline
+
+
+class _Flight:
+    """One launched-but-unresolved micro-batch: its admitted requests
+    and the chunk outputs, each with the event its stream recorded
+    after it (None on the CPU, where a chunk is computed at launch)."""
+
+    __slots__ = ("reqs", "outs", "t_launch")
+
+    def __init__(
+        self, reqs: List[_Request], outs: List[Tuple[Any, int, Any]],
+        t_launch: float,
+    ):
+        self.reqs = reqs
+        self.outs = outs
+        self.t_launch = t_launch
+
+
+class BNNServer:
+    """Serving front door over a compiled BNN on one card (see module
+    docstring).
+
+    compiled: the CompiledBNN to serve; params: its bound parameter
+    tree (moved to the server's device at construction); max_batch:
+    bucket ceiling, rounded up to a power of two; mesh: must be None
+    (the port serves one card); dispatch_ahead: max
+    launched-but-unresolved batches the dispatcher may run ahead of the
+    completer; admit_window_s: how long a partial batch may be held
+    open for late-arriving rows WHILE the device is busy (a partial
+    batch launches immediately when the device is idle); prewarm:
+    capture the CUDA graph of every (bucket, valid) dispatch level at
+    construction instead of on first touch; device: the server's
+    device — None means the card, and a host without one raises; pass
+    ``"cpu"`` (with a CompiledBNN compiled for the CPU) to serve there.
+
+    Robustness knobs (DESIGN.md §11): max_queue_rows bounds the queue
+    (None: unbounded; ``submit`` raises ServerOverloaded past it);
+    fallback_backend enables the degraded step for a backend-faulted
+    flight (None disables it): on the card an eager rerun of the same
+    kernels, on the CPU an eager run on the backend it names; max_retries/retry_backoff_s bound the transient-fault
+    retry ladder (backoff doubles per attempt); chaos is a
+    fault-injection hook (duck-typed: ``on_flight(payloads, fallback=)``
+    before every execution and ``maybe_kill(role)`` in the worker loops
+    — see repro_torch.robustness.chaos.ChaosMonkey); watchdog_cfg
+    configures the straggler StepWatchdog fed per-flight wall times;
+    supervise_interval_s is the supervisor's liveness-check period.
+    """
+
+    def __init__(
+        self,
+        compiled: Any,
+        params: Dict[str, Any],
+        max_batch: int = 32,
+        mesh: Optional[Any] = None,
+        dispatch_ahead: int = 2,
+        admit_window_s: float = 0.002,
+        prewarm: bool = False,
+        max_queue_rows: Optional[int] = 65536,
+        fallback_backend: Optional[str] = "torch",
+        max_retries: int = 2,
+        retry_backoff_s: float = 0.05,
+        chaos: Any = None,
+        watchdog_cfg: Optional[WatchdogConfig] = None,
+        supervise_interval_s: float = 0.05,
+        device: Any = None,
+    ):
+        if dispatch_ahead < 1:
+            raise ValueError(f"dispatch_ahead must be >= 1, got {dispatch_ahead}")
+        if max_queue_rows is not None and max_queue_rows < 1:
+            raise ValueError(f"max_queue_rows must be >= 1, got {max_queue_rows}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.device = resolve_device(device)
+        if compiled.device.type != self.device.type:
+            raise ValueError(f"the CompiledBNN runs on {compiled.device}, "
+                             f"the server on {self.device}")
+        self.compiled = compiled
+        self.mesh = mesh
+        self.max_batch = pow2_ceil(max_batch)
+        self.dispatch_ahead = dispatch_ahead
+        self.admit_window_s = admit_window_s
+        self.max_queue_rows = max_queue_rows
+        self.fallback_backend = fallback_backend
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.supervise_interval_s = supervise_interval_s
+        self.params = replicate(params, self.device, mesh)
+        cuda = self.device.type == "cuda"
+        # flights replay on _stream; graphs are captured on _capture_stream
+        # into one shared memory pool
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._capture_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._callers = torch.cuda.default_stream(self.device) if cuda else None
+        self._graphs: Dict[Tuple, GraphedApply] = {}
+        self._dispatch_lock = threading.Lock()
+        self._chaos = chaos
+        self._watchdog = StepWatchdog(watchdog_cfg or WatchdogConfig())
+        self._fallback: Any = None
+        self._fallback_lock = threading.Lock()
+        self._queue: deque = deque()
+        self._qlock = threading.Lock()
+        self._trace_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._worker: Optional[threading.Thread] = None
+        self._completer: Optional[threading.Thread] = None
+        self._supervisor: Optional[threading.Thread] = None
+        self._sup_stop = threading.Event()
+        self._dispatcher_exited = False
+        self._completer_done = False
+        self._launched: Queue = Queue()
+        self._ahead_sem = threading.Semaphore(dispatch_ahead)
+        self._latencies: deque = deque(maxlen=2048)
+        self._queue_waits: deque = deque(maxlen=2048)
+        self._traffic_cache: Dict[int, int] = {}
+        self._queued_rows = 0
+        self._n_requests = 0
+        self._n_rows = 0
+        self._n_batches = 0
+        self._bucket_hits = 0
+        self._bucket_misses = 0
+        self._padded_rows = 0
+        self._valid_rows = 0
+        self._real_rows = 0
+        self._hbm_bytes = 0
+        self._inflight_n = 0
+        self._inflight_peak = 0
+        self._flight_faults = 0
+        self._backend_fallbacks = 0
+        self._retries = 0
+        self._bisections = 0
+        self._poisoned = 0
+        self._timeouts = 0
+        self._rejected = 0
+        self._thread_restarts = 0
+        if prewarm:
+            kind = spec_kind(compiled.spec)
+            for bucket, valid in dispatch_grid(self.max_batch):
+                self._graph(bucket, valid, kind)
+            if cuda:
+                # a graph's first replay uploads it to the card: pay that
+                # here, not in the first flight of each level
+                with torch.cuda.stream(self._stream):
+                    for g in self._graphs.values():
+                        g.graph.replay()
+                self._stream.synchronize()
+
+    # -- the bucketed, masked dispatch core -------------------------- #
+    def trace_bound(self) -> int:
+        """Max graphs this server can ever capture: one per (bucket,
+        ragged-valid) level."""
+        return trace_bound(self.max_batch, ragged=True)
+
+    def jit_traces(self) -> int:
+        """The CUDA graphs captured (on the CPU: the dispatch levels
+        touched), the port's count of the reference's jit traces."""
+        with self._trace_lock:
+            return len(self._graphs)
+
+    def graphs(self) -> List[GraphedApply]:
+        """The captured graphs (capture time, launches per replay)."""
+        with self._trace_lock:
+            return list(self._graphs.values())
+
+    def _inflight(self) -> int:
+        with self._stats_lock:
+            return self._inflight_n
+
+    def _graph(self, bucket: int, valid: int, kind: Tuple
+               ) -> Tuple[GraphedApply, bool]:
+        """The graph of one dispatch level, captured on first touch
+        under the trace lock (concurrent first touches cannot capture
+        twice, so the per-level bound holds); returns (graph, hit)."""
+        if kind != spec_kind(self.compiled.spec):
+            raise ValueError(f"request kind {kind} is not the spec's input "
+                             f"{spec_kind(self.compiled.spec)}")
+        key = (bucket, valid)
+        with self._trace_lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                return g, True
+            g = GraphedApply(self.compiled, self.params, bucket, valid,
+                             pool=self._pool, stream=self._capture_stream)
+            self._graphs[key] = g
+            return g, False
+
+    def _fallback_apply(self) -> Any:
+        """The degraded path, chosen on the first backend fault and run
+        eagerly, without a graph.  On the card it is the served
+        CompiledBNN itself: the same kernels launched one by one, never
+        their plain versions.  On the CPU it is the spec recompiled for
+        ``fallback_backend`` (``CompiledBNN.with_backend`` —
+        bit-identical by the backend registry contract)."""
+        with self._fallback_lock:
+            if self._fallback is None:
+                self._fallback = (
+                    self.compiled if self.device.type == "cuda"
+                    else self.compiled.with_backend(self.fallback_backend))
+            return self._fallback
+
+    def _enqueue(self, run: Any, x: Any) -> Tuple[Any, Any]:
+        """Run ``run()`` on the server's stream, after the work the
+        calling thread has queued (the payload's producers), and record
+        the flight's event; returns (output, event).  The dispatch lock
+        keeps each flight's copy, replay and clone together: the graphs
+        share one memory pool."""
+        if self._stream is None:
+            return run(), None
+        with self._dispatch_lock:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            if tensor_of(x).is_cuda:
+                # the payload is read on the server's stream
+                tensor_of(x).record_stream(self._stream)
+            with torch.cuda.stream(self._stream):
+                out = run()
+                ev = torch.cuda.Event()
+                ev.record(self._stream)
+        return out, ev
+
+    def _launch(self, x: Any, rows: int, fallback: bool = False
+                ) -> Tuple[Any, Any]:
+        """Enqueue one micro-batch at its (bucket, valid) level; returns
+        the UNRESOLVED output (``valid`` >= ``rows`` rows) and its
+        event.  Degraded dispatches skip the graph cache: they run
+        ``_fallback_apply()`` eagerly (same bounded level set)."""
+        bucket = bucket_for(rows, self.max_batch)
+        valid = ragged_valid(rows, bucket)
+        hit: Optional[bool] = None
+        if fallback:
+            fb = self._fallback_apply()
+            out, ev = self._enqueue(lambda: fb.apply(
+                self.params, _pad_rows(shard_batch(x, self.device), bucket),
+                valid_rows=valid), x)
+        else:
+            g, hit = self._graph(bucket, valid, kind_of(x))
+            out, ev = self._enqueue(lambda: g(x), x)
+        with self._stats_lock:
+            if hit is True:
+                self._bucket_hits += 1
+            elif hit is False:
+                self._bucket_misses += 1
+            self._n_batches += 1
+            self._padded_rows += bucket
+            self._valid_rows += valid
+            self._real_rows += rows
+            self._hbm_bytes += self._level_traffic(valid)
+        return out, ev
+
+    def _launch_chunks(
+        self, x: Any, rows: int, fallback: bool = False
+    ) -> List[Tuple[Any, int, Any]]:
+        """Enqueue a payload as max_batch chunks + remainder; returns
+        [(unresolved out, chunk rows, event)]."""
+        outs: List[Tuple[Any, int, Any]] = []
+        chunks = split_rows(rows, self.max_batch)
+        off = 0
+        for chunk in chunks:
+            piece = x if len(chunks) == 1 else _slice_rows(x, off, off + chunk)
+            out, ev = self._launch(piece, chunk, fallback)
+            outs.append((out, chunk, ev))
+            off += chunk
+        return outs
+
+    def _finish_chunks(self, outs: List[Tuple[Any, int, Any]]) -> Any:
+        """Resolve launched chunks (``event.synchronize()``) and
+        reassemble the true-row-count result.  Each output's memory is
+        recorded on the default stream, where callers use it."""
+        parts = []
+        for out, chunk, ev in outs:
+            if ev is not None:
+                ev.synchronize()
+                tensor_of(out).record_stream(self._callers)
+            parts.append(_slice_rows(out, 0, chunk))
+        return parts[0] if len(parts) == 1 else _concat_rows(parts)
+
+    def _level_traffic(self, valid: int) -> int:
+        b = self._traffic_cache.get(valid)
+        if b is None:
+            b = int(self.compiled.traffic(batch=valid)["packed_bytes"])
+            self._traffic_cache[valid] = b
+        return b
+
+    def apply_batch(self, x: Any) -> Any:
+        """Synchronous bucketed+masked forward of one request
+        batch (chunked through ``max_batch`` when larger);
+        bit-identical to ``compiled.apply(params, x)``."""
+        rows = rows_of(x)
+        t0 = time.perf_counter()
+        out = self._finish_chunks(self._launch_chunks(x, rows))
+        with self._stats_lock:
+            self._n_requests += 1
+            self._n_rows += rows
+            self._latencies.append(time.perf_counter() - t0)
+        return out
+
+    # -- the continuous-batching request queue ----------------------- #
+    def submit(self, x: Any, deadline_s: Optional[float] = None) -> Future:
+        """Enqueue one request batch; the returned future resolves to
+        the sliced result once a micro-batch containing it completes.
+        The row count and kind signature are computed HERE so a payload
+        the server cannot even inspect fails fast in the caller, never
+        in the worker loop.
+
+        deadline_s bounds how long the request may wait: a request
+        whose deadline passes before its flight launches is shed
+        without touching the device and its future resolves with
+        RequestTimeout.  Raises ServerOverloaded (without enqueueing)
+        when admission would push the queue past max_queue_rows."""
+        now = time.perf_counter()
+        deadline = None if deadline_s is None else now + deadline_s
+        req = _Request(x, rows_of(x), kind_of(x), Future(), now, deadline)
+        with self._qlock:
+            full = (
+                self.max_queue_rows is not None
+                and self._queued_rows + req.rows > self.max_queue_rows
+            )
+            if not full:
+                self._queue.append(req)
+                self._queued_rows += req.rows
+        if full:
+            with self._stats_lock:
+                self._rejected += 1
+            raise ServerOverloaded(
+                f"admitting {req.rows} rows would exceed "
+                f"max_queue_rows={self.max_queue_rows}"
+            )
+        self._wake.set()
+        return req.future
+
+    def queue_depth(self) -> int:
+        with self._qlock:
+            return len(self._queue)
+
+    def _take_microbatch(self) -> List[_Request]:
+        """Pop a FIFO run of requests whose rows coalesce under
+        ``max_batch`` (an oversized head request comes back alone and
+        is chunked by ``_launch_chunks``).  Only same-kind payloads
+        coalesce: a request whose trailing shape/dtype differs from the
+        head's starts its own micro-batch, so one malformed request can
+        never fail its neighbors' futures."""
+        taken: List[_Request] = []
+        total = 0
+        kind = None
+        with self._qlock:
+            while self._queue:
+                nxt = self._queue[0]
+                if taken and total + nxt.rows > self.max_batch:
+                    break
+                if taken and nxt.kind != kind:
+                    break
+                if not taken:
+                    kind = nxt.kind
+                taken.append(self._queue.popleft())
+                self._queued_rows -= nxt.rows
+                total += nxt.rows
+                if total >= self.max_batch:
+                    break
+        return taken
+
+    def _admit(self) -> List[_Request]:
+        """Continuous-batching admission: build the next micro-batch,
+        holding it open (the admission window) so rows arriving while
+        the device is busy join the not-yet-launched batch instead of
+        starting their own.  The window is keyed on queue state and
+        never delays latency-bound traffic — a partial batch launches
+        IMMEDIATELY when
+
+        * it is full (``max_batch`` rows), or
+        * other requests are already queued behind it (backlog: a
+          different-kind head, or rows that did not fit), or
+        * no batch is in flight (the device is idle — holding the
+          batch would serialize, not overlap).
+
+        Only while at least one batch is in flight does the batch stay
+        open, for at most ``admit_window_s`` — time that is fully
+        overlapped with device compute."""
+        taken: List[_Request] = []
+        total = 0
+        kind = None
+        deadline: Optional[float] = None
+        while not self._stop.is_set():
+            self._chaos_kill("dispatcher")
+            with self._qlock:
+                while self._queue:
+                    nxt = self._queue[0]
+                    if taken and total + nxt.rows > self.max_batch:
+                        break
+                    if taken and nxt.kind != kind:
+                        break
+                    if not taken:
+                        kind = nxt.kind
+                    taken.append(self._queue.popleft())
+                    self._queued_rows -= nxt.rows
+                    total += nxt.rows
+                    if total >= self.max_batch:
+                        break
+                backlog = bool(self._queue)
+            if taken and (total >= self.max_batch or backlog):
+                break
+            if taken:
+                if self._inflight() == 0:
+                    break
+                now = time.perf_counter()
+                if deadline is None:
+                    deadline = now + self.admit_window_s
+                if now >= deadline:
+                    break
+                timeout = min(deadline - now, 0.0005)
+            else:
+                timeout = 0.05
+            self._wake.wait(timeout=timeout)
+            self._wake.clear()
+        return taken
+
+    # -- fault handling (DESIGN.md §11) ------------------------------ #
+    def _chaos_flight(self, reqs: List[_Request], fallback: bool) -> None:
+        if self._chaos is not None:
+            self._chaos.on_flight([r.x for r in reqs], fallback=fallback)
+
+    def _chaos_kill(self, role: str) -> None:
+        if self._chaos is not None:
+            self._chaos.maybe_kill(role)
+
+    def _shed_expired(self, reqs: List[_Request]) -> List[_Request]:
+        """Resolve requests whose deadline already passed with
+        RequestTimeout — BEFORE any device work — and return the
+        still-live remainder."""
+        now = time.perf_counter()
+        live: List[_Request] = []
+        for r in reqs:
+            if r.expired(now):
+                late = now - r.deadline
+                r.future.set_exception(
+                    RequestTimeout(f"deadline expired {late:.3f}s before launch")
+                )
+                with self._stats_lock:
+                    self._timeouts += 1
+            else:
+                live.append(r)
+        return live
+
+    def _execute(self, reqs: List[_Request], fallback: bool = False) -> Any:
+        """Synchronously run one coalesced flight end to end (launch +
+        block) and return the concatenated result — the re-execution
+        primitive the recovery ladder is built from.  Safe to call
+        repeatedly for the same requests: payloads are only ever read
+        (copied into a graph's input buffer, or padded into a fresh
+        tensor on the degraded and CPU paths)."""
+        self._chaos_flight(reqs, fallback)
+        x = _concat_rows([r.x for r in reqs])
+        rows = sum(r.rows for r in reqs)
+        outs = self._launch_chunks(x, rows, fallback=fallback)
+        return self._finish_chunks(outs)
+
+    def _recover(
+        self, reqs: List[_Request], exc: BaseException, top: bool = True
+    ) -> None:
+        """The recovery ladder for a failed flight: degraded step ->
+        bounded retry with backoff -> bisection -> typed singleton
+        failure.  Every future in ``reqs`` is resolved (value or typed
+        error) by the time this returns — the zero-lost-futures
+        invariant.
+
+        * A *backend* fault (kernel launch / runtime failure) first
+          re-executes the flight eagerly (``_fallback_apply``: on the
+          card the same kernels without the graph, on the CPU the
+          fallback backend) — graceful degradation, counted in stats().
+          A CUDA error reported at synchronisation poisons the context:
+          after the degraded step it is neither retried nor bisected,
+          and every request of the flight fails with BackendFault.
+        * A graph whose capture failed fails every request with the
+          CaptureError: no ladder hides it.
+        * A transient fault retries up to ``max_retries`` times with
+          exponential backoff.  Deterministic payload errors
+          (ValueError/TypeError) skip straight past the retries.
+        * A multi-request flight that still fails is bisected: each
+          half re-executes independently, recursing until exactly the
+          poison request(s) hold the exception (wrapped as
+          PoisonRequest with the original chained as ``__cause__``)
+          and every healthy neighbor has resolved normally.  The full
+          ladder applies at every bisection level — a backend fault
+          landing on a half mid-bisection still takes the degraded
+          step instead of failing healthy requests.
+
+        ``top`` marks the outermost call (one per failed flight) for
+        the fault counter; recursion runs with top=False.
+        """
+        if top:
+            with self._stats_lock:
+                self._flight_faults += 1
+        if isinstance(exc, CaptureError):
+            for r in reqs:
+                r.future.set_exception(exc)
+            return
+        if self.fallback_backend is not None and _is_backend_fault(exc):
+            try:
+                out = self._execute(reqs, fallback=True)
+            except Exception as e:
+                exc = e
+            else:
+                with self._stats_lock:
+                    self._backend_fallbacks += 1
+                self._resolve(reqs, out)
+                return
+        if _is_retryable(exc):
+            for attempt in range(self.max_retries):
+                time.sleep(self.retry_backoff_s * (2**attempt))
+                with self._stats_lock:
+                    self._retries += 1
+                try:
+                    out = self._execute(reqs)
+                except Exception as e:
+                    exc = e
+                else:
+                    self._resolve(reqs, out)
+                    return
+        if len(reqs) > 1 and not _is_sticky(exc):
+            with self._stats_lock:
+                self._bisections += 1
+            mid = len(reqs) // 2
+            for half in (reqs[:mid], reqs[mid:]):
+                try:
+                    out = self._execute(half)
+                except Exception as e:
+                    self._recover(half, e, top=False)
+                else:
+                    self._resolve(half, out)
+            return
+        if isinstance(exc, ServingError):
+            err: BaseException = exc
+        elif _is_backend_fault(exc):
+            err = BackendFault(f"the card failed the flight: {exc!r}")
+            err.__cause__ = exc
+        else:
+            err = PoisonRequest(f"request payload makes the forward raise: {exc!r}")
+            err.__cause__ = exc
+            with self._stats_lock:
+                self._poisoned += 1
+        for r in reqs:
+            r.future.set_exception(err)
+
+    def _observe_wall(self, wall: float) -> None:
+        """Feed one flight's wall time to the straggler watchdog
+        (runtime/straggler.py): a flight slower than ``slow_factor`` x
+        the trailing-window median is flagged in
+        ``stats()["straggler_flags"]``."""
+        with self._stats_lock:
+            self._watchdog.observe(wall)
+
+    def _launch_flight(self, taken: List[_Request]) -> None:
+        """Coalesce one admitted micro-batch and ENQUEUE its device
+        computation without waiting (dispatch-ahead): the completer
+        thread blocks on results in launch order while this thread
+        returns to admission for the next batch.  The dispatch-ahead
+        semaphore bounds launched-but-unresolved flights.  A launch
+        failure runs the recovery ladder here, synchronously — rare by
+        construction, and recovery must not race admission."""
+        taken = self._shed_expired(taken)
+        if not taken:
+            return
+        acquired = False
+        t_launch = time.perf_counter()
+        try:
+            self._chaos_flight(taken, False)
+            x = _concat_rows([r.x for r in taken])
+            rows = sum(r.rows for r in taken)
+            self._ahead_sem.acquire()
+            acquired = True
+            outs = self._launch_chunks(x, rows)
+        except Exception as e:
+            if acquired:
+                self._ahead_sem.release()
+            self._recover(taken, e)
+            self._observe_wall(time.perf_counter() - t_launch)
+            return
+        with self._stats_lock:
+            self._inflight_n += 1
+            self._inflight_peak = max(self._inflight_peak, self._inflight_n)
+            for r in taken:
+                self._queue_waits.append(t_launch - r.t_enqueue)
+        self._launched.put(_Flight(taken, outs, t_launch))
+
+    def _serve_one(self, taken: List[_Request]) -> None:
+        """Run one coalesced micro-batch synchronously and resolve its
+        futures (the ``flush`` path — no dispatch-ahead); failures run
+        the recovery ladder."""
+        taken = self._shed_expired(taken)
+        if not taken:
+            return
+        t_start = time.perf_counter()
+        with self._stats_lock:
+            for r in taken:
+                self._queue_waits.append(t_start - r.t_enqueue)
+        try:
+            out = self._execute(taken)
+        except Exception as e:
+            self._recover(taken, e)
+        else:
+            self._resolve(taken, out)
+        self._observe_wall(time.perf_counter() - t_start)
+
+    def _resolve(self, taken: List[_Request], out: Any) -> None:
+        """Slice a completed micro-batch result back to its requests."""
+        t_done = time.perf_counter()
+        off = 0
+        for r in taken:
+            r.future.set_result(_slice_rows(out, off, off + r.rows))
+            off += r.rows
+            with self._stats_lock:
+                self._n_requests += 1
+                self._n_rows += r.rows
+                self._latencies.append(t_done - r.t_enqueue)
+
+    def flush(self) -> int:
+        """Drain the queue synchronously; returns micro-batches run.
+        Terminates even under backpressure: every iteration removes
+        the requests it takes from the bounded queue, and concurrent
+        ``submit`` calls cannot grow it past ``max_queue_rows``."""
+        n = 0
+        while True:
+            taken = self._take_microbatch()
+            if not taken:
+                return n
+            self._serve_one(taken)
+            n += 1
+
+    # -- async dispatcher + completer + supervisor ------------------- #
+    def start(self) -> "BNNServer":
+        """Spawn the dispatcher, completer, and supervisor threads
+        (idempotent)."""
+        if self._worker is not None and self._worker.is_alive():
+            return self
+        self._stop.clear()
+        self._sup_stop.clear()
+        self._dispatcher_exited = False
+        self._completer_done = False
+        self._launched = Queue()
+        self._ahead_sem = threading.Semaphore(self.dispatch_ahead)
+        self._completer = threading.Thread(target=self._complete_loop, daemon=True)
+        self._worker = threading.Thread(target=self._dispatch_loop, daemon=True)
+        self._supervisor = threading.Thread(target=self._supervise_loop, daemon=True)
+        self._completer.start()
+        self._worker.start()
+        self._supervisor.start()
+        return self
+
+    def _dispatch_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._chaos_kill("dispatcher")
+                taken = self._admit()
+                if taken:
+                    self._launch_flight(taken)
+            except Exception:
+                # per-request failures already resolve their own
+                # futures through the recovery ladder; anything that
+                # still escapes must not kill the dispatcher and strand
+                # the queue
+                continue
+            except BaseException as e:
+                if _is_kill(e):
+                    # simulated thread death: exit WITHOUT the clean-
+                    # exit flag, so the supervisor restarts the loop
+                    return
+                raise
+        self._dispatcher_exited = True
+
+    def _complete_loop(self) -> None:
+        while True:
+            try:
+                self._chaos_kill("completer")
+                fl = self._launched.get(timeout=0.05)
+            except Empty:
+                continue
+            except BaseException as e:
+                if _is_kill(e):
+                    return  # dead without _completer_done: restarted
+                raise
+            if fl is None:
+                self._completer_done = True
+                return
+            self._complete_one(fl)
+
+    def _complete_one(self, fl: _Flight) -> None:
+        """Resolve one launched flight (failures climb the recovery
+        ladder); ALWAYS releases its dispatch-ahead slot."""
+        try:
+            try:
+                out = self._finish_chunks(fl.outs)
+            except Exception as e:
+                self._recover(fl.reqs, e)
+            else:
+                self._resolve(fl.reqs, out)
+        finally:
+            self._observe_wall(time.perf_counter() - fl.t_launch)
+            with self._stats_lock:
+                self._inflight_n -= 1
+            self._ahead_sem.release()
+
+    def _supervise_loop(self) -> None:
+        """Thread watchdog: a dispatcher or completer that died without
+        reaching its clean exit point (a chaos kill, an unexpected
+        BaseException) is restarted, so a dead loop can never strand
+        the queue or the in-flight batches.  Clean exits set their exit
+        flag before returning and are never restarted."""
+        while not self._sup_stop.is_set():
+            w, c = self._worker, self._completer
+            if w is not None and not w.is_alive() and not self._dispatcher_exited:
+                # started before it is published: stop() may join it
+                t = threading.Thread(target=self._dispatch_loop, daemon=True)
+                t.start()
+                self._worker = t
+                with self._stats_lock:
+                    self._thread_restarts += 1
+            if c is not None and not c.is_alive() and not self._completer_done:
+                t = threading.Thread(target=self._complete_loop, daemon=True)
+                t.start()
+                self._completer = t
+                with self._stats_lock:
+                    self._thread_restarts += 1
+            self._sup_stop.wait(timeout=self.supervise_interval_s)
+
+    def stop(self) -> None:
+        """Stop the worker threads, drain what is already queued, and
+        resolve every launched batch before returning — even with
+        chaos-killed loops mid-flight: the supervisor stays up until
+        both loops reach their clean exit points, restarting dead ones,
+        so stop() cannot deadlock on a dead completer's unreleased
+        dispatch-ahead slot."""
+        if self._worker is None:
+            return
+        self._stop.set()
+        self._wake.set()
+        while not self._dispatcher_exited:
+            w = self._worker
+            if w is None:
+                break
+            w.join(timeout=0.05)
+        # the dispatcher is gone for good: launch everything still
+        # queued (no admission window), then hand the completer its
+        # stop sentinel — batches in flight resolve before we return
+        while True:
+            taken = self._take_microbatch()
+            if not taken:
+                break
+            self._launch_flight(taken)
+        self._launched.put(None)
+        while not self._completer_done:
+            c = self._completer
+            if c is None:
+                break
+            c.join(timeout=0.05)
+        self._sup_stop.set()
+        if self._supervisor is not None:
+            self._supervisor.join()
+            self._supervisor = None
+        self._worker = None
+        self._completer = None
+        self.flush()  # anything submitted after the drain began
+
+    # -- observability ----------------------------------------------- #
+    def health(self) -> Dict[str, Any]:
+        """Readiness probe: thread liveness, queue pressure, restart
+        count.  ``healthy`` is True when the server can make progress —
+        worker loops alive (or not started: flush-mode serving) and
+        admission not saturated.  A loop the chaos layer just killed
+        reads unhealthy until the supervisor restarts it."""
+        w, c = self._worker, self._completer
+        running = w is not None
+        d_alive = bool(w is not None and w.is_alive())
+        c_alive = bool(c is not None and c.is_alive())
+        with self._qlock:
+            depth = len(self._queue)
+            qrows = self._queued_rows
+        with self._stats_lock:
+            inflight = self._inflight_n
+            restarts = self._thread_restarts
+        overloaded = self.max_queue_rows is not None and qrows >= self.max_queue_rows
+        return {
+            "healthy": (not running or (d_alive and c_alive)) and not overloaded,
+            "running": running,
+            "dispatcher_alive": d_alive,
+            "completer_alive": c_alive,
+            "queue_depth": depth,
+            "queued_rows": qrows,
+            "overloaded": overloaded,
+            "inflight_batches": inflight,
+            "thread_restarts": restarts,
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """The serving counters (DESIGN.md §9/§10/§11 schema): request/
+        row totals, dispatch and bucket-reuse counts, jit trace count
+        vs the policy bound, padded-vs-valid-vs-real occupancy, HBM
+        bytes/request from the compiled traffic model, the in-flight
+        gauge, queue-wait / end-to-end latency percentiles, the
+        fault-recovery counters, and the straggler watchdog flags."""
+        with self._stats_lock:  # snapshot: writers hold the same locks
+            lat = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
+            requests, rows = self._n_requests, self._n_rows
+            batches = self._n_batches
+            hits, misses = self._bucket_hits, self._bucket_misses
+            padded, valid = self._padded_rows, self._valid_rows
+            real = self._real_rows
+            hbm = self._hbm_bytes
+            inflight, inflight_peak = self._inflight_n, self._inflight_peak
+            faults = {
+                "flights": self._flight_faults,
+                "backend_fallbacks": self._backend_fallbacks,
+                "retries": self._retries,
+                "bisections": self._bisections,
+                "poisoned_requests": self._poisoned,
+                "timeouts": self._timeouts,
+                "rejected": self._rejected,
+                "thread_restarts": self._thread_restarts,
+            }
+            straggler_flags = list(self._watchdog.flags)
+            straggler_median = self._watchdog.median
+        with self._trace_lock:
+            buckets = sorted({key[0] for key in self._graphs})
+        dispatches = hits + misses
+        stats = {
+            "requests": requests,
+            "rows": rows,
+            "batches": batches,
+            "queue_depth": self.queue_depth(),
+            "inflight_batches": inflight,
+            "inflight_peak": inflight_peak,
+            "buckets_traced": buckets,
+            "bucket_hits": hits,
+            "bucket_misses": misses,
+            "bucket_hit_rate": hits / dispatches if dispatches else 0.0,
+            "jit_traces": self.jit_traces(),
+            "trace_bound": self.trace_bound(),
+            "padded_rows": padded,
+            "valid_rows": valid,
+            "real_rows": real,
+            "occupancy": real / padded if padded else 0.0,
+            "compute_occupancy": real / valid if valid else 0.0,
+            "hbm_bytes": hbm,
+            "hbm_bytes_per_request": hbm / max(requests, 1),
+            "devices": 1,
+            "faults": faults,
+            "straggler_flags": straggler_flags,
+            "straggler_median_s": straggler_median,
+        }
+        if lat:
+            stats["latency_s"] = _pcts(lat)
+        if waits:
+            stats["queue_wait_s"] = _pcts(waits)
+        return stats

@@ -1,10 +1,12 @@
 """Where the time of a BNN forward goes on the card.
 
     PYTHONPATH=src python -m repro_torch.trace [--model binarynet alexnet]
-        [--batches 1 32 256]
+        [--batches 1 32 256] [--graphed]
 
 Runs full-width BinaryNet CIFAR-10 or XNOR-AlexNet (random weights from
 a seeded generator, integer images) through ``graph.compile(...).apply``
+— or, with ``--graphed``, through its CUDA graph
+(``graph.replay.GraphedApply``, captured before the trace), replayed —
 under ``torch.profiler`` and prints, per batch, the device time of each
 kernel group per forward (and, in the JSON, every kernel's launches per
 forward), the wall time per forward under the profiler,
@@ -12,7 +14,8 @@ and the device's busy share (device kernel time over wall time; the
 profiler's own overhead inflates the wall time, so the share is a lower
 bound).  Needs a CUDA device; each line names the card and its power
 limit (``nvidia-smi``), and the results also go to
-``trace_<model>.json`` in the output directory (see ``main``).
+``trace_<model>.json`` (``trace_<model>_graphed.json``) in the output
+directory (see ``main``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import graph
 from repro_torch.core.workloads import WORKLOADS, Workload
+from repro_torch.graph.replay import GraphedApply
 
 # kernel-name fragment -> group: the port's five kernels by symbol, then
 # the float entry convs (the kernels cuDNN chose, with its layout
@@ -94,20 +98,26 @@ def device_kernels(fn: Callable[[], object]) -> Dict[str, int]:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
+def trace_forward(workload: Workload, batch: int, iters: int = 20,
+                  graphed: bool = False) -> Dict:
     cb = graph.compile(workload, batch=batch)
     params = cb.init(torch.Generator().manual_seed(0))
     x = torch.randint(-3, 4, (batch, *cb.spec.input_shape),
                       generator=torch.Generator().manual_seed(batch)
                       ).to(torch.float32).to("cuda")
+    if graphed:
+        forward = GraphedApply(cb, params, batch)
+    else:
+        def forward(x):
+            return cb.apply(params, x)
     for _ in range(2):
-        cb.apply(params, x)
+        forward(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            cb.apply(params, x)
+            forward(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups: Dict[str, float] = {}
@@ -121,7 +131,8 @@ def trace_forward(workload: Workload, batch: int, iters: int = 5) -> Dict:
         groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + us / iters
         kernels[e.key[:160]] = kernels.get(e.key[:160], 0) + e.count / iters
     device_us = sum(groups.values())
-    return {"batch": batch, "wall_us_per_forward": wall_us / iters,
+    return {"batch": batch, "graphed": graphed,
+            "wall_us_per_forward": wall_us / iters,
             "device_us_per_forward": device_us,
             "busy_share": device_us / (wall_us / iters),
             "device_us_by_group": dict(sorted(groups.items(),
@@ -134,6 +145,8 @@ def main() -> None:
     ap.add_argument("--model", choices=sorted(WORKLOADS), nargs="+",
                     default=["binarynet"])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 256])
+    ap.add_argument("--graphed", action="store_true",
+                    help="trace the forward replayed from its CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace needs a CUDA device")
@@ -146,15 +159,17 @@ def main() -> None:
     for model in args.model:
         out = []
         for b in args.batches:
-            r = trace_forward(WORKLOADS[model], b)
+            r = trace_forward(WORKLOADS[model], b, graphed=args.graphed)
             out.append(r)
-            print(f"{smi}: {model} B={b}: wall "
+            how = "replayed" if args.graphed else "eager"
+            print(f"{smi}: {model} {how} B={b}: wall "
                   f"{r['wall_us_per_forward']:.1f} us/forward under the "
                   f"profiler, device {r['device_us_per_forward']:.1f}"
                   f" us, busy share {r['busy_share']:.3f}")
             for g, us in r["device_us_by_group"].items():
                 print(f"  {us:10.1f} us  {g}")
-        (path / f"trace_{model}.json").write_text(json.dumps(
+        name = f"trace_{model}{'_graphed' if args.graphed else ''}.json"
+        (path / name).write_text(json.dumps(
             {"card": smi, "batches": out}, indent=1))
 
 

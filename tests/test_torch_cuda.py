@@ -558,3 +558,150 @@ def test_binary_dense_launches_xnor_gemm(cuda):
                             threshold=np.zeros(96), pack_out=True,
                             backend="torch")
     assert torch.equal(y.words, want.words)
+
+
+# ------------------------------------------------------------------ #
+# the graphed apply and the server on the card                         #
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("workload,per_forward", [
+    ("binarynet", {"pack": 1, "packed_conv2d": 5, "fused_binary_mlp": 1,
+                   "popcount_gemm": 1}),
+    ("alexnet", {"pack": 1, "packed_conv2d": 3, "fused_binary_mlp": 1,
+                 "popcount_gemm": 1})])
+def test_graphed_logits_equal_eager(cuda, workload, per_forward, batch):
+    """One CUDA graph per forward: its logits equal eager apply's bit for
+    bit, a valid_rows graph equals eager on those rows, and a replay
+    counts the kernels its capture recorded (the capture counts none)."""
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.graph.replay import GraphedApply
+    cb = graph.compile(WORKLOADS[workload], batch=batch)
+    params = cb.init(torch.Generator().manual_seed(0))
+    x = torch.randint(-3, 4, (batch, *cb.spec.input_shape),
+                      generator=torch.Generator().manual_seed(batch)
+                      ).to(torch.float32).to(cuda)
+    eager = cb.apply(params, x)
+    _build.reset_launch_counts()
+    g = GraphedApply(cb, params, batch)
+    warm = _build.launch_counts()                   # the eager warm-up
+    assert g.launches == per_forward
+    assert all(warm[k] == per_forward.get(k, 0) for k in warm)
+    _build.reset_launch_counts()
+    for _ in range(2):
+        got = g(x)
+        assert torch.equal(got, eager)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {
+        k: 2 * per_forward.get(k, 0) for k in _build.launch_counts()}
+    if batch > 1:
+        # rows past the request are zeros, as the server pads them
+        n, valid = batch - 2, batch - 1
+        part = GraphedApply(cb, params, batch, valid_rows=valid)
+        padded = torch.cat([x[:n], torch.zeros_like(x[n:])])
+        assert torch.equal(part(x[:n]),
+                           cb.apply(params, padded, valid_rows=valid))
+
+
+def test_capture_holds_the_collector_off(cuda, monkeypatch):
+    """A graph that only a reference cycle holds, freed by the cyclic
+    collector while another forward is being captured, would invalidate
+    that capture (CUDAGraph.reset is refused while capturing); the
+    capture holds the collector off, so it succeeds and replays right."""
+    import gc
+
+    from repro_torch.graph.replay import GraphedApply
+    spec = graph.from_dense_stack(512, [256, 64], name="gc")
+    cb = graph.compile(spec, batch=8)
+    params = cb.init(torch.Generator().manual_seed(5))
+    x = ops.binarize_pack(torch.randn(8, 512, generator=torch.Generator()
+                                      .manual_seed(6)).to(cuda))
+    doomed = [GraphedApply(cb, params, 8)]
+    forward = GraphedApply._forward
+
+    def drop_a_graph_mid_capture(self):
+        if doomed and torch.cuda.is_current_stream_capturing():
+            cycle = [doomed.pop()]
+            cycle.append(cycle)                  # only the collector frees it
+            del cycle
+        return forward(self)
+
+    monkeypatch.setattr(GraphedApply, "_forward", drop_a_graph_mid_capture)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)                    # collect at every chance
+    try:
+        g = GraphedApply(cb, params, 8)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not doomed
+    gc.collect()
+    assert torch.equal(g(x).words, cb.apply(params, x).words)
+
+
+def test_launch_error_is_a_backend_fault(cuda):
+    """A launch the CUDA runtime refuses (no layers) raises LaunchError,
+    which the server classifies as a backend fault."""
+    from repro_torch.serving.server import _is_backend_fault, _is_sticky
+    with pytest.raises(_build.LaunchError) as info:
+        _build.FUSED_MLP.launch(cuda, None, None, 1, 8, 0, None, None,
+                                None, None, None, None, 16, 16, 8)
+    assert _is_backend_fault(info.value) and not _is_sticky(info.value)
+
+
+def test_server_results_equal_eager_apply(cuda):
+    """BNNServer on the card: every submitted request, and a synchronous
+    batch, equals eager apply on its own rows; graphs stay within the
+    bound, nothing falls back."""
+    from repro_torch.core.workloads import binarynet_cifar10
+    from repro_torch.serving import BNNServer
+    cb = graph.compile(binarynet_cifar10(), batch=16)
+    params = cb.init(torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    sizes = [1, 5, 16, 9, 3, 12, 7, 2]
+    xs = [torch.randint(-3, 4, (r, 32, 32, 3), generator=gen
+                        ).to(torch.float32).to(cuda) for r in sizes]
+    srv = BNNServer(cb, params, max_batch=16).start()
+    try:
+        futs = [srv.submit(x) for x in xs]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        srv.stop()
+    for x, y in zip(xs, got):
+        assert torch.equal(y, cb.apply(params, x))
+    big = torch.cat(xs[:4])                          # 31 rows: 16 + 15
+    assert torch.equal(srv.apply_batch(big), cb.apply(params, big))
+    st = srv.stats()
+    assert st["jit_traces"] <= st["trace_bound"]
+    assert st["faults"]["backend_fallbacks"] == 0
+
+
+def test_server_falls_back_on_a_refused_launch(cuda, monkeypatch):
+    """The first kernel launch of a flight is refused (LaunchError from
+    Kernel.launch): the flight re-executes eagerly on the same card with
+    the same kernels (their launch counts move, nothing runs on
+    "torch"), giving the same words and one counted fallback."""
+    from repro_torch.serving import BNNServer
+    spec = graph.from_dense_stack(512, [256, 64], name="fb")
+    cb = graph.compile(spec, batch=8)
+    params = cb.init(torch.Generator().manual_seed(3))
+    x = ops.binarize_pack(torch.randn(6, 512, generator=torch.Generator()
+                                      .manual_seed(4)).to(cuda))
+    want = cb.apply(params, x)
+    srv = BNNServer(cb, params, max_batch=8)
+    calls = []
+    for k in _build.KERNELS:
+        lib, fn = k._bind()
+
+        def refuse_first(*args, fn=fn):
+            calls.append(1)
+            return 1 if len(calls) == 1 else fn(*args)
+
+        monkeypatch.setattr(k, "_fn", (lib, refuse_first))
+    _build.reset_launch_counts()
+    fut = srv.submit(x)
+    srv.flush()
+    got = fut.result(timeout=60)
+    assert srv._fallback is cb                      # the same kernels
+    assert len(calls) > 1 and sum(_build.launch_counts().values()) > 0
+    assert torch.equal(got.words, want.words) and got.words.is_cuda
+    st = srv.stats()["faults"]
+    assert st["backend_fallbacks"] == 1 and st["retries"] == 0

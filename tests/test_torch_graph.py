@@ -313,6 +313,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("graph/replay.py", "serving/server.py",
+                   "serving/placement.py", "serving/bucketing.py",
+                   "serving/errors.py", "runtime/straggler.py",
+                   "robustness/chaos.py"):
+        assert f"src/repro_torch/{module}" in scanned, module
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
