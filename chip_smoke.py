@@ -91,9 +91,11 @@
    through ``max_batch=32`` with 64 requests: every result must equal
    eager ``apply`` on its own rows, at most ``trace_bound`` graphs, no
    fallback
-   and no retry; then one forced ``BackendFault`` must fall back to the
-   ``"torch"`` backend on the card with the same logits, counted once.
-   Prints images/s, p50/p99 latency and the in-flight peak;
+   and no retry; then one forced ``BackendFault`` must take the
+   degraded step: the same kernels rerun eagerly on the card, without
+   the graph (never the plain ``"torch"`` versions), the same logits,
+   counted once.  Prints images/s, p50/p99 latency and the in-flight
+   peak;
 7. times the fused stack against the chained route (one popcount_gemm
    launch a layer), both replayed from CUDA graphs, at the six main
    shapes, the words equal;
@@ -101,11 +103,26 @@
    xnor_gemm) at the decode GEMMs of the repo's LLM configs — (M, K, N)
    = (128, 4096, 4096), (128, 12288, 12288), (1, 8192, 8192) — in bf16
    and float32 through the public entry point, one launch each (two
-   where K is split: the parts, then their sum).
+   where K is split: the parts, then their sum);
+9. trains full-width BinaryNet (``repro_torch.train``, random init from
+   a seeded generator) on the reference's synthetic 10-class 32x32x3
+   stream, the reference benchmark's job: 60 STE steps at batch 8, lr
+   0.02; the eval accuracy on 4 held-out batches must exceed chance +
+   0.15, and the same run checkpointed every 20 steps, cut at 30 and
+   resumed must equal the uninterrupted one bit for bit (losses and
+   params, bn, opt); the trained state is folded, exported and compiled
+   for the ``"cuda"`` backend: ``check_sign_identity`` on 256 held-out
+   rows must give exactly the eval forward's logits with 1 pack, 5
+   packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm launch, and
+   ``BNNServer(max_batch=256)`` the same logits; then 20 steps at batch
+   256 are timed after 3 warm-ups (ms per step, images/s, peak memory),
+   two steps' device time is split by torch.profiler (cuDNN convs,
+   cuBLAS matmuls, the AdamW update, torch's elementwise kernels, the
+   host-to-device copy), and one checkpoint save is timed.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6 and 8, each counted from 0 just before it runs (a graph's
+steps 3-6, 8 and 9, each counted from 0 just before it runs (a graph's
 replay counts the kernels its capture recorded).  Any failure raises and exits
 non-zero; no phase catches its own failure.  The last line is the
 device summary JSON; the line before it the card's name and power
@@ -1677,6 +1694,255 @@ def fused_vs_chained(rnd):
     return dict(shapes=out, sums=sums)
 
 
+# ------------------------------------------------------------------ #
+# the training path                                                    #
+# ------------------------------------------------------------------ #
+# the reference's benchmark job (benchmarks/kernels_bench.py): BinaryNet
+# at full width on the synthetic 10-class 32x32x3 stream, batch 8
+TRAIN_DATA = dict(num_classes=10, height=32, width=32, channels=3,
+                  global_batch=8, seed=0, flip_prob=0.02)
+TRAIN_STEPS, TRAIN_LR, EVAL_BATCHES, MARGIN = 60, 0.02, 4, 0.15
+CKPT_EVERY, RUN_STEPS = 20, 30           # the interrupted run's cut
+SIGN_ROWS = 256                          # the exported forward's batch
+TIMED_BATCH, TIMED_WARMUP, TIMED_STEPS = 256, 3, 20
+# device kernel name -> group of the step's split: the first fragment a
+# name holds decides (torch's own kernels are at::native::; cuDNN's FFT
+# convs run complex cuBLAS GEMMs, "cf32", and complex pointwise kernels)
+CUDNN_STEP = "cuDNN conv forward and backward"
+CUBLAS_STEP = "cuBLAS fc matmuls"
+TORCH_STEP = "elementwise, BN, STE, pools, loss"
+STEP_GROUPS = (("Memcpy HtoD", "host-to-device copy"),
+               ("at::native::", TORCH_STEP),
+               *((f, CUDNN_STEP) for f in (
+                   "conv", "fprop", "dgrad", "wgrad", "cudnn", "fft",
+                   "winograd", "flip_filter", "nchwToNhwc", "nhwcToNchw",
+                   "cf32", "_complex")),
+               *((f, CUBLAS_STEP) for f in ("gemm", "gemv", "splitKreduce")))
+
+
+def step_group(name):
+    for frag, group in STEP_GROUPS:
+        if frag in name:
+            return group
+    return "other: " + name[:60]
+
+
+def leaves_equal(a, b):
+    from repro_torch import tree
+    fa, ta = tree.flatten(a)
+    fb, tb = tree.flatten(b)
+    return ta == tb and all(x.dtype == y.dtype and torch.equal(x, y)
+                            for x, y in zip(fa, fb))
+
+
+def train_path(launches):
+    """Phase 9, the training path at BinaryNet's full width (random init
+    from a seeded generator, the reference's synthetic stream):
+
+    1. the reference's benchmark job — ``fit`` 60 steps at batch 8, lr
+       0.02 — then ``evaluate`` on 4 held-out batches: accuracy above
+       chance + 0.15; the same run with a checkpoint every 20 steps, cut
+       at 30 and resumed: its losses and final (params, bn, opt) equal
+       the uninterrupted run's bit for bit;
+    2. ``export_compiled`` on the "cuda" backend and
+       ``check_sign_identity`` on 256 held-out rows: logits exactly
+       equal to the eval forward's, argmax agreement 1.0, the forward 1
+       pack, 5 packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm
+       launch; the same rows through ``BNNServer(max_batch=256)`` equal
+       the eval logits;
+    3. 20 steps at batch 256 after 3 warm-ups (host clock, the loss read
+       each step as ``fit`` reads it; the batches made before): ms per
+       step, images/s, peak memory; the device time of two steps split
+       by torch.profiler into cuDNN convs, cuBLAS matmuls, torch's
+       elementwise kernels and the host-to-device copy, the AdamW update
+       profiled alone; the time to make a batch on the host and to save
+       one checkpoint (``save``, and ``AsyncCheckpointer.save`` until it
+       returns)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import graph, train, tree
+    from repro_torch.checkpoint import AsyncCheckpointer, save
+    from repro_torch.core.workloads import binarynet_cifar10
+    from repro_torch.data import ImageDataConfig
+    from repro_torch.data.images import eval_batch_at, image_batch_at
+    from repro_torch.kernels import _build
+    from repro_torch.optim import adamw
+    from repro_torch.serving import BNNServer
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.trace import device_times
+    t_phase = time.perf_counter()
+    spec = graph.from_workload(binarynet_cifar10())
+    dcfg = ImageDataConfig(**TRAIN_DATA)
+    tcfg = train.TrainConfig(steps=TRAIN_STEPS, lr=TRAIN_LR)
+    # the interrupted run first: it pays the one-time start-up (cuDNN's
+    # handles and heuristics), so the uninterrupted run is timed warm
+    rcfg = dataclasses.replace(tcfg, ckpt_every=CKPT_EVERY)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        part1 = train.fit(spec, dcfg, rcfg, ckpt_dir=d, run_steps=RUN_STEPS,
+                          log_fn=lambda *_: None, device=DEVICE)
+        part2 = train.fit(spec, dcfg, rcfg, ckpt_dir=d,
+                          log_fn=lambda *_: None, device=DEVICE)
+        resumed_s = time.perf_counter() - t0
+    log = []
+    t0 = time.perf_counter()
+    full = train.fit(spec, dcfg, tcfg, log_fn=log.append, device=DEVICE)
+    fit_s = time.perf_counter() - t0
+    params, bn = full["params"], full["bn"]
+    ev = train.evaluate(spec, params, bn, dcfg, n_batches=EVAL_BATCHES,
+                        device=DEVICE)
+    chance = 1.0 / dcfg.num_classes
+    if not ev["acc"] > chance + MARGIN:
+        raise AssertionError(f"BinaryNet trained: eval accuracy "
+                             f"{ev['acc']} <= chance {chance} + {MARGIN}")
+    print(f"BinaryNet trained {TRAIN_STEPS} steps x batch "
+          f"{dcfg.global_batch} in {fit_s:.3f} s "
+          f"({fit_s / TRAIN_STEPS * 1e3:.3f} ms/step, data included; the "
+          f"interrupted run, start-up and checkpoints included, "
+          f"{resumed_s:.3f} s): loss "
+          f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, eval "
+          f"accuracy {ev['acc']:.4f} on {ev['rows']} rows (chance "
+          f"{chance:.2f}, margin {MARGIN})")
+    for line in log:
+        print(f"  {line}")
+
+    resumed = part1["losses"] + part2["losses"]
+    if not (part1["step"] == RUN_STEPS and part2["step"] == TRAIN_STEPS
+            and resumed == full["losses"]
+            and leaves_equal((part2["params"], part2["bn"], part2["opt"]),
+                             (params, bn, full["opt"]))):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    print(f"resume: checkpoint every {CKPT_EVERY} steps, cut at "
+          f"{RUN_STEPS} and resumed: {len(resumed)} losses and the final "
+          f"(params, bn, opt) equal the uninterrupted run's bit for bit")
+
+    scfg = dataclasses.replace(dcfg, global_batch=SIGN_ROWS)
+    x = torch.from_numpy(eval_batch_at(scfg, EVAL_BATCHES + 1)["image"]
+                         ).to(DEVICE)
+    cb, sparams = train.export_compiled(spec, params, bn, batch=SIGN_ROWS,
+                                        device=DEVICE)
+    if cb.backend != "cuda":
+        raise AssertionError(f"exported on {cb.backend}")
+    _build.reset_launch_counts()
+    stats = train.check_sign_identity(spec, params, bn, x, cb=cb,
+                                      sparams=sparams)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    expect_launches("the exported forward", counts, BINARYNET_PER_FORWARD)
+    with torch.no_grad():
+        eval_logits, _ = train.train_forward(spec, params, bn, x,
+                                             train=False)
+    srv = BNNServer(cb, sparams, max_batch=SIGN_ROWS, device=DEVICE)
+    served = srv.apply_batch(x)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    srv = None                 # its graph's memory goes before the timing
+    if not torch.equal(served, eval_logits):
+        raise AssertionError("BNNServer's logits differ from the eval "
+                             "forward's")
+    print(f"export -> compile -> serve on the card: check_sign_identity "
+          f"{stats} with {BINARYNET_PER_FORWARD} launches; "
+          f"BNNServer(max_batch={SIGN_ROWS}).apply_batch equal to the "
+          f"eval logits; launches with the server's {counts}")
+
+    bcfg = dataclasses.replace(dcfg, global_batch=TIMED_BATCH)
+    n = TIMED_WARMUP + TIMED_STEPS
+    t0 = time.perf_counter()
+    batches = [image_batch_at(bcfg, i) for i in range(n)]
+    data_ms = (time.perf_counter() - t0) / n * 1e3
+    state = list(train.init_train_state(torch.Generator().manual_seed(0),
+                                        spec, device=DEVICE))
+    state.append(adamw.init(state[0]))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, weight_decay=1e-4,
+                                clip_norm=5.0, total_steps=n,
+                                warmup_steps=max(1, n // 10))
+    scale = train.default_logit_scale(spec)
+    step = train.make_train_step(spec, opt_cfg, scale)
+
+    def run(b):
+        images = torch.from_numpy(b["image"]).to(DEVICE)
+        labels = torch.from_numpy(b["label"]).to(DEVICE)
+        new_params, new_bn, new_opt, m = step(*state, images, labels)
+        state[:] = [new_params, new_bn, new_opt]
+        return float(m["loss"])
+
+    for b in batches[:TIMED_WARMUP]:
+        run(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches[TIMED_WARMUP:]:
+        run(b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+
+    times = device_times(lambda: run(batches[-1]), iters=2)
+    split = {}
+    for name, us in times.items():
+        g = step_group(name)
+        split[g] = split.get(g, 0.0) + us
+    _, _, _, grads = loss_and_grads(
+        spec, state[0], state[1],
+        torch.from_numpy(batches[-1]["image"]).to(DEVICE),
+        torch.from_numpy(batches[-1]["label"]).to(DEVICE), scale)
+    mask = train.clip_mask_for(state[0])
+    with torch.no_grad():
+        adam_us = sum(device_times(lambda: adamw.apply_updates(
+            state[0], state[2], grads, opt_cfg, clip_mask=mask),
+            iters=2).values())
+    split["AdamW update"] = adam_us
+    split[TORCH_STEP] = split.get(TORCH_STEP, 0.0) - adam_us
+    device_us = sum(times.values())
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(d, 1, tuple(state), extra={"step": 1})
+        save_s = time.perf_counter() - t0
+        ck = AsyncCheckpointer(d)
+        t0 = time.perf_counter()
+        ck.save(2, tuple(state), extra={"step": 2})
+        async_block_s = time.perf_counter() - t0
+        ck.wait()
+        async_total_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.leaves(tuple(state)))
+    out = dict(fit_s=fit_s, resumed_fit_s=resumed_s, steps=TRAIN_STEPS,
+               losses=full["losses"],
+               eval=ev, resume_bit_identical=True, sign_identity=stats,
+               served_equal=True, timed_batch=TIMED_BATCH,
+               ms_per_step=step_ms,
+               images_per_s=TIMED_BATCH / step_ms * 1e3,
+               peak_mem_bytes=peak, data_ms_per_batch=data_ms,
+               device_us_per_step=device_us,
+               device_us_by_group=dict(sorted(split.items(),
+                                              key=lambda kv: -kv[1])),
+               step_kernels={k[:160]: v for k, v in sorted(
+                   times.items(), key=lambda kv: -kv[1])},
+               ckpt_bytes=nbytes, save_s=save_s,
+               async_save_block_s=async_block_s,
+               async_save_total_s=async_total_s)
+    print(f"BinaryNet training at batch {TIMED_BATCH}: {step_ms:.3f} "
+          f"ms/step ({TIMED_BATCH / step_ms * 1e3:.1f} images/s) over "
+          f"{TIMED_STEPS} steps after {TIMED_WARMUP}, batches made before "
+          f"({data_ms:.2f} ms a batch on the host); peak device memory "
+          f"{peak / 2**20:.1f} MiB; device {device_us:.1f} us/step "
+          f"(busy {device_us / 1e3 / step_ms:.3f})")
+    for g, us in out["device_us_by_group"].items():
+        print(f"  {us:10.1f} us/step  {g}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"checkpoint of {nbytes / 2**20:.1f} MiB (params, bn, opt): save "
+          f"{save_s:.3f} s; AsyncCheckpointer.save returns after "
+          f"{async_block_s:.3f} s, written after {async_total_s:.3f} s; "
+          f"the training phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -1838,6 +2104,7 @@ def main():
     served = serving_path(launches)
     stack_race = fused_vs_chained(rnd)
     dense = dense_path(rnd, launches)
+    trained = train_path(launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -1858,7 +2125,7 @@ def main():
          "mma_sync_tops": peak,
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "graphed": graphed, "served": served,
-         "fused_vs_chained_replayed": stack_race,
+         "fused_vs_chained_replayed": stack_race, "train": trained,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,11 @@ cannot read) are carried bit for bit through their uint16 pattern.
 A NamedTuple with the fields ``(T, flip)`` is the reference's
 ``FoldedThreshold`` (folded batch norm, from ``quantize_for_serving``):
 it becomes the port's ``FoldedThreshold``, T int32 and flip bool, which
-the binary conv and dense layers rewrite at bind time.  It is known by
-its fields, so nothing of the reference is imported.
+the binary conv and dense layers rewrite at bind time.  A NamedTuple
+with the fields ``(step, m, v)`` is the reference's AdamW ``OptState``:
+it becomes the port's ``repro_torch.optim.OptState``, so a training
+state (params, bn_state, opt) crosses whole.  Both are known by their
+fields, so nothing of the reference is imported.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core.bnn_layers import FoldedThreshold
 from repro_torch.kernels.packed import PM1, PackedArray, from_uint32
+from repro_torch.optim.adamw import OptState
 
 __all__ = ["params_from_numpy"]
 
@@ -46,6 +50,8 @@ def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
                                device=device),
                 flip=torch.tensor(np.asarray(tree.flip), dtype=torch.bool,
                                   device=device))
+        if tree._fields == OptState._fields:
+            return OptState(*(params_from_numpy(v, device) for v in tree))
         return type(tree)(*(params_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)

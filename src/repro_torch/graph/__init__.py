@@ -8,7 +8,9 @@
     g = graph.GraphedApply(cb, params, batch=256)  # one CUDA graph
     logits = g(images)
 """
-from repro_torch.graph.compile import CompiledBNN, compile
+from repro_torch.graph.compile import (CompiledBNN, compile,
+                                       compile_dense_stack,
+                                       serve_folded_stack)
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, IntegerEntry,
                                   Logits, MaxPool, from_dense_stack,
@@ -19,4 +21,5 @@ from repro_torch.graph.replay import GraphedApply
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
            "BNThreshold", "CompiledBNN", "GraphedApply", "IntegerEntry",
            "Logits", "MaxPool", "PlanStep", "build_plan", "compile",
-           "from_dense_stack", "from_workload"]
+           "compile_dense_stack", "from_dense_stack", "from_workload",
+           "serve_folded_stack"]

@@ -15,7 +15,7 @@ plain torch version.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,14 +25,16 @@ from repro_torch.core.bnn_layers import (FoldedThreshold, binary_conv,
                                          fold_to_channel_thresholds,
                                          maxpool_packed, sign_weight_conv)
 from repro_torch.core.workloads import Workload
-from repro_torch.graph.ir import BNNSpec, IntegerEntry, from_workload
+from repro_torch.graph.ir import (BNNSpec, IntegerEntry, from_dense_stack,
+                                  from_workload)
 from repro_torch.graph.passes import PlanStep, build_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
                                         resolve_device)
 
-__all__ = ["CompiledBNN", "compile"]
+__all__ = ["CompiledBNN", "compile", "compile_dense_stack",
+           "serve_folded_stack"]
 
 
 def _maxpool_float(x: torch.Tensor, window: int, stride: int
@@ -285,3 +287,39 @@ def compile(spec: Union[BNNSpec, Workload], backend: Optional[str] = None,
     spec.validate()
     plan = build_plan(spec, backend=be, batch=batch, conv_impl=conv_impl)
     return CompiledBNN(spec, plan, be, dev, batch)
+
+
+def compile_dense_stack(k0: int, ns: Sequence[int],
+                        thresholded: Optional[Sequence[bool]] = None,
+                        name: str = "mlp", backend: Optional[str] = None,
+                        device: Union[str, torch.device, None] = None,
+                        batch: int = 1,
+                        per_channel: Optional[Sequence[bool]] = None
+                        ) -> CompiledBNN:
+    """compile() for a fully-binary MLP stack spec."""
+    return compile(from_dense_stack(k0, ns, thresholded, name=name,
+                                    per_channel=per_channel),
+                   backend=backend, device=device, batch=batch)
+
+
+def serve_folded_stack(xp: PackedArray,
+                       layers: Sequence[Tuple[PackedArray, Any]],
+                       backend: Optional[str] = None) -> PackedArray:
+    """Serve (wp [N, K] PackedArray, FoldedThreshold) layer pairs —
+    ``quantize_for_serving``'s output — through the compiled pipeline on
+    xp's device: the folds are rewritten to per-channel thresholds at
+    param-bind time and the stack runs under the plan's fused-stack
+    segmentation.  The engine behind the deprecated
+    ``core.bnn_layers.bnn_mlp_serve_folded`` shim."""
+    if not isinstance(xp, PackedArray):
+        raise ValueError("serve_folded_stack takes a PackedArray input")
+    ws = [wp.move_pack_axis_last() for wp, _ in layers]
+    rows = 1
+    for d in xp.move_pack_axis_last().words.shape[:-1]:
+        rows *= int(d)
+    cb = compile_dense_stack(ws[0].length, [w.words.shape[0] for w in ws],
+                             backend=backend, device=xp.words.device,
+                             batch=rows)
+    params = {"fc": [{"wp": w, "t": fold}
+                     for w, (_, fold) in zip(ws, layers)]}
+    return cb.apply(params, xp)

@@ -48,6 +48,13 @@ GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("at::native::", TORCH))
 
 
+def _device_us(e) -> float:
+    """A profiler event's own device time, µs (the attribute's name
+    changed between torch versions)."""
+    t = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if t is None else t
+
+
 def _group(name: str) -> str:
     for frag, group in GROUPS:
         if frag in name:
@@ -77,8 +84,7 @@ def kernel_ms(fn: Callable[[], object], symbol: str, iters: int = 20
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and \
                     symbol in e.key:
-                t = getattr(e, "self_device_time_total", None)
-                us += e.self_cuda_time_total if t is None else t
+                us += _device_us(e)
         if us > 0:
             return us / iters / 1e3
     raise AssertionError(f"the profiler saw no device time of a kernel "
@@ -96,6 +102,25 @@ def device_kernels(fn: Callable[[], object]) -> Dict[str, int]:
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_times(fn: Callable[[], object], iters: int = 2
+                 ) -> Dict[str, float]:
+    """Device µs per call of ``fn`` by kernel name (and by the
+    profiler's memcpy names), from torch.profiler over ``iters`` calls
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + _device_us(e) / iters
+    return out
 
 
 def trace_forward(workload: Workload, batch: int, iters: int = 20,
@@ -125,9 +150,7 @@ def trace_forward(workload: Workload, batch: int, iters: int = 20,
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        us = _device_us(e)
         groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + us / iters
         kernels[e.key[:160]] = kernels.get(e.key[:160], 0) + e.count / iters
     device_us = sum(groups.values())

@@ -317,7 +317,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for module in ("graph/replay.py", "serving/server.py",
                    "serving/placement.py", "serving/bucketing.py",
                    "serving/errors.py", "runtime/straggler.py",
-                   "robustness/chaos.py"):
+                   "robustness/chaos.py", "core/binarize.py",
+                   "data/images.py", "data/pipeline.py", "tree.py",
+                   "optim/adamw.py", "checkpoint/checkpointer.py",
+                   "train/models.py", "train/loop.py", "train/export.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
