@@ -118,12 +118,30 @@
    256 are timed after 3 warm-ups (ms per step, images/s, peak memory),
    two steps' device time is split by torch.profiler (cuDNN convs,
    cuBLAS matmuls, the AdamW update, torch's elementwise kernels, the
-   host-to-device copy), and one checkpoint save is timed.
+   host-to-device copy), and one checkpoint save is timed;
+10. runs the TULIP model and its simulator (``repro_torch.core``,
+   ``repro_torch.sim``) on the card: ``run_torch`` must equal
+   ``run_numpy`` (regs, outs, every cycle's outputs) on 256 PEs with
+   random product bits for the scheduled programs of 9, 288 and 1023
+   inputs, without and with the on-PE compare (ms per program both
+   ways); ``run_dse()`` in full (both workloads at batch 2, two PE
+   samples a layer, 33 configurations) must hold every gate (logits
+   equal to ``apply``'s kernels, TULIP and MAC logits equal, PE
+   programs, Table III, the closed form, the run_torch twin, energy
+   ratio >= 3x) and equal the committed ``benchmarks/BENCH_dse.json``
+   (the calibration, Table III, both designs' metrics, the energy
+   ratios, every sweep row, both fronts) at rel_tol 1e-9; ``simulate``
+   of BinaryNet at batch 256 and AlexNet at batch 32 (integer images,
+   four PE samples a layer) must give ``apply``'s logits on the card bit
+   for bit, with seconds per simulate, peak device memory and the
+   device time split into the ``_exact_dot`` products, the oracle's
+   kernels and the rest.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6, 8 and 9, each counted from 0 just before it runs (a graph's
-replay counts the kernels its capture recorded).  Any failure raises and exits
+steps 3-6, 8, 9 and 10, each counted from 0 just before it runs (a
+graph's replay counts the kernels its capture recorded; in step 10 the
+simulator's oracle ``apply``).  Any failure raises and exits
 non-zero; no phase catches its own failure.  The last line is the
 device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
@@ -1943,6 +1961,277 @@ def train_path(launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# the TULIP model and its simulator                                    #
+# ------------------------------------------------------------------ #
+SIM_SERVED = (("BinaryNet", "binarynet", 256, 10, BINARYNET_PER_FORWARD),
+              ("AlexNet", "alexnet", 32, 1000, ALEXNET_PER_FORWARD))
+SIM_PE_SAMPLES = 4
+SIM_TREES = (9, 288, 1023)           # run_torch's programs, by fan-in
+SIM_PES = 256                        # the paper's chip
+DSE_REL_TOL = 1e-9
+DSE_GATES = ("oracle_bit_identical", "mac_logits_bit_identical",
+             "pe_programs_ok", "cycles_match_table3", "matches_closed_form",
+             "run_torch_crosschecked")
+# device kernel name -> group of a simulate's split: the oracle's port
+# kernels by symbol, then cuDNN's convs (whose names can hold "gemm"),
+# then cuBLAS's products, which are _exact_dot's
+SIM_ORACLE = "the oracle's port kernels"
+SIM_DOT = "_exact_dot products (cuBLAS, float32)"
+SIM_REST = "the rest (entry convs, patches, pools, casts, copies)"
+SIM_GROUPS = (*((f, SIM_ORACLE) for f in (
+    "pack_kernel", "packed_conv_kernel", "fused_mlp_kernel",
+    "popcount_gemm_kernel")),
+    *((f, SIM_REST) for f in ("convolve", "cudnn", "fft", "fprop",
+                              "flip_filter", "nchwToNhwc", "nhwcToNchw")),
+    *((f, SIM_DOT) for f in ("gemm", "gemv", "splitKreduce")))
+
+
+def sim_group(name):
+    for frag, group in SIM_GROUPS:
+        if frag in name:
+            return group
+    return SIM_REST
+
+
+def sim_device_split(fn):
+    """Device ms of one call of ``fn`` by ``sim_group``, from
+    torch.profiler (no warm-up: the call before it warmed up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.trace import _device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = sim_group(e.key)
+            split[g] = split.get(g, 0.0) + _device_us(e) / 1e3
+    return split
+
+
+def dse_equal(what, got, want):
+    """The port's DSE numbers against the committed artifact: floats
+    within DSE_REL_TOL, everything else equal."""
+    import math
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            dse_equal(f"{what}.{k}", got[k], want[k])
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} rows != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            dse_equal(f"{what}[{i}]", g, w)
+    elif isinstance(want, float):
+        if not math.isclose(got, want, rel_tol=DSE_REL_TOL):
+            raise AssertionError(f"{what}: {got!r} != {want!r}")
+    elif got != want:
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def pe_programs():
+    """run_torch on the card against run_numpy, on 256 PEs with random
+    product bits: the scheduled programs of 9, 288 and 1023 inputs,
+    without and with the on-PE compare; regs, outs and every cycle's
+    latched outputs identical; ms per program both ways."""
+    import numpy as np
+
+    from repro_torch.core.adder_tree import make_ext_inputs, schedule_tree
+    from repro_torch.core.tulip_pe import read_value, run_numpy, run_torch
+    rng = np.random.default_rng(0)
+    out = []
+    for n in SIM_TREES:
+        for thr in (None, (n + 1) // 2):
+            t0 = time.perf_counter()
+            sched = schedule_tree(n, threshold=thr)
+            sched_s = time.perf_counter() - t0
+            bits = rng.integers(0, 2, (SIM_PES, n))
+            ext = make_ext_inputs(sched.ext_layout, bits, sched.cycles)
+            t0 = time.perf_counter()
+            want = run_numpy(sched.program, ext, trace=True)
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+            run_torch(sched.program, ext, device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run_torch(sched.program, ext, device=DEVICE)
+            torch.cuda.synchronize()
+            torch_ms = (time.perf_counter() - t0) * 1e3
+            tag = f"run_torch, {n} inputs" + (f" >= {thr}" if thr else "")
+            for name, g, w in zip(("regs", "outs", "hist"), got, want):
+                if g.device.type != torch.device(DEVICE).type or \
+                        not np.array_equal(g.cpu().numpy(), w):
+                    raise AssertionError(f"{tag}: {name} differ from "
+                                         f"run_numpy's")
+            pc = read_value(want[0], sched.result_neuron, sched.result_bits)
+            ok = np.array_equal(pc, bits.sum(1))
+            if thr:
+                ok &= np.array_equal(
+                    want[2][:, sched.cmp_result_cycle, sched.cmp_neuron],
+                    (bits.sum(1) >= thr).astype(np.int32))
+            if not ok:
+                raise AssertionError(f"{tag}: the program's popcount or "
+                                     f"compare is wrong")
+            out.append(dict(n=n, threshold=thr, cycles=sched.cycles,
+                            pes=SIM_PES, torch_ms=torch_ms,
+                            numpy_ms=numpy_ms, schedule_s=sched_s))
+            print(f"{tag}: {sched.cycles} cycles on {SIM_PES} PEs, regs, "
+                  f"outs and hist identical to run_numpy; {torch_ms:.1f} "
+                  f"ms/program on the card, run_numpy {numpy_ms:.1f} ms; "
+                  f"scheduled in {sched_s:.2f} s")
+    return out
+
+
+def dse_run(launches):
+    """run_dse() in full on the card (both workloads at batch 2, two PE
+    samples a layer, the 33 configurations): every gate held, the oracle
+    launching each model's kernels once, and its model numbers equal to
+    the committed benchmarks/BENCH_dse.json."""
+    from repro_torch.kernels import _build
+    from repro_torch.sim.dse import MIN_ENERGY_RATIO, run_dse
+    bench = json.loads((ROOT / "benchmarks" / "BENCH_dse.json"
+                        ).read_text())["dse"]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_dse(log=lambda line: print(f"  run_dse: {line}"),
+                  device=DEVICE)
+    torch.cuda.synchronize()
+    dse_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    expect_launches("run_dse", counts, {
+        k: BINARYNET_PER_FORWARD.get(k, 0) + ALEXNET_PER_FORWARD.get(k, 0)
+        for k in counts})
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    dse = res["dse"]
+    for wl, ref in zip(dse["workloads"], bench["workloads"]):
+        for gate in DSE_GATES:
+            if wl[gate] is not True:
+                raise AssertionError(f"run_dse {wl['name']}: {gate} failed")
+        if not wl["energy_ratio_vs_mac"] >= MIN_ENERGY_RATIO:
+            raise AssertionError(f"run_dse {wl['name']}: energy ratio "
+                                 f"{wl['energy_ratio_vs_mac']}")
+        for key in ("name", "dataset", "batch", "pe_programs_checked",
+                    "table3", "tulip", "mac_baseline",
+                    "energy_ratio_vs_mac"):
+            dse_equal(f"{wl['name']}.{key}", wl[key], ref[key])
+    for key in ("calibration", "sweep", "pareto_fronts", "default_config",
+                "comparison_points", "min_energy_ratio"):
+        dse_equal(key, dse[key], bench[key])
+    ratios = {wl["name"]: wl["energy_ratio_vs_mac"]
+              for wl in dse["workloads"]}
+    print(f"run_dse on the card: {dse_s:.1f} s; every gate held "
+          f"({', '.join(DSE_GATES)}, energy ratio >= {MIN_ENERGY_RATIO}); "
+          f"calibration, Table III, both designs' metrics, energy ratios "
+          f"({', '.join(f'{k} {v:.3f}x' for k, v in ratios.items())}), "
+          f"{len(dse['sweep'])} sweep rows and both Pareto fronts equal to "
+          f"BENCH_dse.json (rel_tol {DSE_REL_TOL}); launches {counts}")
+    return dict(seconds=dse_s, energy_ratios=ratios, env=res["env"],
+                launches=counts)
+
+
+def sim_path(launches):
+    """Phase 10, the TULIP model and its simulator on the card:
+
+    1. ``run_torch`` against ``run_numpy`` on 256 PEs (``pe_programs``);
+    2. ``run_dse()`` in full (``dse_run``);
+    3. ``simulate`` at a serving size — BinaryNet at batch 256, AlexNet
+       at batch 32, integer images in [-3, 3], four PE samples a layer:
+       logits equal to ``apply``'s on the card bit for bit (the oracle
+       launches each model's kernels once), every gate held, the
+       measured P/Z equal to ``table3_rows``; seconds per simulate, peak
+       device memory, the host time of the sampler's draw over the
+       largest layer, the seconds of a simulate without the sampler
+       (``pe_samples=0``), and one more simulate's device time split by
+       torch.profiler into the ``_exact_dot`` products, the oracle's
+       port kernels and the rest."""
+    import numpy as np
+
+    from repro_torch import graph
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.kernels import _build
+    from repro_torch.sim import simulate
+    t_phase = time.perf_counter()
+    out = {"pe_programs": pe_programs(), "dse": dse_run(launches)}
+    for label, key, batch, classes, per_forward in SIM_SERVED:
+        cb = graph.compile(WORKLOADS[key], device=DEVICE, batch=batch)
+        params = cb.init(torch.Generator().manual_seed(0))
+        x = images(cb.spec, batch, seed=batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = simulate(cb, params, x, pe_samples=SIM_PE_SAMPLES, seed=0)
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(f"{label} simulate", counts, per_forward)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if r.logits.device.type != torch.device(DEVICE).type or \
+                r.logits.shape != (batch, classes) or \
+                not torch.isfinite(r.logits).all():
+            raise AssertionError(f"{label} simulate: bad logits")
+        if not (r.oracle_bit_identical and r.counts_match_mapping
+                and r.pe_programs_ok and r.run_torch_crosschecked
+                and torch.equal(r.logits, cb.apply(params, x))):
+            raise AssertionError(f"{label} simulate at batch {batch}: a "
+                                 f"gate failed (oracle "
+                                 f"{r.oracle_bit_identical}, counts "
+                                 f"{r.counts_match_mapping}, PE programs "
+                                 f"{r.pe_programs_ok})")
+        pz = {d["layer"]: (d["P"], d["Z"]) for d in r.conv_pz()}
+        if pz != {row["layer"]: (row["TULIP_P"], row["TULIP_Z"])
+                  for row in cb.table3_rows()}:
+            raise AssertionError(f"{label} simulate: P/Z differ from "
+                                 f"table3_rows")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        simulate(cb, params, x, pe_samples=0, seed=0)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        n_total = max(batch * nd.h_out * nd.w_out * nd.c_out
+                      for nd in cb.spec.conv_nodes
+                      if isinstance(nd, graph.BinaryConv))
+        t0 = time.perf_counter()
+        np.random.default_rng(0).choice(n_total, size=SIM_PE_SAMPLES,
+                                        replace=False)
+        draw_ms = (time.perf_counter() - t0) * 1e3
+
+        split = sim_device_split(lambda: simulate(
+            cb, params, x, pe_samples=SIM_PE_SAMPLES, seed=0))
+        device_ms = sum(split.values())
+        if not split.get(SIM_ORACLE) or not split.get(SIM_DOT):
+            raise AssertionError(f"{label} simulate: the profiler shows no "
+                                 f"device time of the oracle's kernels or "
+                                 f"of the products ({split})")
+        out[label] = dict(batch=batch, pe_samples=SIM_PE_SAMPLES,
+                          seconds=sim_s, seconds_without_pe_samples=bare_s,
+                          peak_mem_bytes=peak,
+                          launches=counts, pe_nodes_checked=r.pe_nodes_checked,
+                          draw_ms=draw_ms, draw_population=n_total,
+                          device_ms=device_ms, device_ms_by_group=split)
+        print(f"{label} simulate at batch {batch} ({SIM_PE_SAMPLES} PE "
+              f"samples a layer, {r.pe_nodes_checked} nodes through real "
+              f"programs): {sim_s:.2f} s, peak device memory "
+              f"{peak / 2**20:.1f} MiB, logits equal to apply's on the "
+              f"card, P/Z equal to table3_rows, launches {counts}; "
+              f"{bare_s:.3f} s without the PE sampler (pe_samples=0); the "
+              f"sampler's draw of {SIM_PE_SAMPLES} of {n_total} nodes "
+              f"{draw_ms:.3f} ms; device {device_ms:.3f} ms a simulate "
+              f"under the profiler:")
+        for g, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:10.3f} ms  {g}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the simulator phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -2105,6 +2394,7 @@ def main():
     stack_race = fused_vs_chained(rnd)
     dense = dense_path(rnd, launches)
     trained = train_path(launches)
+    simulated = sim_path(launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -2126,6 +2416,7 @@ def main():
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,
+         "sim": simulated,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@
     params = cb.init(torch.Generator().manual_seed(0))
     logits = cb.apply(params, images)
     print(cb.describe())                        # every lowering decision
+    rows = cb.tulip_mapping()                   # the ASIC schedule model
     g = graph.GraphedApply(cb, params, batch=256)  # one CUDA graph
     logits = g(images)
 """
@@ -14,7 +15,7 @@ from repro_torch.graph.compile import (CompiledBNN, compile,
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, IntegerEntry,
                                   Logits, MaxPool, from_dense_stack,
-                                  from_workload)
+                                  from_workload, spec_to_workload)
 from repro_torch.graph.passes import PlanStep, build_plan
 from repro_torch.graph.replay import GraphedApply
 
@@ -22,4 +23,4 @@ __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
            "BNThreshold", "CompiledBNN", "GraphedApply", "IntegerEntry",
            "Logits", "MaxPool", "PlanStep", "build_plan", "compile",
            "compile_dense_stack", "from_dense_stack", "from_workload",
-           "serve_folded_stack"]
+           "serve_folded_stack", "spec_to_workload"]

@@ -8,6 +8,9 @@ the hand-written Hopper kernels, with ``describe`` / ``launch_count``
 reference's on the same params (``repro_torch.convert`` carries them
 across).
 
+``tulip_mapping`` / ``table3_rows`` bridge the spec into the TULIP-PE
+mapping model (``core/mapping.py``), as the reference's do.
+
 The entry point runs on the card unless the caller asks for the CPU:
 ``compile(..., device=None)`` means ``"cuda"`` and raises on a host
 without one.  With ``device="cpu"`` every kernel wrapper takes its
@@ -15,7 +18,7 @@ plain torch version.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,9 +27,13 @@ from repro_torch.core.bnn_layers import (FoldedThreshold, binary_conv,
                                          binary_weight_conv,
                                          fold_to_channel_thresholds,
                                          maxpool_packed, sign_weight_conv)
+from repro_torch.core.mapping import (TULIP, YODANN, ArchParams, map_conv,
+                                     map_fc, table3_rows)
+from repro_torch.core.schedules import compare_fragment, maxpool_fragment
 from repro_torch.core.workloads import Workload
-from repro_torch.graph.ir import (BNNSpec, IntegerEntry, from_dense_stack,
-                                  from_workload)
+from repro_torch.graph.ir import (BinaryConv, BinaryDense, BNNSpec,
+                                  IntegerEntry, MaxPool, from_dense_stack,
+                                  from_workload, spec_to_workload)
 from repro_torch.graph.passes import PlanStep, build_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
@@ -265,6 +272,54 @@ class CompiledBNN:
         return {"layers": layers, "packed_bytes": packed,
                 "bf16_bytes": bf16,
                 "ratio_bf16_over_packed": bf16 / packed}
+
+    # -------------------------------------------------------------- #
+    def tulip_mapping(self, arch: ArchParams = TULIP) -> List[dict]:
+        """Bridge the spec into the TULIP-PE schedule model: one row
+        per mapped layer with the core/mapping.py LayerMapping (P, Z,
+        refetch product) plus representative core/schedules.py
+        fragment cycle counts (the bit-serial threshold compare for
+        binary nodes, the OR-reduce for pools)."""
+        wl = spec_to_workload(self.spec)
+        rows: List[dict] = []
+        conv_i = fc_i = 0
+        for nd in self.spec.nodes:
+            if isinstance(nd, (IntegerEntry, BinaryConv)):
+                m = map_conv(wl.conv[conv_i], arch)
+                conv_i += 1
+                rows.append({"node": nd.name, "kind": "conv",
+                             "mapping": m,
+                             "cmp_cycles": _cmp_cycles(m.node_inputs)
+                             if m.uses_pe else None})
+            elif isinstance(nd, BinaryDense):
+                m = map_fc(wl.fc[fc_i], arch)
+                fc_i += 1
+                rows.append({"node": nd.name, "kind": "dense",
+                             "mapping": m,
+                             "cmp_cycles": _cmp_cycles(m.node_inputs)
+                             if m.uses_pe else None})
+            elif isinstance(nd, MaxPool):
+                frag = maxpool_fragment(
+                    0, list(range(nd.window * nd.window)))
+                rows.append({"node": nd.name, "kind": "pool",
+                             "mapping": None,
+                             "pool_cycles": frag.n_cycles()})
+        return rows
+
+    def table3_rows(self, arch_a: ArchParams = YODANN,
+                    arch_b: ArchParams = TULIP) -> List[dict]:
+        """The paper's Table III straight from the spec — identical to
+        core.mapping.table3_rows on the source Workload."""
+        return table3_rows(spec_to_workload(self.spec), arch_a, arch_b)
+
+
+def _cmp_cycles(node_inputs: int) -> int:
+    """Cycles of the bit-serial comparator that applies the folded-BN
+    threshold to a ``node_inputs``-wide popcount sum (paper Fig 5(a)):
+    one cycle per accumulator bit + the carry reset."""
+    bits = min(16, node_inputs.bit_length() + 1)
+    return compare_fragment(0, 1, list(range(bits)),
+                            const=0).n_cycles()
 
 
 # ------------------------------------------------------------------ #

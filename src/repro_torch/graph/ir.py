@@ -22,6 +22,9 @@ Lowering entry points:
                     infer_pool, fc_entry_size)
   from_dense_stack  a fully-binary MLP stack -> BNNSpec
 
+and back: ``spec_to_workload`` (the spec's layers as the workloads.py
+dataclasses the TULIP mapping and energy model take).
+
 Specs are validated structurally (``BNNSpec.validate``): chain widths
 must match, the packed domain can only be left through Logits, integer
 layers cannot follow binary ones (a 1-bit activation cannot re-enter
@@ -40,7 +43,7 @@ from repro_torch.core.workloads import ConvLayer, FCLayer, Workload
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
            "BNThreshold", "IntegerEntry", "Logits", "MaxPool",
            "fc_entry_size", "from_dense_stack", "from_workload",
-           "infer_conv_geometry", "infer_pool"]
+           "infer_conv_geometry", "infer_pool", "spec_to_workload"]
 
 
 # ------------------------------------------------------------------ #
@@ -392,3 +395,24 @@ def from_dense_stack(k0: int, ns: Sequence[int],
     spec = BNNSpec(name, (k0,), tuple(nodes))
     spec.validate()
     return spec
+
+
+def spec_to_workload(spec: BNNSpec) -> Workload:
+    """The inverse bridge: IR conv/dense nodes back into the
+    workloads.py dataclasses the TULIP mapping/energy model consumes.
+    Guarantees ``compile(wl).tulip_mapping()`` sees exactly the layers
+    ``core.mapping.table3_rows(wl)`` does."""
+    conv, fc = [], []
+    for nd in spec.nodes:
+        if isinstance(nd, ConvNode):
+            if nd.kh != nd.kw:
+                raise ValueError(f"{nd.name}: the mapping model takes "
+                                 f"square kernels, got "
+                                 f"{nd.kh}x{nd.kw}")
+            conv.append(ConvLayer(
+                nd.name, nd.c_in, nd.c_out, nd.w_in, nd.h_in,
+                nd.w_out, nd.h_out, nd.kh,
+                integer=isinstance(nd, IntegerEntry), parts=nd.parts))
+        elif isinstance(nd, BinaryDense):
+            fc.append(FCLayer(nd.name, nd.n_in, nd.n_out))
+    return Workload(spec.name, spec.dataset, tuple(conv), tuple(fc))
