@@ -135,14 +135,43 @@
    four PE samples a layer) must give ``apply``'s logits on the card bit
    for bit, with seconds per simulate, peak device memory and the
    device time split into the ``_exact_dot`` products, the oracle's
-   kernels and the rest.
+   kernels and the rest;
+11. runs the LLM serving path (``repro_torch.models``,
+   ``repro_torch.launch.serve``) on the card: (a) the binary surface of
+   ``models.layers`` at qwen1.5-0.5b's and mixtral-8x22b's FFN widths
+   (1024/2816 and 6144/16384) on 512 rows — ``dense`` with a packed x
+   and ``packed_dense`` (one popcount_gemm launch each), the
+   ``packed_mlp`` shim over a d -> d_ff -> d_ff -> d stack (the launches
+   its plan gives: one fused_binary_mlp) — equal to the ``"torch"``
+   backend bit for bit, ms per call beside the bound; (b) all ten
+   reduced architectures in float32 (TF32 off): ``forward`` and
+   ``prefill`` logits on the card within 1e-4 x max|logit| of the
+   port's on the CPU, prefill + one decode step within it of the
+   forward; (c) qwen1.5-0.5b at its published config (24 layers,
+   vocab 151936, random bf16 params from a seeded generator) served by
+   ``Engine`` — 8 requests of 17-200 tokens on 4 slots, max_new 16,
+   capacity 256 — dense and packed: tokens/s, ms per prefill bucket,
+   ms per decode step, its device time and kernels (torch.profiler),
+   ``prefill_traces``, param bytes, peak memory, no port kernel
+   launched (the float x packed-weight products are unpack -> matmul,
+   as the reference's); then in float32 the packed prefill logits
+   within 1e-4 x max|logit| of the dense ones on the packed layout's
+   dense twin (the latent weights that are exactly 0, where the two
+   layouts differ by the reference's own sign rules, are counted), the
+   greedy tokens equal except at counted near-ties of the dense top
+   two; (d) mixtral-8x22b, falcon-mamba-7b, recurrentgemma-2b,
+   whisper-large-v3 and llama-3.2-vision-11b at full width, depth cut
+   (2, 2, 3, 2 + 2 encoder, 5 layers), float32: prefill + 4 decode
+   steps against the forward and packed against the dense twin within
+   1e-4 x max|logit|, peak memory; each model freed before the next.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6, 8, 9 and 10, each counted from 0 just before it runs (a
+steps 3-6, 8, 9, 10 and 11, each counted from 0 just before it runs (a
 graph's replay counts the kernels its capture recorded; in step 10 the
-simulator's oracle ``apply``).  Any failure raises and exits
-non-zero; no phase catches its own failure.  The last line is the
+simulator's oracle ``apply``; in step 11 the eight held calls of
+(a)).  Any failure raises and exits non-zero; no phase catches its own
+failure.  The last line is the
 device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
 ``chip_smoke.json`` in the output directory (see ``main``).
@@ -2232,6 +2261,550 @@ def sim_path(launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 11: the LLM serving path                                       #
+# ------------------------------------------------------------------ #
+LLM_ROWS = 512                      # rows of the binary-surface calls
+# (label, d_model, d_ff): the FFN widths the binary surface runs at
+LLM_FFN = (("qwen1.5-0.5b FFN", 1024, 2816),
+           ("mixtral-8x22b FFN", 6144, 16384))
+# float32 logits of two routes: |a - b| <= LLM_TOL * max|b| (the tests'
+# tolerance, tests/test_torch_models.py)
+LLM_TOL = 1e-4
+TWIN_TOL = 1e-6                     # alpha = mean|w|, summed in another order
+LLM_ARCH = "qwen1.5-0.5b"           # served at its published config
+SERVE_SLOTS, SERVE_CAPACITY, SERVE_MAX_NEW = 4, 256, 16
+SERVE_PROMPTS = (8, 17, 200)        # requests, shortest, longest prompt
+# one architecture per other family at its published width, depth cut
+FAMILY_CUTS = (("mixtral-8x22b", "MoE with SWA", dict(num_layers=2)),
+               ("falcon-mamba-7b", "SSM", dict(num_layers=2)),
+               ("recurrentgemma-2b", "hybrid", dict(num_layers=3)),
+               ("whisper-large-v3", "enc-dec",
+                dict(num_layers=2, encoder_layers=2)),
+               ("llama-3.2-vision-11b", "VLM", dict(num_layers=5)))
+FAMILY_PREFILL, FAMILY_DECODE = 16, 4
+
+
+def llm_close(what, got, want):
+    """float32 logits within LLM_TOL x max|want|; returns the ratio."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if err > LLM_TOL * scale:
+        raise AssertionError(f"{what}: max err {err:.3g} > {LLM_TOL} x "
+                             f"{scale:.3g}")
+    return err / scale
+
+
+def llm_kernels(rnd, launches):
+    """11(a): the binary surface of ``models.layers`` at LLM widths,
+    "cuda" against "torch" on the card, bit for bit: ``dense`` with a
+    PackedArray x (popcount_gemm, int32 dot x alpha), ``packed_dense``
+    (popcount_gemm with its pack epilogue) and the ``packed_mlp`` shim
+    (a three-layer d -> d_ff -> d_ff -> d stack through
+    ``compile_dense_stack``: fused_binary_mlp launches as its plan
+    says); ms per call through the entry point and the bound."""
+    from repro_torch.graph import compile_dense_stack
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.packed import PackedArray
+    from repro_torch.models import layers
+    out = []
+    m = LLM_ROWS
+    for label, d, dff in LLM_FFN:
+        xp = PackedArray.pack(rnd.normal(m, d))
+        hp = PackedArray.pack(rnd.normal(m, dff))
+        p_up = layers.pack_dense_params({"w": rnd.normal(d, dff)})
+        p_dn = layers.pack_dense_params({"w": rnd.normal(dff, d)})
+        t_up = rnd.ints(-40, 41, dff)
+        stack = [layers.pack_dense_params({"w": rnd.normal(k, n)})
+                 for k, n in ((d, dff), (dff, dff), (dff, d))]
+        ts = [rnd.ints(-40, 41, dff), 0, rnd.ints(-40, 41, d)]
+        plan = compile_dense_stack(d, [dff, dff, d], device=DEVICE,
+                                   batch=m).plan
+        want_stack = {"fused_binary_mlp": sum(s.kind == "fused_stack"
+                                              for s in plan),
+                      "popcount_gemm": sum(s.kind == "dense" for s in plan)}
+
+        def plain_dense(p, x):
+            s = kops.binary_binary_dense(x, p["wp"].move_pack_axis_last(),
+                                         backend="torch")
+            return s.to(p["alpha"].dtype) * p["alpha"]
+        calls = (
+            ("dense up", lambda: layers.dense(p_up, xp),
+             lambda: plain_dense(p_up, xp), m, d, dff, False,
+             {"popcount_gemm": 1}),
+            ("dense down", lambda: layers.dense(p_dn, hp),
+             lambda: plain_dense(p_dn, hp), m, dff, d, False,
+             {"popcount_gemm": 1}),
+            ("packed_dense up", lambda: layers.packed_dense(p_up, xp, t_up),
+             lambda: layers.packed_dense(p_up, xp, t_up, backend="torch"),
+             m, d, dff, True, {"popcount_gemm": 1}),
+            ("packed_mlp 3 layers", lambda: layers.packed_mlp(stack, xp, ts),
+             lambda: layers.packed_mlp(stack, xp, ts, backend="torch"),
+             m, d, None, True, want_stack))
+        for name, fn, plain, mm, k, n, words, per_call in calls:
+            tag = f"{label} {name} ({mm} rows)"
+            _build.reset_launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            expect_launches(tag, counts, per_call)
+            for key, v in counts.items():
+                launches[key] = launches.get(key, 0) + v
+            want = plain()
+            if words:
+                check_equal(tag, got.words, want.words)
+                if got.length != want.length:
+                    raise AssertionError(f"{tag}: length {got.length} vs "
+                                         f"{want.length}")
+            elif not torch.equal(got, want):
+                raise AssertionError(f"{tag}: differs from the torch "
+                                     f"backend")
+            ms = time_ms(fn, 20)
+            if n is None:        # the stack: three layers' words and ops
+                dims = ((d, dff), (dff, dff), (dff, d))
+                nbytes = sum(4 * (kk // 32) * nn for kk, nn in dims) \
+                    + 4 * mm * (d // 32 + d // 32)
+                ops = sum(2 * mm * kk * nn for kk, nn in dims)
+            else:
+                nbytes = 4 * (mm * k // 32 + n * k // 32) + (
+                    4 * mm * (n // 32) if words else 4 * mm * n)
+                ops = 2 * mm * k * n
+            b_ms, b_by = bound(nbytes, ops, B1_OPS)
+            out.append(dict(shape=label, call=name, rows=mm, ms=ms,
+                            bound_ms=b_ms, bound_by=b_by, launches=counts))
+            print(f"{tag}: equal to the torch backend bit for bit; "
+                  f"{ms:.4f} ms/call through the entry point, bound "
+                  f"{b_ms:.5f} ms ({b_by}); launches {counts}")
+    return out
+
+
+def llm_inputs(cfg, batch, seq, seed):
+    """Tokens (+ Whisper frames / image embeddings) from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq)))}
+    if cfg.is_encdec:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype("float32"))
+    elif cfg.frontend == "vision_patches":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.num_image_tokens, cfg.d_model)).astype("float32"))
+    return out
+
+
+def llm_decode_run(params, cfg, inp, s0, steps):
+    """forward over s0 + steps tokens, then prefill on s0 and ``steps``
+    decode steps; every logit the decode gives must agree with the
+    forward's at its position.  Returns (forward logits, prefill logits,
+    the worst ratio)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_apply
+    dev = params["embed"].device
+    batch = {k: v.to(dev) for k, v in inp.items()}
+    toks = batch["tokens"]
+    ctx = M._ctx_from_inputs(params, cfg, batch)
+    x, _, _ = M.forward(params, cfg, toks, ctx=ctx)
+    fwd = logits_apply(params.get("lm_head", params["embed"]), x, True)
+    pre = dict(batch, tokens=toks[:, :s0])
+    logits0, caches = M.prefill(params, cfg, pre,
+                                cache_capacity=s0 + steps)
+    worst = llm_close(f"{cfg.name} prefill vs forward", logits0,
+                      fwd[:, s0 - 1:s0])
+    for t in range(steps):
+        pos = s0 + t
+        dec, caches = M.decode_step(params, cfg, {
+            "tokens": toks[:, pos:pos + 1],
+            "step": torch.full((toks.shape[0],), pos, dtype=torch.int32,
+                               device=dev),
+            "caches": caches})
+        worst = max(worst, llm_close(f"{cfg.name} decode step {t}", dec,
+                                     fwd[:, pos:pos + 1]))
+    return fwd, logits0, worst
+
+
+def llm_reduced_archs(launches):
+    """11(b): all ten reduced architectures in float32 (TF32 off): the
+    card's forward and prefill logits against the port's on the CPU,
+    and on the card prefill + one decode step against the forward."""
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    out = {}
+    for name in ARCHS:
+        cfg = reduced(ARCHS[name]).replace(dtype="float32")
+        cpu = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        card = tree.map(lambda t: t.to(DEVICE), cpu)
+        inp = llm_inputs(cfg, 2, 13, seed=1)
+        _build.reset_launch_counts()
+        fwd, pre, dec_ratio = llm_decode_run(card, cfg, inp, 12, 1)
+        torch.cuda.synchronize()
+        expect_launches(f"{name} reduced", _build.launch_counts(), {})
+        fwd_cpu, pre_cpu, _ = llm_decode_run(cpu, cfg, inp, 12, 1)
+        r_fwd = llm_close(f"{name} forward card vs CPU", fwd, fwd_cpu)
+        r_pre = llm_close(f"{name} prefill card vs CPU", pre, pre_cpu)
+        out[name] = dict(forward_vs_cpu=r_fwd, prefill_vs_cpu=r_pre,
+                         decode_vs_forward=dec_ratio)
+        print(f"{name} reduced, float32: card vs CPU forward "
+              f"{r_fwd:.2e}, prefill {r_pre:.2e}; prefill + decode vs "
+              f"forward {dec_ratio:.2e} (x max|logit|, limit {LLM_TOL})")
+    return out
+
+
+def serve_timed(eng, reqs):
+    """Run the Engine with every prefill and decode call timed (host
+    clock, synchronised); returns (wall s, prefill ms by bucket, decode
+    ms per step)."""
+    pre_ms, dec_ms = {}, []
+    get_prefill, decode = eng._get_prefill, eng._decode
+
+    def timed_prefill(n):
+        fn = get_prefill(n)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            pre_ms.setdefault(n, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    def timed_decode(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = decode(*a)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+    eng._get_prefill, eng._decode = timed_prefill, timed_decode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs, log=lambda *_: None)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, pre_ms, dec_ms
+
+
+def step_split(fn):
+    """Device ms and kernels of one call of ``fn`` (torch.profiler over
+    three calls after a warm-up, ``repro_torch.trace``)."""
+    from repro_torch.trace import device_kernels, device_times
+    times = device_times(fn, iters=3)
+    out = {"device_ms": sum(times.values()) / 1e3,
+           "kernels": sum(device_kernels(fn).values())}
+    if DEVICE == "cuda" and not (out["kernels"] and out["device_ms"]):
+        raise AssertionError(f"the profiler shows no device time: {out}")
+    return out
+
+
+def serve_requests(cfg, max_new=None):
+    """SERVE_PROMPTS[0] prompts of numpy-seeded tokens, the shortest and
+    the longest length among them."""
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+    n, lo, hi = SERVE_PROMPTS
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, n)
+    lens[0], lens[1] = lo, hi
+    return [Request(i, rng.integers(0, cfg.vocab_size, int(s)
+                                    ).astype(np.int32),
+                    max_new or SERVE_MAX_NEW)
+            for i, s in enumerate(lens)]
+
+
+def llm_serve(launches):
+    """11(c): qwen1.5-0.5b at its published config (24 layers, d_model
+    1024, vocab 151936, tied embeddings), random bf16 params from a
+    seeded generator on the card, served by ``Engine`` — 8 requests of
+    17-200 tokens on 4 slots, max_new 16, capacity 256 — dense and
+    packed (after a short warm-up run each): tokens/s, ms per prefill
+    bucket, ms per decode step, prefill_traces, param bytes and peak
+    memory; the Engine launches none of the port's kernels (its float x
+    packed-weight products are unpack -> matmul, as the reference's).
+    Then in float32, the dense side on the packed layout's dense twin
+    (``packed_twin``; the exact-zero weights, where the two layouts
+    differ by the reference's own rules, are counted): packed and dense
+    prefill logits within LLM_TOL, and the greedy tokens equal except
+    where the dense run's top two logits lie within LLM_TOL
+    (teacher-forced through ``forward``): such steps are counted and
+    printed."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_apply
+    from repro_torch.models.quantize import pack_model_params
+    cfg = get_arch(LLM_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = M.init_params(gen, cfg, DEVICE)
+    out = {"arch": LLM_ARCH, "num_layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size}
+    for packed in (False, True):
+        tag = "packed" if packed else "dense"
+        warm = Engine(cfg, params, SERVE_SLOTS, SERVE_CAPACITY,
+                      packed=packed, device=DEVICE)
+        warm.run([Request(0, serve_requests(cfg)[0].prompt, 2)],
+                 log=lambda *_: None)
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng = Engine(cfg, params, SERVE_SLOTS, SERVE_CAPACITY,
+                     packed=packed, device=DEVICE)
+        reqs = serve_requests(cfg)
+        _build.reset_launch_counts()
+        wall, pre_ms, dec_ms = serve_timed(eng, reqs)
+        expect_launches(f"{LLM_ARCH} Engine {tag}", _build.launch_counts(),
+                        {})
+        peak = torch.cuda.max_memory_allocated()
+        tokens = sum(len(r.out) for r in reqs)
+        if any(len(r.out) != SERVE_MAX_NEW for r in reqs):
+            raise AssertionError(f"{tag}: a request came back short")
+        buckets = {n: sum(v) / len(v) for n, v in sorted(pre_ms.items())}
+        if eng.prefill_traces != len(buckets):
+            raise AssertionError(f"{tag}: {eng.prefill_traces} prefills "
+                                 f"built for {len(buckets)} buckets")
+        dec_sorted = sorted(dec_ms)
+        step_batch = {"tokens": torch.zeros((SERVE_SLOTS, 1), dtype=torch.long,
+                                            device=DEVICE),
+                      "step": torch.from_numpy(eng.steps.copy()).to(DEVICE),
+                      "caches": eng.caches}
+        split = step_split(lambda: M.decode_step(eng.params, cfg,
+                                                 step_batch))
+        out[tag] = dict(
+            tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+            prefill_ms_by_bucket=buckets, prefill_traces=eng.prefill_traces,
+            decode_steps=len(dec_ms), decode_ms_mean=sum(dec_ms) / len(dec_ms),
+            decode_ms_median=dec_sorted[len(dec_sorted) // 2],
+            param_bytes=eng.param_bytes, peak_mem_bytes=peak,
+            peak_above_base_bytes=peak - base, base_bytes=base,
+            decode_device_ms=split["device_ms"],
+            decode_kernels=split["kernels"],
+            out=[r.out for r in reqs])
+        print(f"{LLM_ARCH} Engine {tag} (bf16, {SERVE_SLOTS} slots, "
+              f"capacity {SERVE_CAPACITY}): {tokens} tokens in "
+              f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; prefill ms "
+              f"by bucket {({k: round(v, 3) for k, v in buckets.items()})}"
+              f" ({eng.prefill_traces} buckets built); decode "
+              f"{out[tag]['decode_ms_mean']:.3f} ms/step mean, "
+              f"{out[tag]['decode_ms_median']:.3f} median over "
+              f"{len(dec_ms)} steps ({split['device_ms']:.3f} ms of device "
+              f"and {split['kernels']} kernels a step under the profiler: "
+              f"busy {split['device_ms'] / out[tag]['decode_ms_median']:.3f}"
+              f"); params {eng.param_bytes / 2**20:.1f} "
+              f"MiB; peak device memory {peak / 2**20:.1f} MiB, "
+              f"{(peak - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB held before (the dense bf16 params)")
+        del eng
+    params = tree.map(lambda t: t.to(torch.float32), params)
+    cfg = cfg.replace(dtype="float32")
+    packed = pack_model_params(params)
+    twin, zeros = packed_twin(params, packed)
+    reqs = {}
+    worst = 0.0
+    for tag, p in (("dense", twin), ("packed", packed)):
+        reqs[tag] = serve_requests(cfg)
+        Engine(cfg, p, SERVE_SLOTS, SERVE_CAPACITY, device=DEVICE).run(
+            reqs[tag], log=lambda *_: None)
+    emb = twin["embed"]
+    raw = 0.0
+    for r in reqs["dense"]:
+        toks = torch.from_numpy(r.prompt).long().to(DEVICE)[None]
+        lg_d, _ = M.prefill(twin, cfg, {"tokens": toks}, SERVE_CAPACITY)
+        lg_p, _ = M.prefill(packed, cfg, {"tokens": toks}, SERVE_CAPACITY)
+        lg_l, _ = M.prefill(params, cfg, {"tokens": toks}, SERVE_CAPACITY)
+        worst = max(worst, llm_close(f"float32 prefill {r.rid} packed vs "
+                                     f"dense", lg_p, lg_d))
+        raw = max(raw, raw_vs_packed(f"float32 prefill {r.rid}", lg_p,
+                                     lg_l, zeros, cfg))
+    ties = []
+    for rd, rp in zip(reqs["dense"], reqs["packed"]):
+        j = next((i for i, (a, b) in enumerate(zip(rd.out, rp.out))
+                  if a != b), None)
+        if j is None:
+            continue
+        seq = torch.from_numpy(rd.prompt).long().tolist() + rd.out[:j]
+        x, _, _ = M.forward(twin, cfg, torch.tensor([seq], device=DEVICE))
+        lg = logits_apply(emb, x[:, -1], True)[0]
+        top2 = torch.topk(lg, 2).values
+        gap = float(top2[0] - top2[1])
+        if gap > LLM_TOL * float(lg.abs().max()):
+            raise AssertionError(f"float32 request {rd.rid}: packed and "
+                                 f"dense tokens differ at step {j} where "
+                                 f"the dense top-two gap is {gap:.3g}")
+        ties.append(dict(rid=rd.rid, step=j, gap=gap))
+    out["float32"] = dict(prefill_packed_vs_dense=worst, near_ties=ties,
+                          requests_equal=len(reqs["dense"]) - len(ties),
+                          zero_weights=zeros, prefill_packed_vs_latent=raw)
+    print(f"{LLM_ARCH} float32 ({zeros} latent weights exactly 0, served "
+          f"densely through the packed twin; packed vs the latent dense "
+          f"prefill {raw:.2e}): packed vs dense prefill logits "
+          f"{worst:.2e} x max|logit| (limit {LLM_TOL}); greedy tokens "
+          f"equal in {len(reqs['dense']) - len(ties)} of "
+          f"{len(reqs['dense'])} requests; {len(ties)} steps where the "
+          f"tokens part at a near-tie of the dense top two {ties}")
+    return out
+
+
+def packed_twin(dense, packed):
+    """The dense weights a packed tree encodes, and the count of exact
+    zeros among the packed latent weights.
+
+    Every packed projection becomes alpha * (+1 where w > 0, else -1)
+    in the latent layout: the dense path then computes what the packed
+    one does (mode "weights" recovers the same sign and alpha; mode
+    "none", recurrentgemma's ``gate_proj``, multiplies by it directly).
+    The two layouts differ in the reference too where a weight is
+    exactly 0 (``ste_sign(0)`` is +1, the pack bit of 0 is -1) and
+    where a packed key runs in mode "none": the count says how many
+    zeros there were.  Each twin is held against the latent weights
+    themselves (``check_twin``), so a wrong pack cannot pass as its own
+    comparand."""
+    if isinstance(dense, dict):
+        out, zeros = {}, 0
+        for k, v in dense.items():
+            if k + "_p" in packed:
+                alpha = packed[k + "_alpha"]
+                w = packed[k + "_p"].unpack(alpha.dtype)
+                out[k] = w * (alpha if alpha.ndim == w.ndim
+                              else alpha.unsqueeze(-2))
+                check_twin(k, v, out[k])
+                zeros += int((v == 0).sum())
+            else:
+                out[k], z = packed_twin(v, packed[k])
+                zeros += z
+        return out, zeros
+    if isinstance(dense, tuple):
+        pairs = [packed_twin(a, b) for a, b in zip(dense, packed)]
+        return tuple(t for t, _ in pairs), sum(z for _, z in pairs)
+    return dense, 0
+
+
+def check_twin(key, latent, twin):
+    """The twin of packed key ``key`` against what the pack must encode,
+    computed from the latent weights alone: mean|w| over the input axis
+    (-2) times (+1 where w > 0, else -1), within TWIN_TOL of alpha at
+    every weight.  Wrong bits, a wrong alpha axis or a wrong cycle slice
+    fail here.  One [K, N] matrix at a time, to keep the card's memory
+    for the model."""
+    if twin.shape != latent.shape:
+        raise AssertionError(f"twin of {key}: shape {tuple(twin.shape)} "
+                             f"vs latent {tuple(latent.shape)}")
+    lat = latent.reshape(-1, *latent.shape[-2:])
+    tw = twin.reshape(-1, *twin.shape[-2:])
+    for i in range(lat.shape[0]):
+        w = lat[i].to(torch.float32)
+        alpha = w.abs().mean(dim=-2, keepdim=True)
+        want = torch.where(w > 0, alpha, -alpha)
+        err = (tw[i].to(torch.float32) - want).abs()
+        if bool((err > TWIN_TOL * alpha).any()):
+            raise AssertionError(
+                f"twin of {key}[{i}] disagrees with sign(w) x mean|w| of "
+                f"the latent weights: max err {float(err.max()):.3g}")
+
+
+def raw_vs_packed(what, packed_logits, dense_logits, zeros, cfg):
+    """Packed against the latent dense logits: within LLM_TOL when no
+    latent weight is exactly 0 and no packed projection runs in mode
+    "none" (recurrentgemma's ``gate_proj``): then the twin is the latent
+    weights' own sign and alpha.  Otherwise the ratio is only
+    reported."""
+    if zeros == 0 and "rglru" not in cfg.pattern_for_layers():
+        return llm_close(f"{what} packed vs latent dense", packed_logits,
+                         dense_logits)
+    err = (packed_logits.float() - dense_logits.float()).abs().max()
+    return float(err / dense_logits.float().abs().max())
+
+
+def llm_families(launches):
+    """11(d): one architecture per other family at its published width,
+    the depth cut (FAMILY_CUTS), float32: prefill on 16 tokens + 4
+    decode steps against the forward, then the packed forward against
+    its dense twin (``packed_twin``: the zero weights counted); each
+    model freed before the next."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_apply
+    from repro_torch.models.quantize import pack_model_params
+    out = {}
+    for name, family, cut in FAMILY_CUTS:
+        full = get_arch(name)
+        cfg = full.replace(dtype="float32", **cut)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(
+            torch.Generator(device=DEVICE).manual_seed(0), cfg, DEVICE)
+        inp = llm_inputs(cfg, 2, FAMILY_PREFILL + FAMILY_DECODE, seed=3)
+        _build.reset_launch_counts()
+        raw, _, dec_ratio = llm_decode_run(params, cfg, inp, FAMILY_PREFILL,
+                                           FAMILY_DECODE)
+        expect_launches(f"{name} cut", _build.launch_counts(), {})
+        packed = pack_model_params(params)
+        twin, zeros = packed_twin(params, packed)
+        del params
+        batch = {k: v.to(DEVICE) for k, v in inp.items()}
+        logits = {}
+        for tag, p in (("twin", twin), ("packed", packed)):
+            x, _, _ = M.forward(p, cfg, batch["tokens"],
+                                ctx=M._ctx_from_inputs(p, cfg, batch))
+            logits[tag] = logits_apply(p.get("lm_head", p["embed"]), x,
+                                       True)
+            del x
+        del twin
+        got, fwd = logits["packed"], logits["twin"]
+        pk_ratio = llm_close(f"{name} packed vs dense", got, fwd)
+        raw_ratio = raw_vs_packed(f"{name}", got, raw, zeros, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        secs = time.perf_counter() - t0
+        del packed, got, fwd, logits, raw
+        torch.cuda.empty_cache()
+        depth = {k: (v, getattr(full, k)) for k, v in cut.items()}
+        out[name] = dict(family=family, depth_cut=depth,
+                         decode_vs_forward=dec_ratio,
+                         packed_vs_dense=pk_ratio, zero_weights=zeros,
+                         packed_vs_latent_dense=raw_ratio,
+                         peak_mem_bytes=peak, seconds=secs)
+        print(f"{name} ({family}) at full width, float32, depth cut "
+              + ", ".join(f"{k} {v} of {p}" for k, (v, p) in depth.items())
+              + f": prefill + {FAMILY_DECODE} decode steps vs forward "
+              f"{dec_ratio:.2e}, packed vs its dense twin {pk_ratio:.2e} "
+              f"x max|logit| (limit {LLM_TOL}; {zeros} latent weights "
+              f"exactly 0; against the latent dense forward "
+              f"{raw_ratio:.2e}); peak device memory "
+              f"{peak / 2**30:.2f} GiB; {secs:.1f} s")
+    return out
+
+
+def llm_path(rnd, launches):
+    """Phase 11, the LLM serving path on the card: (a) the binary
+    surface at LLM widths (``llm_kernels``), (b) the ten reduced
+    architectures against the CPU (``llm_reduced_archs``), (c)
+    qwen1.5-0.5b served at its published config (``llm_serve``), (d)
+    one model per other family at full width (``llm_families``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {"kernels": llm_kernels(rnd, launches),
+           "reduced": llm_reduced_archs(launches),
+           "serve": llm_serve(launches),
+           "families": llm_families(launches)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the LLM phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -2395,6 +2968,7 @@ def main():
     dense = dense_path(rnd, launches)
     trained = train_path(launches)
     simulated = sim_path(launches)
+    llm = llm_path(rnd, launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -2416,7 +2990,7 @@ def main():
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,
-         "sim": simulated,
+         "sim": simulated, "llm": llm,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

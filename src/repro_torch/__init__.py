@@ -11,4 +11,8 @@ wrapper takes its plain torch version.
     cb = graph.compile(binarynet_cifar10())          # device="cuda"
     params = cb.init(torch.Generator().manual_seed(0))
     logits = cb.apply(params, images)                # [N, 10] float32
+
+The LLM side (ten architectures with binarized projections, packed
+serving weights and a decode engine): ``repro_torch.configs``,
+``repro_torch.models`` and ``repro_torch.launch.serve.Engine``.
 """

@@ -25,8 +25,10 @@ from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.ops import (binarize_pack, binary_binary_dense,
                                      binary_conv2d, binary_dense)
 from repro_torch.kernels.packed import (BackendSpec, PackedArray,
-                                        get_backend, register_backend)
+                                        default_backend, get_backend,
+                                        register_backend)
 
 __all__ = ["BackendSpec", "PackedArray", "binarize_pack",
            "binary_binary_dense", "binary_conv2d", "binary_dense",
-           "fused_binary_mlp", "get_backend", "register_backend"]
+           "default_backend", "fused_binary_mlp", "get_backend",
+           "register_backend"]

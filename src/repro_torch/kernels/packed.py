@@ -9,7 +9,11 @@ The PyTorch counterpart of ``repro.kernels.packed``:
   negative so added leading dims never shift it), and the value
   semantics ({-1,+1} vs {0,1}).
 * ``BackendSpec`` registry: ``"cuda"`` runs the hand-written Hopper
-  kernels (``kernels/csrc``), ``"torch"`` runs the plain versions.
+  kernels (``kernels/csrc``), ``"torch"`` runs the plain versions;
+  ``default_backend()`` is ``"cuda"``.
+* ``adopt_packed`` (raw legacy words -> PackedArray, one deprecation
+  warning per call site) and ``tree_nbytes`` (a params tree's bytes,
+  packed words as stored), for the LLM side.
 
 Words travel as ``torch.int32`` tensors holding the uint32 bit pattern:
 torch's CPU uint32 tensors implement neither ``~`` nor the shifts.  On
@@ -24,10 +28,13 @@ convention) and every consumer corrects for them through the logical
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import warnings
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch import tree as _tree
 
 PM1 = "pm1"        # bit 1 <-> +1, bit 0 <-> -1
 ZERO_ONE = "01"    # bit is the value
@@ -190,6 +197,41 @@ class PackedArray:
 
 
 # ------------------------------------------------------------------ #
+# legacy raw-words adoption                                            #
+# ------------------------------------------------------------------ #
+_RAW_WORDS_WARNED: set = set()
+
+
+def adopt_packed(a: Union[PackedArray, torch.Tensor],
+                 length: Optional[int] = None, axis: int = -1,
+                 context: str = "packed operand") -> PackedArray:
+    """THE adoption point for legacy raw-word operands.
+
+    A PackedArray passes through unchanged (its recorded length is
+    cross-checked against an explicit ``length``).  Raw int32 words are
+    wrapped into a PackedArray over ``axis`` with the given logical
+    ``length`` (every bit of the words by default), after ONE
+    DeprecationWarning per call-site ``context``: raw words carry no
+    layout metadata."""
+    if isinstance(a, PackedArray):
+        if length is not None and a.length != length:
+            raise ValueError(f"{context}: explicit length={length} "
+                             f"disagrees with "
+                             f"PackedArray.length={a.length}")
+        return a
+    if context not in _RAW_WORDS_WARNED:
+        _RAW_WORDS_WARNED.add(context)
+        warnings.warn(
+            f"{context}: raw packed words are deprecated — wrap them in "
+            f"a PackedArray (repro_torch.kernels.packed) so the logical "
+            f"length and pack axis travel with the words",
+            DeprecationWarning, stacklevel=3)
+    if length is None:
+        length = 32 * a.shape[axis]
+    return PackedArray(a, length=length, axis=axis)
+
+
+# ------------------------------------------------------------------ #
 # backend registry                                                     #
 # ------------------------------------------------------------------ #
 @dataclasses.dataclass(frozen=True)
@@ -221,8 +263,16 @@ register_backend(BackendSpec("torch", uses_kernels=False))
 DEFAULT_BACKEND = "cuda"
 
 
+def default_backend() -> str:
+    """The backend taken when the caller names none: always ``"cuda"``
+    (whose wrappers take their plain versions for a CPU tensor).  The
+    ``"torch"`` backend runs only where a caller names it, never because
+    no card was found."""
+    return DEFAULT_BACKEND
+
+
 def get_backend(name: Optional[str] = None) -> BackendSpec:
-    name = name or DEFAULT_BACKEND
+    name = name or default_backend()
     try:
         return _BACKENDS[name]
     except KeyError:
@@ -239,3 +289,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the card "
                            "unless the caller passes device='cpu'")
     return dev
+
+
+# ------------------------------------------------------------------ #
+# small tree utilities                                                 #
+# ------------------------------------------------------------------ #
+def tree_nbytes(tree: Any) -> int:
+    """Total bytes of all tensor leaves (a PackedArray counts its words:
+    the device-memory footprint, not the logical unpacked one)."""
+    total = 0
+    for leaf in _tree.leaves(tree):
+        if isinstance(leaf, PackedArray):
+            leaf = leaf.words
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total

@@ -324,7 +324,13 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "core/isa.py", "core/threshold.py", "core/schedules.py",
                    "core/adder_tree.py", "core/tulip_pe.py",
                    "core/mapping.py", "core/energy.py", "sim/__init__.py",
-                   "sim/mesh.py", "sim/simulator.py", "sim/dse.py"):
+                   "sim/mesh.py", "sim/simulator.py", "sim/dse.py",
+                   "configs/base.py", "configs/registry.py",
+                   "configs/qwen15_05b.py", "models/layers.py",
+                   "models/attention.py", "models/moe.py", "models/ssm.py",
+                   "models/rglru.py", "models/transformer.py",
+                   "models/quantize.py", "models/model.py",
+                   "launch/serve.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
