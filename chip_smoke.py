@@ -163,11 +163,35 @@
    whisper-large-v3 and llama-3.2-vision-11b at full width, depth cut
    (2, 2, 3, 2 + 2 encoder, 5 layers), float32: prefill + 4 decode
    steps against the forward and packed against the dense twin within
-   1e-4 x max|logit|, peak memory; each model freed before the next.
+   1e-4 x max|logit|, peak memory; each model freed before the next;
+12. runs the LLM training path (``repro_torch.launch.train``,
+   ``models.loss_fn``, ``chunked_xent``, remat) on the card, under
+   deterministic algorithms: (a) all ten reduced architectures in
+   float32, batch 2 x seq 16, the same params on the card and the CPU:
+   one ``make_train_step``'s loss within 1e-5 (relative), every grad
+   leaf within 1e-4 x max|g|, and on the card remat "full" and "dots"
+   against "none" (bit for bit, or the largest difference printed and
+   held to 1e-4 x max|g|); (b) qwen1.5-0.5b at its published config
+   (24 layers, d_model 1024, d_ff 2816, vocab 151936, bf16) with
+   logits_chunk 8192 and remat "full", global batch 8 x seq 512,
+   through ``train``: 4 uninterrupted steps, then a run cut at 2
+   (checkpoints every 2 in a temporary directory) and resumed to 4,
+   whose losses, params and opt state must equal the uninterrupted
+   run's bit for bit; prints the median step wall ms, device ms, busy
+   share, kernels a step and the device time by group (torch.profiler),
+   peak device memory, one checkpoint's size and save / restore
+   seconds; (c) one loss + backward at that shape with logits_chunk
+   8192 against 0: the peak must fall by at least half the full
+   float32 logits (2.49 GB); remat "full" / "dots" against "none"
+   printed; (d) ``examples/train_bnn_lm.py``'s run (4 layers, d_model
+   128, vocab 2048, float32, batch 8 x seq 128, 200 steps, lr 1e-3):
+   the mean loss of the last 10 steps below the first 10's.  No port
+   kernel runs on this path (each part expects none).
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6, 8, 9, 10 and 11, each counted from 0 just before it runs (a
+steps 3-6, 8, 9, 10 and 11, each counted from 0 just before it runs
+(step 12 launches none) (a
 graph's replay counts the kernels its capture recorded; in step 10 the
 simulator's oracle ``apply``; in step 11 the eight held calls of
 (a)).  Any failure raises and exits non-zero; no phase catches its own
@@ -176,8 +200,10 @@ device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
 ``chip_smoke.json`` in the output directory (see ``main``).
 """
+import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2805,6 +2831,367 @@ def llm_path(rnd, launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 12: the LLM training path                                      #
+# ------------------------------------------------------------------ #
+LT_B, LT_S = 2, 16                  # 12a's batch
+LT_LOSS_TOL = 1e-5                  # float32 loss, card vs CPU, relative
+LT_GRAD_TOL = 1e-4                  # float32 grads: x max|g| of each leaf
+# 12b / 12c: qwen1.5-0.5b at its published config, the logits chunk that
+# the reference's dryrun.build_cell sets for a vocab >= 65536
+FULL_BATCH, FULL_SEQ, FULL_CHUNK = 8, 512, 8192
+FULL_STEPS, FULL_CUT, FULL_TIMED = 4, 2, 5
+# 12d: examples/train_bnn_lm.py's config and run
+EXAMPLE_CUT = dict(dtype="float32", num_layers=4, d_model=128, d_ff=384,
+                   name="bnn-lm-small")
+EXAMPLE_RUN = dict(steps=200, global_batch=8, seq_len=128, lr=1e-3,
+                   ckpt_every=50, log_every=20)
+# device kernel name -> group of a training step's split (the first
+# fragment a name holds decides)
+LT_GROUPS = (("gemm", "cuBLAS matmuls"), ("xmma", "cuBLAS matmuls"),
+             ("cutlass", "cuBLAS matmuls"),
+             ("direct_copy", "casts and copies"),
+             ("Memcpy", "casts and copies"),
+             ("FillFunctor", "fills"), ("Memset", "fills"),
+             ("reduce", "reductions (norms, softmax, loss, grad norm)"),
+             ("index", "index, gather, scatter, sort"),
+             ("gather", "index, gather, scatter, sort"),
+             ("scatter", "index, gather, scatter, sort"),
+             ("sort", "index, gather, scatter, sort"),
+             ("CatArray", "cat, stack"),
+             ("elementwise", "other elementwise (add, mul, where, exp, "
+              "casts fused in)"))
+
+
+def lt_group(name):
+    for frag, group in LT_GROUPS:
+        if frag in name:
+            return group
+    return "other"
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def lt_batch(cfg, batch, seq, seed):
+    """A numpy-seeded token batch (+ Whisper frames / image embeddings)
+    as int64 tokens and targets on the host."""
+    inp = llm_inputs(cfg, batch, seq + 1, seed)
+    toks = inp.pop("tokens").long()
+    return dict(inp, tokens=toks[:, :-1], targets=toks[:, 1:])
+
+
+def on(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def grads_ratio(what, got, want, tol):
+    """The worst leaf's max|got - want| / max|want|, held to ``tol``."""
+    from repro_torch import tree
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree.leaves(got), tree.leaves(want))):
+        a, b = a.float().cpu(), b.float().cpu()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{what} leaf {i}: shape {tuple(a.shape)} "
+                                 f"vs {tuple(b.shape)} or non-finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if err > tol * scale:
+            raise AssertionError(f"{what} leaf {i}: max err {err:.3g} > "
+                                 f"{tol} x {scale:.3g}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def bits_equal(a, b):
+    """Two trees equal bit for bit (bf16 compared as its int16 bits)."""
+    from repro_torch import tree
+
+    def b16(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    fa, ta = tree.flatten(a)
+    fb, tb = tree.flatten(b)
+    return ta == tb and all(x.dtype == y.dtype and torch.equal(b16(x), b16(y))
+                            for x, y in zip(fa, fb))
+
+
+def llm_train_reduced():
+    """12a: all ten reduced architectures in float32 (TF32 off), the
+    same params (a CPU generator) on the card and on the CPU: one
+    ``make_train_step``'s loss within LT_LOSS_TOL, ``loss_and_grads``'s
+    every grad leaf within LT_GRAD_TOL x max|g|; on the card remat
+    "full" and "dots" against "none" (bit for bit, or the largest
+    difference printed and held to LT_GRAD_TOL).  The params after the
+    step are printed, not held: a first AdamW step is about lr x
+    sign(g), which a rounding-sized difference flips where g is near
+    0."""
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    out = {}
+    for name in ARCHS:
+        cfg = reduced(ARCHS[name]).replace(dtype="float32")
+        cpu = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        card = tree.map(lambda t: t.to(DEVICE), cpu)
+        batch = lt_batch(cfg, LT_B, LT_S, seed=2)
+        step = make_train_step(cfg, opt_cfg)
+        _build.reset_launch_counts()
+        p_g, _, m_g = step(card, adamw.init(card), on(batch, DEVICE))
+        _, g_g = loss_and_grads(card, cfg, on(batch, DEVICE))
+        remat = {}
+        for r in ("full", "dots"):
+            _, g_r = loss_and_grads(card, cfg.replace(remat=r),
+                                    on(batch, DEVICE))
+            remat[r] = 0.0 if bits_equal(g_r, g_g) else grads_ratio(
+                f"{name} remat {r} vs none", g_r, g_g, LT_GRAD_TOL)
+        sync()
+        expect_launches(f"{name} train step", _build.launch_counts(), {})
+        p_c, _, m_c = step(cpu, adamw.init(cpu), batch)
+        _, g_c = loss_and_grads(cpu, cfg, batch)
+        lg, lc = float(m_g["loss"]), float(m_c["loss"])
+        r_loss = abs(lg - lc) / abs(lc)
+        if r_loss > LT_LOSS_TOL or lg != lg:
+            raise AssertionError(f"{name}: loss on the card {lg} vs CPU "
+                                 f"{lc}")
+        r_grad = grads_ratio(f"{name} grads card vs CPU", g_g, g_c,
+                             LT_GRAD_TOL)
+        r_step = max(float((a.cpu() - b).abs().max()) for a, b in
+                     zip(tree.leaves(p_g), tree.leaves(p_c)))
+        out[name] = dict(loss=lg, loss_vs_cpu=r_loss, grads_vs_cpu=r_grad,
+                         params_after_step_max_abs_diff=r_step,
+                         remat_vs_none=remat)
+        print(f"{name} reduced, float32, B={LT_B} S={LT_S}: loss {lg:.6f}, "
+              f"card vs CPU {r_loss:.2e} (limit {LT_LOSS_TOL}); grads "
+              f"{r_grad:.2e} x max|g| (limit {LT_GRAD_TOL}); params after "
+              f"the step max |diff| {r_step:.3g}; remat full / dots vs "
+              f"none on the card "
+              + " / ".join("bit for bit" if v == 0 else f"{v:.2e}"
+                           for v in remat.values()))
+    return out
+
+
+def llm_train_full():
+    """12b: qwen1.5-0.5b at its published config (24 layers, d_model
+    1024, d_ff 2816, vocab 151936, bf16), logits_chunk 8192, remat
+    "full", global batch 8 x seq 512, through ``launch.train.train``: 4
+    uninterrupted steps, then a run cut at 2 (checkpoint every 2, into a
+    temporary directory) and resumed to 4: its losses, params and opt
+    state equal the uninterrupted run's bit for bit.  Then FULL_TIMED
+    steps timed on the host clock (median), one step's device time,
+    kernels and groups under torch.profiler, peak device memory of the
+    uninterrupted run, and one checkpoint's size and save / restore
+    seconds.  No port kernel runs on this path."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.optim import adamw
+    from repro_torch.trace import device_kernels, device_times
+    cfg = get_arch(LLM_ARCH).replace(logits_chunk=FULL_CHUNK, remat="full")
+    logs = []
+    kw = dict(steps=FULL_STEPS, global_batch=FULL_BATCH, seq_len=FULL_SEQ,
+              device=DEVICE, log_every=1, log_fn=logs.append)
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = train(cfg, **kw)
+    sync()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as d:
+        cut = train(cfg, ckpt_dir=d, ckpt_every=FULL_CUT, run_steps=FULL_CUT,
+                    **kw)
+        res = train(cfg, ckpt_dir=d, ckpt_every=FULL_CUT, **kw)
+    sync()
+    expect_launches(f"{LLM_ARCH} training", _build.launch_counts(), {})
+    losses = cut["losses"] + res["losses"]
+    if losses != ref["losses"] or any(x != x for x in losses):
+        raise AssertionError(f"resumed losses {losses} vs uninterrupted "
+                             f"{ref['losses']}")
+    if not bits_equal((res["params"], res["opt_state"]),
+                      (ref["params"], ref["opt_state"])):
+        raise AssertionError("the resumed params / opt state differ from "
+                             "the uninterrupted run's")
+    del cut, res
+    params, opt = ref["params"], ref["opt_state"]
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=max(FULL_STEPS, 2),
+                                warmup_steps=max(2, FULL_STEPS // 10))
+    step_fn = make_train_step(cfg, opt_cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=FULL_SEQ,
+                      global_batch=FULL_BATCH)
+    batch = {k: torch.from_numpy(v).to(DEVICE).long()
+             for k, v in global_batch_at(dcfg, FULL_STEPS).items()}
+    wall = []
+    for _ in range(FULL_TIMED):
+        sync()
+        t0 = time.perf_counter()
+        _, _, met = step_fn(params, opt, batch)
+        float(met["loss"])
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(wall)[len(wall) // 2]
+    times = device_times(lambda: step_fn(params, opt, batch), iters=1)
+    kernels = sum(device_kernels(lambda: step_fn(params, opt, batch)
+                                 ).values())
+    device_ms = sum(times.values()) / 1e3
+    if DEVICE == "cuda" and not (kernels and device_ms):
+        raise AssertionError("the profiler shows no device time of a step")
+    groups = {}
+    for k, us in times.items():
+        groups[lt_group(k)] = groups.get(lt_group(k), 0.0) + us
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:15]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as d:
+        t0 = time.perf_counter()
+        path = save(d, FULL_STEPS, (params, opt))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        (p2, o2), _ = restore(d, (params, opt))
+        sync()
+        restore_s = time.perf_counter() - t0
+        if not bits_equal((p2, o2), (params, opt)):
+            raise AssertionError("the restored checkpoint differs")
+        del p2, o2
+    out = dict(arch=LLM_ARCH, num_layers=cfg.num_layers,
+               d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+               dtype=cfg.dtype, logits_chunk=FULL_CHUNK, remat="full",
+               batch=FULL_BATCH, seq=FULL_SEQ, losses=ref["losses"],
+               resume_bit_identical=True, run_s=run_s,
+               step_wall_ms=wall, step_wall_ms_median=wall_ms,
+               step_device_ms=device_ms, busy=device_ms / wall_ms,
+               kernels_per_step=kernels,
+               device_us_by_group=dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])),
+               top_kernels_us=dict(top), peak_mem_bytes=peak,
+               base_bytes=base, ckpt_bytes=nbytes, ckpt_save_s=save_s,
+               ckpt_restore_s=restore_s,
+               straggler_events=ref["straggler_events"], log=logs)
+    print(f"{LLM_ARCH} training at its published config (bf16, "
+          f"logits_chunk {FULL_CHUNK}, remat full, batch {FULL_BATCH} x "
+          f"seq {FULL_SEQ}): losses {[round(x, 4) for x in ref['losses']]}"
+          f"; cut at {FULL_CUT} and resumed: losses, params and opt state "
+          f"equal the uninterrupted run's bit for bit; step "
+          f"{wall_ms:.1f} ms median of {FULL_TIMED} (host clock; "
+          f"{[round(x, 1) for x in wall]}), {device_ms:.1f} ms of device "
+          f"and {kernels} kernels a step under the profiler: busy "
+          f"{device_ms / wall_ms:.3f}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; checkpoint {nbytes / 2**30:.2f} GiB, "
+          f"save {save_s:.2f} s, restore {restore_s:.2f} s; "
+          f"{run_s:.1f} s for the uninterrupted run")
+    print("  device us a step by group: " + ", ".join(
+        f"{g} {us:.0f}" for g, us in out["device_us_by_group"].items()))
+    return out, params, batch
+
+
+def settle():
+    """Free what earlier work left to the cyclic collector, so a peak
+    measured from here counts only what follows."""
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+
+
+def peak_of(fn):
+    """Peak device bytes above those held before ``fn`` runs."""
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    sync()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def llm_train_memory(params, batch):
+    """12c: at 12b's shape, one ``loss_and_grads`` with logits_chunk 8192
+    against 0 must lower the peak by at least half the full float32
+    logits ([8, 512, 151936]); remat "full" / "dots" against "none"
+    printed, not held."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import loss_and_grads
+    cfg = get_arch(LLM_ARCH).replace(logits_chunk=FULL_CHUNK, remat="full")
+    logits = FULL_BATCH * FULL_SEQ * params["embed"].shape[0] * 4
+    peaks = {}
+    chunked = f"chunk {FULL_CHUNK}, remat full"
+    for tag, c in ((chunked, cfg),
+                   ("chunk 0, remat full", cfg.replace(logits_chunk=0)),
+                   (f"chunk {FULL_CHUNK}, remat none",
+                    cfg.replace(remat="none")),
+                   (f"chunk {FULL_CHUNK}, remat dots",
+                    cfg.replace(remat="dots"))):
+        peaks[tag] = peak_of(lambda: loss_and_grads(params, c, batch))
+    gap = peaks["chunk 0, remat full"] - peaks[chunked]
+    if gap < logits / 2:
+        raise AssertionError(f"the chunked loss lowers the peak by "
+                             f"{gap / 2**30:.2f} GiB, less than half the "
+                             f"{logits / 2**30:.2f} GiB of full logits")
+    print(f"{LLM_ARCH} loss + backward peak above the params: "
+          + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items())
+          + f"; the chunked loss saves {gap / 2**30:.2f} GiB (full float32 "
+          f"logits {logits / 2**30:.2f} GiB)")
+    return dict(peak_bytes=peaks, chunk_saves_bytes=gap,
+                full_logits_bytes=logits)
+
+
+def llm_train_example():
+    """12d: ``examples/train_bnn_lm.py``'s run (qwen family, 4 layers,
+    d_model 128, d_ff 384, vocab 2048, float32; batch 8 x seq 128, 200
+    steps, lr 1e-3, a checkpoint every 50): the mean loss of the last 10
+    steps below that of the first 10."""
+    import tempfile
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.train import train
+    cfg = reduced(get_arch(LLM_ARCH), vocab=2048).replace(**EXAMPLE_CUT)
+    logs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as d:
+        t0 = time.perf_counter()
+        out = train(cfg, ckpt_dir=d, device=DEVICE, log_fn=logs.append,
+                    **EXAMPLE_RUN)
+        secs = time.perf_counter() - t0
+    first = sum(out["losses"][:10]) / 10
+    last = sum(out["losses"][-10:]) / 10
+    if not last < first:
+        raise AssertionError(f"the example's loss did not fall: {first} -> "
+                             f"{last}")
+    print(f"{cfg.name} ({EXAMPLE_RUN['steps']} steps, batch "
+          f"{EXAMPLE_RUN['global_batch']} x seq {EXAMPLE_RUN['seq_len']}): "
+          f"mean loss of the first 10 steps {first:.4f} -> last 10 "
+          f"{last:.4f}; {secs:.1f} s, "
+          f"{secs / EXAMPLE_RUN['steps'] * 1e3:.1f} ms a step")
+    return dict(first10=first, last10=last, seconds=secs,
+                losses=out["losses"], log=logs)
+
+
+def llm_train_path(launches):
+    """Phase 12, the LLM training path on the card: (a) the ten reduced
+    architectures' step against the CPU and remat against none
+    (``llm_train_reduced``), (b) qwen1.5-0.5b trained at its published
+    config, cut and resumed (``llm_train_full``), (c) the chunked loss's
+    and remat's peak memory (``llm_train_memory``), (d) the example's
+    200 steps (``llm_train_example``).  No port kernel runs on this
+    path: ``launches`` is not added to."""
+    t_phase = time.perf_counter()
+    out = {"reduced": llm_train_reduced()}
+    out["full"], params, batch = llm_train_full()
+    out["memory"] = llm_train_memory(params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    out["example"] = llm_train_example()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the LLM training phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -2913,6 +3300,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    # phase 12 trains under deterministic algorithms, which needs cuBLAS's
+    # workspace set before its first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -2969,6 +3359,7 @@ def main():
     trained = train_path(launches)
     simulated = sim_path(launches)
     llm = llm_path(rnd, launches)
+    llm_train = llm_train_path(launches)
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -2990,7 +3381,7 @@ def main():
          "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,
-         "sim": simulated, "llm": llm,
+         "sim": simulated, "llm": llm, "llm_train": llm_train,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,18 @@ sha256 digest, time, the caller's ``extra``).  The reference's
 so a crash mid-save never corrupts the latest restorable state.
 ``AsyncCheckpointer`` copies the tree to the host before it returns and
 writes on a background thread.
+
+bfloat16 leaves, which ``.npz`` cannot hold, have a rule of their own:
+the leaf's bits are stored as uint16 and ``meta.json`` records
+``"leaf_dtypes": {"<i>": "bfloat16"}``; the fingerprint and the digest
+cover the stored bits, and ``restore`` views them back as bfloat16.
+A tree without bfloat16 leaves is written exactly as the reference
+writes it (no ``leaf_dtypes`` key).  A ``PackedArray`` leaf is stored
+as its words in the reference's uint32 (the reference's PackedArray
+flattens to that one leaf) and restored into the template's
+PackedArray.  The reference cannot read a port
+checkpoint with bfloat16 leaves (it would cast the uint16 values), nor
+restore its own (ROADMAP hazard 11).
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.kernels.packed import PackedArray, as_uint32, from_uint32
 
 __all__ = ["AsyncCheckpointer", "ChecksumError", "latest_step", "restore",
            "save"]
@@ -36,16 +49,37 @@ class ChecksumError(IOError):
     save time — bit rot, a torn write, or tampering."""
 
 
-def _to_host(x: Any) -> np.ndarray:
-    """A leaf as a host array with a copy of its bytes."""
+_BF16 = "bfloat16"
+
+
+def _to_host(x: Any) -> Any:
+    """A leaf as a host copy of its bytes: a CPU tensor (its dtype
+    kept) or a numpy array."""
+    if isinstance(x, PackedArray):
+        return x.with_words(_to_host(x.words))
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy().copy()
+        return x.detach().to("cpu", copy=True)
     return np.array(x)
 
 
-def _flatten(tree: Any) -> Tuple[List[np.ndarray], Any]:
+def _stored(x: Any) -> Tuple[np.ndarray, Optional[str]]:
+    """A leaf as the array ``arrays.npz`` holds, and the dtype its bits
+    stand for where that is not the array's own (bfloat16 as uint16)."""
+    if isinstance(x, PackedArray):
+        return as_uint32(x.words), None
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
+        return t.numpy(), None
+    return np.asarray(x), None
+
+
+def _flatten(tree: Any) -> Tuple[List[np.ndarray], Dict[str, str], Any]:
     flat, treedef = _tree.flatten(tree)
-    return [_to_host(x) for x in flat], treedef
+    stored = [_stored(x) for x in flat]
+    dtypes = {str(i): d for i, (_, d) in enumerate(stored) if d}
+    return [a for a, _ in stored], dtypes, treedef
 
 
 def _fingerprint(arrs: List[np.ndarray]) -> str:
@@ -77,7 +111,7 @@ def save(directory: str, step: int, tree: Any,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrs, treedef = _flatten(tree)
+    arrs, dtypes, treedef = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"),
              **{f"leaf_{i}": a for i, a in enumerate(arrs)})
     meta = {
@@ -89,6 +123,8 @@ def save(directory: str, step: int, tree: Any,
         "time": time.time(),
         "extra": extra or {},
     }
+    if dtypes:
+        meta["leaf_dtypes"] = dtypes
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
     if os.path.exists(final):
@@ -113,13 +149,22 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _like(a: np.ndarray, t: Any) -> Any:
+def _like(a: np.ndarray, stored_as: Optional[str], t: Any) -> Any:
     """A restored leaf in the template leaf's form: a tensor of its
     dtype on its device, or a numpy array of its dtype."""
+    if stored_as not in (None, _BF16):
+        raise ValueError(f"unknown stored dtype {stored_as!r}")
+    if isinstance(t, PackedArray):
+        return t.with_words(from_uint32(a, t.words.device))
     if isinstance(t, torch.Tensor):
         # a copy: np.load's arrays may be read-only, and
         # ascontiguousarray would make a 0-d leaf 1-d
-        return torch.from_numpy(a.copy()).to(device=t.device, dtype=t.dtype)
+        x = torch.from_numpy(a.copy())
+        if stored_as == _BF16:
+            x = x.view(torch.bfloat16)
+        return x.to(device=t.device, dtype=t.dtype)
+    if stored_as == _BF16:
+        a = torch.from_numpy(a.copy()).view(torch.bfloat16).float().numpy()
     return a.astype(np.asarray(t).dtype)
 
 
@@ -149,12 +194,13 @@ def restore(directory: str, template: Any, step: Optional[int] = None
     if len(flat_t) != len(arrs):
         raise ValueError(f"leaf count mismatch: the template has "
                          f"{len(flat_t)}, the checkpoint {len(arrs)}")
+    dtypes = meta.get("leaf_dtypes", {})
     out = []
-    for t, a in zip(flat_t, arrs):
-        if tuple(np.shape(t)) != a.shape:
-            raise ValueError(f"shape mismatch {tuple(np.shape(t))} vs "
-                             f"{a.shape}")
-        out.append(_like(a, t))
+    for i, (t, a) in enumerate(zip(flat_t, arrs)):
+        shape = tuple(np.shape(t.words if isinstance(t, PackedArray) else t))
+        if shape != a.shape:
+            raise ValueError(f"shape mismatch {shape} vs {a.shape}")
+        out.append(_like(a, dtypes.get(str(i)), t))
     return _tree.unflatten(treedef, out), meta
 
 

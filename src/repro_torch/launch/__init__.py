@@ -1,1 +1,2 @@
-"""Entry points of the LLM side: ``serve`` (the decode Engine)."""
+"""Entry points of the LLM side: ``serve`` (the decode Engine) and
+``train`` (the fault-tolerant trainer)."""

@@ -10,7 +10,8 @@ payload is int8 with per (token, head) float32 scales.
 
 The online-softmax chunking runs as a Python loop over
 ``attn_q_chunk`` x ``attn_kv_chunk`` tiles (the reference's
-``lax.scan``; its ``jax.checkpoint`` is a training concern).  Scores
+``lax.scan``); with grad enabled each q chunk is recomputed in the
+backward pass, as the reference's ``jax.checkpoint``.  Scores
 and the value sums are float32, as the reference's
 ``preferred_element_type``.  Caches are updated functionally (the
 input cache is not written), as the reference's ``.at[].set``.  Every
@@ -19,14 +20,24 @@ input cache is not written), as the reference's ``.at[].set``.  Every
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        dtype_of, wparams)
 
 NEG_INF = -1e30
+_Q_CHUNK = threading.local()
+
+
+def in_q_chunk() -> bool:
+    """True while a q chunk's recomputed body runs.  The reference's
+    nested ``jax.checkpoint`` hides its products from an outer remat
+    policy, so ``remat="dots"`` must not keep them either."""
+    return getattr(_Q_CHUNK, "depth", 0) > 0
 
 
 def attn_init(gen, cfg, device, cross: bool = False) -> Dict[str, Any]:
@@ -110,29 +121,20 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, S, n_kv, Hq // n_kv, D)
 
 
-def chunked_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
-                      window: int, q_chunk: int = 512,
-                      kv_chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention over chunks (memory-bounded prefill).
-
-    q: [B,Sq,Hkv,G,D]; k,v: [B,Skv,Hkv,D]; positions: [Sq]/[Skv] int32.
-    window <= 0 means unlimited.
-    """
-    B, Sq, Hkv, G, D = q.shape
-    Skv = k.shape[1]
-    qc = _pick_chunk(Sq, q_chunk)
-    kc = _pick_chunk(Skv, kv_chunk)
+def _q_chunk(qi, qpos, k, v, kv_positions, causal: bool, window: int,
+             kc: int) -> torch.Tensor:
+    """One q chunk of ``chunked_attention``: the online softmax over the
+    kv chunks, float32 scores and sums.  qi: [B,qc,Hkv,G,D] float32."""
+    B, qc, Hkv, G, D = qi.shape
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
-    outs = []
-    for i in range(0, Sq, qc):
-        qi = q[:, i:i + qc].to(f32)
-        qpos = q_positions[i:i + qc]
+    _Q_CHUNK.depth = getattr(_Q_CHUNK, "depth", 0) + 1
+    try:
         m = torch.full((B, qc, Hkv, G), -math.inf, dtype=f32,
-                       device=q.device)
-        lse = torch.zeros((B, qc, Hkv, G), dtype=f32, device=q.device)
-        acc = torch.zeros((B, qc, Hkv, G, D), dtype=f32, device=q.device)
-        for j in range(0, Skv, kc):
+                       device=qi.device)
+        lse = torch.zeros((B, qc, Hkv, G), dtype=f32, device=qi.device)
+        acc = torch.zeros((B, qc, Hkv, G, D), dtype=f32, device=qi.device)
+        for j in range(0, k.shape[1], kc):
             kj, vj = k[:, j:j + kc], v[:, j:j + kc]
             kpos = kv_positions[j:j + kc]
             s = torch.einsum("bqhgd,bkhd->bqhgk", qi, kj.to(f32)) * scale
@@ -149,7 +151,30 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
             acc = acc * corr[..., None] + torch.einsum(
                 "bqhgk,bkhd->bqhgd", p.to(vj.dtype).to(f32), vj.to(f32))
             m = m_new
-        out = acc / torch.clamp(lse, min=1e-30)[..., None]
+        return acc / torch.clamp(lse, min=1e-30)[..., None]
+    finally:
+        _Q_CHUNK.depth -= 1
+
+
+def chunked_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
+                      window: int, q_chunk: int = 512,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over chunks (memory-bounded prefill).
+
+    q: [B,Sq,Hkv,G,D]; k,v: [B,Skv,Hkv,D]; positions: [Sq]/[Skv] int32.
+    window <= 0 means unlimited.  With grad enabled each q chunk is
+    recomputed in the backward pass (the reference's
+    ``jax.checkpoint``): nothing quadratic survives to it.
+    """
+    Sq = q.shape[1]
+    qc = _pick_chunk(Sq, q_chunk)
+    kc = _pick_chunk(k.shape[1], kv_chunk)
+    outs = []
+    for i in range(0, Sq, qc):
+        args = (q[:, i:i + qc].to(torch.float32), q_positions[i:i + qc], k,
+                v, kv_positions, causal, window, kc)
+        out = checkpoint(_q_chunk, *args, use_reentrant=False) \
+            if torch.is_grad_enabled() else _q_chunk(*args)
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)
 

@@ -26,7 +26,9 @@ one card.  Numerics mirrored on purpose: the norms and RoPE compute in
 float32 and cast back, layernorm's variance is the population one
 (``jnp.var``), gelu is the tanh approximation (``jax.nn.gelu``'s
 default), and ``ste_sign`` maps 0 to +1 while the pack bit is
-``x > 0``.  ``chunked_xent`` comes with the training path.
+``x > 0``.  ``chunked_xent`` is the training loss over vocab chunks,
+each chunk recomputed in the backward pass (the reference's
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.binarize import ste_sign
 from repro_torch.graph import ir as _gir
@@ -323,3 +326,49 @@ def logits_apply(emb_or_head: torch.Tensor, x: torch.Tensor,
                  transpose: bool) -> torch.Tensor:
     w = emb_or_head.T if transpose else emb_or_head
     return (x @ w.to(x.dtype)).to(torch.float32)
+
+
+def _xent_chunk(x, wi, targets, m, lse, tgt, base: int, V: int):
+    """One vocab chunk of ``chunked_xent``: the running max, the running
+    sum of exp and the target logit where it falls in this chunk."""
+    c = wi.shape[0]
+    logits = (x @ wi.to(x.dtype).T).to(torch.float32)
+    col = base + torch.arange(c, device=x.device)
+    logits = torch.where(col < V, logits, -math.inf)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    lse = torch.exp(m - m_new) * lse + p.sum(dim=-1)
+    idx = targets - base
+    in_chunk = (idx >= 0) & (idx < c)
+    got = torch.gather(logits, -1, idx.clamp(0, c - 1)[..., None])[..., 0]
+    return m_new, lse, torch.where(in_chunk, got, tgt)
+
+
+def chunked_xent(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor,
+                 transpose: bool, chunk: int) -> torch.Tensor:
+    """Cross-entropy over a huge vocab without materializing full logits.
+
+    The logsumexp runs over vocab chunks (equal chunks of ceil(V /
+    ceil(V / chunk)) rows, the last zero-padded and masked) and gathers
+    the target logit; x: [B,S,D], emb: [V,D] (transpose=True) or [D,V].
+    With grad enabled each chunk is recomputed in the backward pass, so
+    the full [B,S,V] logits never live there.  Returns the per-token
+    nll [B,S]."""
+    w = emb if transpose else emb.T            # [V, D]
+    V = w.shape[0]
+    n_chunks = max(1, -(-V // chunk))
+    c = -(-V // n_chunks)
+    B, S = targets.shape
+    f32 = torch.float32
+    m = torch.full((B, S), -math.inf, dtype=f32, device=x.device)
+    lse = torch.zeros((B, S), dtype=f32, device=x.device)
+    tgt = torch.zeros((B, S), dtype=f32, device=x.device)
+    targets = targets.long()
+    for i in range(n_chunks):
+        wi = w[i * c:(i + 1) * c]
+        if wi.shape[0] < c:                    # only the last chunk pads
+            wi = F.pad(wi, (0, 0, 0, c - wi.shape[0]))
+        args = (x, wi, targets, m, lse, tgt, i * c, V)
+        m, lse, tgt = checkpoint(_xent_chunk, *args, use_reentrant=False) \
+            if torch.is_grad_enabled() else _xent_chunk(*args)
+    return (m + torch.log(lse)) - tgt

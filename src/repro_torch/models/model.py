@@ -1,4 +1,4 @@
-"""Top-level model: init, forward, prefill, decode.
+"""Top-level model: init, forward, train loss, prefill, decode.
 
 The port of ``repro.models.model``.  One code path serves all ten
 architectures; the config decides the block pattern, attention flavor,
@@ -10,9 +10,10 @@ image patches arrive as precomputed embeddings).
 reproduced): the same tree, shapes and dtypes, other numbers.  It runs
 on the card unless the caller passes a CPU device; ``abstract_params``
 builds the tree on torch's ``meta`` device.  ``forward`` / ``prefill``
-/ ``decode_step`` run on the device of the params they are given.
-``loss_fn`` comes with the training path.  Every ``shard_act`` call of
-the reference is dropped: the port runs on one card.
+/ ``decode_step`` run on the device of the params they are given, with
+no autograd (serving); ``loss_fn`` runs the same forward core
+(``_forward``) with grad enabled.  Every ``shard_act`` call of the
+reference is dropped: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.packed import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
-                                       embed_lookup, logits_apply, norm_init,
-                                       normal)
+from repro_torch.models.layers import (apply_norm, chunked_xent, dtype_of,
+                                       embed_init, embed_lookup,
+                                       logits_apply, norm_init, normal)
 
 
 def decoder_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -82,11 +83,10 @@ def _ctx_from_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
     return None
 
 
-@torch.no_grad()
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            ctx: Optional[torch.Tensor] = None,
-            cache_capacity: int = 0):
-    """Full-sequence forward.  Returns (hidden, caches, aux)."""
+def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+             ctx: Optional[torch.Tensor] = None,
+             cache_capacity: int = 0):
+    """The forward core, under whatever grad mode the caller runs."""
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -97,6 +97,37 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         ctx=ctx, cache_capacity=cache_capacity)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, caches, aux
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            ctx: Optional[torch.Tensor] = None,
+            cache_capacity: int = 0):
+    """Full-sequence forward, no autograd.  Returns (hidden, caches,
+    aux)."""
+    return _forward(params, cfg, tokens, ctx=ctx,
+                    cache_capacity=cache_capacity)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Next-token cross entropy (+ MoE aux), differentiable in params."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    ctx = _ctx_from_inputs(params, cfg, batch)
+    x, _, aux = _forward(params, cfg, tokens, ctx=ctx)
+    emb = params.get("lm_head", params["embed"])
+    if cfg.logits_chunk:
+        nll = chunked_xent(x, emb, targets, transpose=True,
+                           chunk=cfg.logits_chunk)
+    else:
+        logits = logits_apply(emb, x, transpose=True)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        nll = lse - tgt
+    loss = nll.mean()
+    if cfg.num_experts:
+        loss = loss + cfg.router_aux_coef * aux
+    return loss
 
 
 @torch.no_grad()

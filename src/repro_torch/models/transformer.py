@@ -6,12 +6,18 @@ local_attn), llama-vision's 4x self + 1 cross) with weight-stacked
 parameters: every leaf of ``params["layers"][pos]`` carries a leading
 [n_cycles] axis (a packed leaf's words too, its pack axis negative so
 the slice keeps it valid).  The reference runs the cycles under one
-``jax.lax.scan``; here a Python loop slices cycle ``c`` out of every
-leaf and stacks the new caches back.  Cycle remainders run unstacked.
+``jax.lax.scan``; here a Python loop runs the cycles, each stacked leaf
+unbound once per call (so a backward pass stacks each leaf's gradient
+once, not one full-size zero tensor a cycle), and stacks the new
+caches back.  Cycle remainders run unstacked.
 
-``remat`` is accepted and ignored on this serving path: the training
-path gives it meaning.  Every ``shard_act`` call of the reference is
-dropped: the port runs on one card.
+``remat`` (with grad enabled only; serving runs without autograd) is
+the reference's ``jax.checkpoint`` of a cycle: "full" recomputes the
+whole cycle in the backward pass, "dots" keeps the matmul outputs and
+recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``; an
+attention q chunk, checkpointed on its own, keeps none),
+"none" keeps every activation.  Every ``shard_act`` call of the
+reference is dropped: the port runs on one card.
 
 Block kinds:
   attn          causal self-attention + MLP (or MoE)
@@ -24,9 +30,12 @@ Block kinds:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.packed import PackedArray
 from repro_torch.models import attention as attn
@@ -207,9 +216,20 @@ def _stack_trees(trees: List[Any]) -> Any:
     return _tmap(lambda *xs: torch.stack(xs), *trees)
 
 
-def _index_tree(tree: Any, c: int) -> Any:
-    """Cycle ``c`` of a stacked tree: every leaf sliced on axis 0."""
-    return _tmap(lambda t: t[c], tree)
+def _cycles(tree: Any, n_cycles: int) -> List[Any]:
+    """A stacked tree as ``n_cycles`` trees: every leaf unbound on axis
+    0 once (views; backward stacks the cycles' gradients once)."""
+    parts: List[Tuple[torch.Tensor, ...]] = []
+
+    def unbind(t):
+        parts.append(t.unbind(0))
+        return t
+    _tmap(unbind, tree)
+    out = []
+    for c in range(n_cycles):
+        it = iter(parts)
+        out.append(_tmap(lambda t: next(it)[c], tree))
+    return out
 
 
 def stack_init(gen, cfg, pattern: Tuple[str, ...], device) -> Dict[str, Any]:
@@ -245,29 +265,61 @@ def stack_cache_init(cfg, pattern, batch: int, capacity: int, device,
     return {"layers": layers, "rem": rem}
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep the matmul outputs, recompute the rest
+    (an attention q chunk's own products too: it is checkpointed on its
+    own, as in the reference)."""
+    return CheckpointPolicy.MUST_SAVE \
+        if op in _DOTS and not attn.in_q_chunk() \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the reference's ``jax.checkpoint`` policy."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat {remat!r} (none | dots | full)")
+
+
 def stack_apply(params, x, cfg, pattern, *, positions=None, caches=None,
                 step=None, ctx=None, cache_capacity: int = 0,
                 remat: Optional[str] = None):
-    """Run the full layer stack.  Returns (x, new_caches, aux).
-
-    ``remat`` is ignored here (a training concern)."""
+    """Run the full layer stack.  Returns (x, new_caches, aux)."""
     cycle, n_cycles, n_rem = find_cycle(pattern)
-    aux_total = 0.0
-    per_cycle = []
-    for c in range(n_cycles):
-        cyc_params = _index_tree(params["layers"], c)
-        cyc_caches = _index_tree(caches["layers"], c) \
-            if caches is not None else None
-        new_caches = []
+
+    def one_cycle(x_in, cyc_params, cyc_caches):
+        new_caches, aux_sum = [], 0.0
         for pos, kind in enumerate(cycle):
             c_in = cyc_caches[pos] if cyc_caches is not None else None
-            x, nc, aux = block_apply(
-                cyc_params[pos], x, cfg, kind, positions=positions,
+            x_in, nc, aux = block_apply(
+                cyc_params[pos], x_in, cfg, kind, positions=positions,
                 cache=c_in, step=step, ctx=ctx,
                 cache_capacity=cache_capacity)
             new_caches.append(nc)
-            aux_total = aux_total + aux
-        per_cycle.append(tuple(new_caches))
+            aux_sum = aux_sum + aux
+        return x_in, tuple(new_caches), aux_sum
+
+    run = _remat(one_cycle, remat or cfg.remat)
+    cyc_params = _cycles(params["layers"], n_cycles)
+    cyc_caches = _cycles(caches["layers"], n_cycles) \
+        if caches is not None else [None] * n_cycles
+    aux_total = 0.0
+    per_cycle = []
+    for c in range(n_cycles):
+        x, ncs, aux = run(x, cyc_params[c], cyc_caches[c])
+        per_cycle.append(ncs)
+        aux_total = aux_total + aux
     new_stacked = tuple(_stack_trees([cyc[pos] for cyc in per_cycle])
                         for pos in range(len(cycle)))
 

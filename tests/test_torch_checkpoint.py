@@ -8,7 +8,11 @@ order) into the port's tree with equal leaves, and the reference's
 past the fingerprint's prefix; the write is atomic (a stale ``.tmp``
 is neither restored nor counted), retention keeps the newest;
 ``AsyncCheckpointer.save`` has the tree on the host when it returns
-and surfaces a failed write on ``wait``.
+and surfaces a failed write on ``wait``.  bfloat16 leaves (stored as
+their uint16 bits, the dtype in ``meta.json``) and PackedArray leaves
+(their words as uint32) round-trip bit for bit, through ``save`` and
+``AsyncCheckpointer``, and a flipped byte in a bfloat16 leaf raises
+``ChecksumError``.
 """
 import json
 import os
@@ -33,6 +37,7 @@ from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     ChecksumError, latest_step, restore,
                                     save)
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.kernels.packed import PackedArray  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import init_train_state  # noqa: E402
 
@@ -142,3 +147,80 @@ def test_async_save_copies_to_host_first_and_surfaces_errors(tmp_path):
     with pytest.raises(OSError):
         bad.wait()
     bad.wait()               # the error is raised once
+
+
+# ------------------------------------------------------------------ #
+# bfloat16 and PackedArray leaves                                      #
+# ------------------------------------------------------------------ #
+def _bf16_tree(seed):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((37, 5), generator=g).to(torch.bfloat16)
+    # every bit pattern class: -0.0, inf, a NaN payload, a denormal
+    w.view(torch.int16)[0, :4] = torch.tensor([-32768, 0x7F80, 0x7FC1, 1],
+                                              dtype=torch.int16)
+    return {"w": w,
+            "b": torch.randn((5,), generator=g).to(torch.bfloat16),
+            "f": torch.randn((3, 4), generator=g),
+            "i": torch.arange(7, dtype=torch.int32) * (seed + 1),
+            "p": PackedArray.pack(torch.randn((70, 3), generator=g),
+                                  axis=0),
+            "opt": tadamw.OptState(step=torch.tensor(seed, dtype=torch.int32),
+                                   m={"w": torch.randn((2,), generator=g)},
+                                   v={"w": torch.rand((2,), generator=g)})}
+
+
+def _assert_bits_equal(a, b):
+    fa, ta = tree.flatten(a)
+    fb, tb = tree.flatten(b)
+    assert ta == tb
+    for x, y in zip(fa, fb):
+        if isinstance(x, PackedArray):
+            assert (x.length, x.axis) == (y.length, y.axis)
+            x, y = x.words, y.words
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        assert torch.equal(x, y)
+
+
+def test_bf16_roundtrip_bit_for_bit(tmp_path):
+    t = _bf16_tree(1)
+    path = save(str(tmp_path), 1, t)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    # sorted keys b, f, i, opt(step, m/w, v/w), p, w: the bf16 leaves
+    assert meta["leaf_dtypes"] == {"0": "bfloat16", "7": "bfloat16"}
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        assert z["leaf_0"].dtype == np.uint16
+        assert z["leaf_6"].dtype == np.uint32     # the packed words
+    got, _ = restore(str(tmp_path), _bf16_tree(2))
+    _assert_bits_equal(got, t)
+    # a tree with no bf16 leaf keeps the reference's meta exactly
+    path = save(str(tmp_path), 2, {"f": t["f"]})
+    with open(os.path.join(path, "meta.json")) as f:
+        assert "leaf_dtypes" not in json.load(f)
+
+
+def test_bf16_async_checkpointer(tmp_path):
+    t = _bf16_tree(3)
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(5, t, extra={"step": 5})
+    t["w"].fill_(0)          # the trainer overwrites its tensor at once
+    ck.wait()
+    got, meta = restore(str(tmp_path), _bf16_tree(4))
+    assert meta["extra"]["step"] == 5
+    _assert_bits_equal(got, _bf16_tree(3))
+
+
+@pytest.mark.parametrize("offset,check", [(0, "fingerprint"),
+                                          (5000, "sha256")])
+def test_bf16_corruption_raises(tmp_path, offset, check):
+    t = {"w": torch.randn(4096).to(torch.bfloat16)}
+    path = save(str(tmp_path), 1, t)
+    npz = os.path.join(path, "arrays.npz")
+    with np.load(npz) as z:
+        arrs = {n: z[n].copy() for n in z.files}
+    arrs["leaf_0"].view(np.uint8)[offset] ^= 0x10
+    np.savez(npz, **arrs)
+    with pytest.raises(ChecksumError, match=check):
+        restore(str(tmp_path), t)
