@@ -186,15 +186,38 @@
    printed; (d) ``examples/train_bnn_lm.py``'s run (4 layers, d_model
    128, vocab 2048, float32, batch 8 x seq 128, 200 steps, lr 1e-3):
    the mean loss of the last 10 steps below the first 10's.  No port
-   kernel runs on this path (each part expects none).
+   kernel runs on this path (each part expects none);
+13. runs the data faults, the tuning table and the auditor on the card:
+   (a) ``seu_curve`` at 0, 1, 16, 256, 4096 flips and
+   ``threshold_curve`` at sigma 0, 0.5, 1, 2, 4 over full-width
+   BinaryNet (the script's seeded params, integer images): every row on
+   64 images equal to the ``"torch"`` backend's on the CPU, the
+   fault-free point argmax_match 1.0 with both deltas 0, each forward
+   launching BinaryNet's 8 kernels; both curves' wall time at batch 256;
+   (b) ``graph.tuning.tune_models`` times every plan the kernels take at
+   every key of BinaryNet's and AlexNet's plans at batches 1, 32 and 256
+   (each key's rule plan and time printed beside its best) into
+   ``chiprun_out/tuning.json``; at each batch the forward on the rules'
+   plans and, the table loaded and the model recompiled, on the tuned
+   ones: the logits equal bit for bit, the replayed forward's ms printed
+   both ways; a ``BNNServer(max_batch=32, prewarm=True)`` over the table
+   captures at most ``trace_bound`` graphs and serves eager ``apply``'s
+   logits; (c) ``CompiledBNN.audit()`` passes on both models at batches
+   1, 32 and 256 with the table loaded (launches kernel by kernel, no
+   banned int32 shape on the card, the shared-memory claims, the trace
+   bound), the conv's shared-memory model equals its library's, and a
+   planted int32 output (conv2's ``pack_out`` forced off) fails it.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6, 8, 9, 10 and 11, each counted from 0 just before it runs
-(step 12 launches none) (a
+steps 3-6, 8, 9, 10, 11 and 13, each counted from 0 just before it
+runs (step 12 launches none) (a
 graph's replay counts the kernels its capture recorded; in step 10 the
 simulator's oracle ``apply``; in step 11 the eight held calls of
-(a)).  Any failure raises and exits non-zero; no phase catches its own
+(a); in step 13 the curves, the untuned and tuned forwards and the
+tuned server, not the tuner's timing runs, and not the audit's, whose
+launches it records apart).  Any failure raises and exits non-zero; no
+phase catches its own
 failure.  The last line is the
 device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
@@ -262,7 +285,7 @@ def time_ms(fn, iters=10, warmup=2):
 def kernel_ms(fn, symbol, iters=20):
     """Device time of one call's launches of the kernels whose symbol
     contains ``symbol`` (``repro_torch.trace.kernel_ms``: torch.profiler,
-    never a time taken another way)."""
+    an empty session asked again, never a time taken another way)."""
     from repro_torch.trace import kernel_ms as device_ms
     return device_ms(fn, symbol, iters)
 
@@ -2052,18 +2075,11 @@ def sim_group(name):
 def sim_device_split(fn):
     """Device ms of one call of ``fn`` by ``sim_group``, from
     torch.profiler (no warm-up: the call before it warmed up)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.trace import _device_us
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from repro_torch.trace import _device_us, device_events
     split = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            g = sim_group(e.key)
-            split[g] = split.get(g, 0.0) + _device_us(e) / 1e3
+    for e in device_events(fn)[0]:
+        g = sim_group(e.key)
+        split[g] = split.get(g, 0.0) + _device_us(e) / 1e3
     return split
 
 
@@ -3192,6 +3208,266 @@ def llm_train_path(launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 13: data faults, the tuning table, the auditor                 #
+# ------------------------------------------------------------------ #
+FAULT_FLIPS = (0, 1, 16, 256, 4096)
+FAULT_SIGMAS = (0.0, 0.5, 1.0, 2.0, 4.0)
+FAULT_ROWS = 64                # rows held against the CPU
+FAULT_TIMED = 256              # rows of the timed curves
+TUNE_MODELS = ("binarynet", "alexnet")
+TUNED_SERVER_BATCH = 32        # max_batch of the prewarmed server
+TUNING_TABLE = ROOT / "chiprun_out" / "tuning.json"
+
+
+def phase13_models():
+    """(label, spec, params, per_forward) of both models, the params
+    from the script's seeded generator (as in phases 3-5)."""
+    from repro_torch import graph
+    from repro_torch.core.workloads import (alexnet_imagenet,
+                                            binarynet_cifar10)
+    out = []
+    for label, wl, per in (("BinaryNet", binarynet_cifar10(),
+                            BINARYNET_PER_FORWARD),
+                           ("AlexNet", alexnet_imagenet(),
+                            ALEXNET_PER_FORWARD)):
+        spec = graph.from_workload(wl)
+        params = graph.compile(spec, device=DEVICE).init(
+            torch.Generator().manual_seed(0))
+        out.append((label, spec, params, per))
+    return out
+
+
+def add_launches(launches, counts):
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def fault_curves(spec, params, per_forward, launches):
+    """(a) ``seu_curve`` and ``threshold_curve`` over full-width
+    BinaryNet on integer images: every row on the card equal to the
+    ``"torch"`` backend's on the CPU on 64 images, the fault-free point
+    exact, each forward launching BinaryNet's kernels; then both curves
+    timed at batch 256 on the card (host clock, synchronised)."""
+    from repro_torch import graph
+    from repro_torch.kernels import _build
+    from repro_torch.robustness import seu_curve, threshold_curve
+    x = images(spec, FAULT_ROWS, 13)
+    card = graph.compile(spec, device=DEVICE, batch=FAULT_ROWS)
+    _build.reset_launch_counts()
+    seu = seu_curve(card, params, x, FAULT_FLIPS, seed=0)
+    thr = threshold_curve(card, params, x, FAULT_SIGMAS, seed=0)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    forwards = len(FAULT_FLIPS) + len(FAULT_SIGMAS) + 2
+    expect_launches("fault curves", counts,
+                    {k: v * forwards for k, v in per_forward.items()})
+    add_launches(launches, counts)
+    cpu = graph.compile(spec, backend="torch", device="cpu",
+                        batch=FAULT_ROWS)
+    pc, xc = to_cpu(params), x.cpu()
+    if seu != seu_curve(cpu, pc, xc, FAULT_FLIPS, seed=0) or \
+            thr != threshold_curve(cpu, pc, xc, FAULT_SIGMAS, seed=0):
+        raise AssertionError("fault curves: the card's rows differ from the "
+                             "CPU's")
+    for rows in (seu, thr):
+        r0 = rows[0]
+        if r0["argmax_match"] != 1.0 or r0["mean_abs_logit_delta"] != 0.0 \
+                or r0["max_abs_logit_delta"] != 0.0:
+            raise AssertionError(f"fault curves: the fault-free point is "
+                                 f"{r0}")
+    for r in seu:
+        print(f"seu_curve BinaryNet {FAULT_ROWS} rows: {r}")
+    for r in thr:
+        print(f"threshold_curve BinaryNet {FAULT_ROWS} rows: {r}")
+    xt = images(spec, FAULT_TIMED, 14)
+    timed = graph.compile(spec, device=DEVICE, batch=FAULT_TIMED)
+    walls = {}
+    for name, fn, pts in (("seu_curve", seu_curve, FAULT_FLIPS),
+                          ("threshold_curve", threshold_curve,
+                           FAULT_SIGMAS)):
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(timed, params, xt, pts, seed=0)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        add_launches(launches, _build.launch_counts())
+        print(f"{name} BinaryNet at batch {FAULT_TIMED}, {len(pts)} points: "
+              f"{walls[name]:.3f} s wall on the card")
+    return {"seu": seu, "threshold": thr, "wall_s": walls}
+
+
+def tuned_forwards(models, launches):
+    """(b) Tune both models' keys at batches 1, 32 and 256 into
+    ``chiprun_out/tuning.json`` (``graph.tuning.tune_models``; each key's
+    rule plan and time beside its best); then at each batch the untuned
+    forward (empty table) and, after the table is loaded and the model
+    recompiled, the tuned one: the logits equal bit for bit, the
+    replayed forward timed both ways (host clock); then a prewarmed
+    ``BNNServer`` over the table stays within ``trace_bound`` and serves
+    eager ``apply``'s logits."""
+    from repro_torch import graph
+    from repro_torch.graph.replay import GraphedApply
+    from repro_torch.graph.tuning import tune_models
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.serving import BNNServer
+    table = autotune.get_table()
+    table.clear()
+    t0 = time.perf_counter()
+    rows = tune_models(TUNE_MODELS, BATCHES, DEVICE, decode=False, log=None)
+    tune_s = time.perf_counter() - t0
+    TUNING_TABLE.parent.mkdir(exist_ok=True)
+    table.save(str(TUNING_TABLE))
+    for r in rows:
+        print(f"tuned {r['label']} {autotune.key_str(r['key'])}: rule "
+              f"{r['rule']} {r['rule_ms']:.5f} ms, best {r['best']} "
+              f"{r['best_ms']:.5f} ms")
+    hits = sum(r["rule"] == r["best"] for r in rows)
+    print(f"tuner: {len(rows)} keys in {tune_s:.1f} s, the rule's plan the "
+          f"fastest at {hits}")
+    table.clear()
+    forwards = []
+    _build.reset_launch_counts()
+    for label, spec, params, per in models:
+        for batch in BATCHES:
+            x = images(spec, batch, 100 + batch)
+            ms = {}
+            for tuned in (False, True):
+                table.clear()
+                if tuned:
+                    table.load(str(TUNING_TABLE))
+                cb = graph.compile(spec, device=DEVICE, batch=batch)
+                y = cb.apply(params, x)
+                if not tuned:
+                    want = y
+                elif not torch.equal(y, want):
+                    raise AssertionError(f"{label} B={batch}: the tuned "
+                                         f"forward differs from the "
+                                         f"untuned one")
+                g = GraphedApply(cb, params, batch)
+                if not torch.equal(g(x), want):
+                    raise AssertionError(f"{label} B={batch}: a replay "
+                                         f"differs from eager apply")
+                ms["tuned" if tuned else "rule"] = wall_ms(lambda: g(x), 20)
+                del g
+            forwards.append(dict(model=label, batch=batch, **ms))
+            print(f"{label} B={batch} replayed: {ms['rule']:.4f} ms/forward "
+                  f"on the rules' plans, {ms['tuned']:.4f} ms on the "
+                  f"tuned table; logits equal")
+    spec, params = models[0][1], models[0][2]
+    cb = graph.compile(spec, device=DEVICE, batch=TUNED_SERVER_BATCH)
+    srv = BNNServer(cb, params, max_batch=TUNED_SERVER_BATCH, prewarm=True,
+                    device=DEVICE)
+    try:
+        for rows_n in (1, 7, TUNED_SERVER_BATCH):
+            x = images(spec, rows_n, 200 + rows_n)
+            if not torch.equal(srv.apply_batch(x), cb.apply(params, x)):
+                raise AssertionError(f"tuned server: {rows_n} rows differ "
+                                     f"from eager apply")
+        graphs, bound = srv.jit_traces(), srv.trace_bound()
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    add_launches(launches, _build.launch_counts())
+    if graphs > bound:
+        raise AssertionError(f"tuned server captured {graphs} graphs > "
+                             f"trace_bound {bound}")
+    print(f"BNNServer(max_batch={TUNED_SERVER_BATCH}, prewarm=True) over the "
+          f"table: {graphs} graphs (trace_bound {bound}), results equal "
+          f"eager apply")
+    return {"keys": [dict(r, key=autotune.key_str(r["key"]),
+                          times=[[e, ms] for e, ms in r["times"]])
+                     for r in rows],
+            "tune_s": tune_s, "rule_fastest": hits, "forwards": forwards,
+            "server_graphs": graphs, "trace_bound": bound}
+
+
+def audits(models):
+    """(c) ``audit()`` on both models on the card at batches 1, 32 and
+    256 with the tuned table loaded (its launches are recorded, not
+    counted), the conv's shared-memory model held to the library's; then
+    one ``pack_out`` forced off (a conv's int32 +-1 output, packed
+    after) must fail the int32-escape check."""
+    import ctypes
+    import importlib
+    from repro_torch import graph
+    from repro_torch.analysis.audit import AuditError
+    from repro_torch.kernels import _build, autotune, packed_conv
+    from repro_torch.kernels.ops import binarize_pack
+    lib = _build._load("packed_conv")
+    lib.packed_conv2d_smem_bytes.argtypes = [ctypes.c_int] * 2
+    for bm, bn in packed_conv.TILES:
+        # k32 = 8 words, C32 % 4 == 0: one stage, a 16-byte table
+        if lib.packed_conv2d_smem_bytes(bm, bn) != \
+                packed_conv.smem_bytes(bm, bn, 8, 4) - 16:
+            raise AssertionError(f"packed_conv.smem_bytes({bm}, {bn}) "
+                                 f"differs from the library's")
+    # the module, not the function graph re-exports under its name
+    compile_mod = importlib.import_module("repro_torch.graph.compile")
+    table = autotune.get_table()
+    table.clear()
+    table.load(str(TUNING_TABLE))
+    out = []
+    try:
+        for label, spec, params, _ in models:
+            for batch in BATCHES:
+                cb = graph.compile(spec, device=DEVICE, batch=batch)
+                report = cb.audit(params, images(spec, batch, 300 + batch),
+                                  max_batch=256)
+                print(report.format())
+                out.append(dict(model=label, batch=batch,
+                                launches=report.launches,
+                                checks=[dict(name=c.name, ok=c.ok,
+                                             skipped=c.skipped)
+                                        for c in report.checks]))
+        label, spec, params, _ = models[0]
+        cb = graph.compile(spec, device=DEVICE, batch=32)
+        orig = compile_mod.binary_conv
+        calls = []
+
+        def unpacked(h, wf, fold=None, pack_out=False, backend=None, **kw):
+            calls.append(1)
+            if len(calls) > 1:
+                return orig(h, wf, fold=fold, pack_out=pack_out,
+                            backend=backend, **kw)
+            y = orig(h, wf, fold=fold, pack_out=False, backend=backend, **kw)
+            return binarize_pack(y.to(torch.float32), backend=backend)
+        compile_mod.binary_conv = unpacked
+        try:
+            cb.audit(params, images(spec, 32, 332))
+        except AuditError as e:
+            if "int32-escape" not in str(e):
+                raise
+            planted = str(e).splitlines()
+        else:
+            raise AssertionError("the audit passed a planted int32 output")
+        finally:
+            compile_mod.binary_conv = orig
+        print("planted int32 output (conv2's pack_out forced off): "
+              "the audit fails: " + next(line for line in planted
+                                         if "int32-escape" in line).strip())
+    finally:
+        table.clear()
+    return {"reports": out, "planted": planted}
+
+
+def faults_tuning_audit_path(launches):
+    """Phase 13: (a) the data faults' curves on the card against the
+    CPU, (b) the tuning table — the search, the tuned forward and a
+    prewarmed server over it — and (c) the auditor, passing on both
+    models and failing where a fault is planted."""
+    t_phase = time.perf_counter()
+    models = phase13_models()
+    out = {"faults": fault_curves(models[0][1], models[0][2], models[0][3],
+                                  launches)}
+    out["tuning"] = tuned_forwards(models, launches)
+    out["audit"] = audits(models)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the faults, tuning and audit phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -3360,6 +3636,11 @@ def main():
     simulated = sim_path(launches)
     llm = llm_path(rnd, launches)
     llm_train = llm_train_path(launches)
+    faults = faults_tuning_audit_path(launches)
+    from repro_torch.trace import SESSIONS
+    print(f"torch.profiler: {SESSIONS['opened']} sessions opened, "
+          f"{SESSIONS['empty']} of them saw no device event and were "
+          f"asked again")
     for r in rec:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
@@ -3382,6 +3663,7 @@ def main():
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,
          "sim": simulated, "llm": llm, "llm_train": llm_train,
+         "faults_tuning_audit": faults, "profiler_sessions": SESSIONS,
          "device": device},
         indent=1))
     print(json.dumps({"kernels": kernels}))

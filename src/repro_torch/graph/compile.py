@@ -34,7 +34,8 @@ from repro_torch.core.workloads import Workload
 from repro_torch.graph.ir import (BinaryConv, BinaryDense, BNNSpec,
                                   IntegerEntry, MaxPool, from_dense_stack,
                                   from_workload, spec_to_workload)
-from repro_torch.graph.passes import PlanStep, build_plan
+from repro_torch.graph.passes import (PlanStep, batches_tuning_keys,
+                                      build_plan, plan_tuning_keys)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
@@ -65,7 +66,9 @@ class CompiledBNN:
     """The executable artifact ``compile`` returns.
 
     ``plan`` is the tuple of :class:`~repro_torch.graph.passes.PlanStep`
-    (every lowering decision, human-readable via ``describe()``)."""
+    (every lowering decision, human-readable via ``describe()``);
+    ``tuning_keys`` are the tuning-table keys of its launches
+    (``kernels.autotune``)."""
 
     def __init__(self, spec: BNNSpec, plan: Tuple[PlanStep, ...],
                  backend: str, device: torch.device, batch: int):
@@ -74,6 +77,8 @@ class CompiledBNN:
         self.backend = backend
         self.device = device
         self.batch = batch
+        self.tuning_keys: Tuple[tuple, ...] = tuple(
+            k for s in plan for k in s.keys)
 
     def describe(self) -> str:
         head = (f"compiled {self.spec.name} "
@@ -96,6 +101,39 @@ class CompiledBNN:
         return sum(len(s.args["fc_indices"]) if s.kind == "fused_stack"
                    else s.kind in ("binarize", "binary_conv", "dense")
                    for s in self.plan)
+
+    def tuning_keys_for_batch(self, batch: int) -> Tuple[tuple, ...]:
+        """The tuning keys this plan's launches resolve to at another
+        batch size: the SAME plan (segment boundaries, conv impls), only
+        the row terms rescaled.  Equal to a fresh ``compile(batch=)``'s
+        keys."""
+        if batch == self.batch:
+            return self.tuning_keys
+        return plan_tuning_keys(self.spec, self.plan, batch,
+                                backend=self.backend)
+
+    def tuning_keys_for_batches(self, batches: Sequence[int]
+                                ) -> Tuple[tuple, ...]:
+        """Deduplicated union of ``tuning_keys_for_batch`` over many
+        batch sizes, the serving engine's prewarm set: one call covers
+        every (bucket, valid) level of ``serving.bucketing.dispatch_grid``
+        (``BNNServer(prewarm=True)`` hands it to
+        ``kernels.autotune.warm``)."""
+        return batches_tuning_keys(self.spec, self.plan, batches,
+                                   backend=self.backend)
+
+    def audit(self, params: Optional[Dict[str, Any]] = None, x: Any = None,
+              batch: Optional[int] = None, max_batch: int = 64) -> Any:
+        """Design-rule check this artifact (``repro_torch.analysis.audit``):
+        the launches of one eager ``apply`` against ``launch_count``, no
+        int32 activation of a plan-derived shape on the card, the shared
+        memory the plan's launches claim re-derived at ``batch``, and the
+        server's graphs within ``trace_bound``.  Raises
+        :class:`~repro_torch.analysis.audit.AuditError` on any violation;
+        returns the :class:`AuditReport` otherwise."""
+        from repro_torch.analysis.audit import audit_compiled
+        return audit_compiled(self, params=params, x=x, batch=batch,
+                              max_batch=max_batch).raise_if_failed()
 
     def split(self, step: str) -> Tuple["CompiledBNN", "CompiledBNN"]:
         """Cut the plan before the named step: the head runs the steps

@@ -14,24 +14,33 @@ lowering pipeline over a validated spec and returns a tuple of
   (4) conv impl selection — kernels.ops.plan_conv_launch, shared with
       dispatch.
 
+  (5) tuning keys — every planned kernel launch records the key its
+      launch plan is looked up under in the tuning table
+      (``kernels.autotune``): ``plan_dense_launch`` / ``plan_conv_launch``
+      give the GEMM and conv keys, a fused stack keys as
+      ``("fused_binary_mlp", "cuda", m, k0, ns)``.
+
 Every step carries a human-readable ``detail`` string, shown by
 ``CompiledBNN.describe()``.  The plan is computed for a ``batch`` row
 hint; the fused-stack fit is re-checked at run time with the actual
-rows, and both outcomes are bit-identical.  ``PlanStep.keys`` stays
-empty until the tuning table is ported.
+rows, and both outcomes are bit-identical.  Fused stacks and direct
+convs record the shared memory a block of their launch claims
+(``args["smem_bytes"]``), which ``CompiledBNN.audit`` re-derives.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, IntegerEntry,
                                   Logits, MaxPool)
 from repro_torch.kernels.fused_mlp import stack_plan
-from repro_torch.kernels.ops import plan_conv_launch
+from repro_torch.kernels.ops import plan_conv_launch, plan_dense_launch
+from repro_torch.kernels.packed_conv import smem_bytes as conv_smem_bytes
 
-__all__ = ["PlanStep", "build_plan"]
+__all__ = ["PlanStep", "batches_tuning_keys", "build_plan",
+           "fused_key", "plan_tuning_keys"]
 
 
 @dataclass(frozen=True)
@@ -41,7 +50,7 @@ class PlanStep:
     kind: integer_conv | float_pool | binarize | binary_conv |
           packed_pool | flatten | fused_stack | dense | logits
     args: static operands for the executor (param indices, geometry,
-          impl choices);  keys: tuning keys (none yet in the port).
+          impl choices);  keys: the tuning keys of the step's launch.
     """
     kind: str
     name: str
@@ -55,6 +64,11 @@ class PlanStep:
 
 def _fmt_kb(b: int) -> str:
     return f"{b / 1024:.1f}KB"
+
+
+def fused_key(m: int, k0: int, ns) -> tuple:
+    """The tuning key of a fused-stack launch of ``m`` rows."""
+    return ("fused_binary_mlp", "cuda", m, k0, tuple(ns))
 
 
 def _segment_dense_run(run, k0: int, batch: int):
@@ -77,33 +91,91 @@ def _segment_dense_run(run, k0: int, batch: int):
             fc_idx, nd, _ = run[i]
             why = ("layer alone exceeds one launch's shared memory"
                    if j == i else "segment of one")
+            d = plan_dense_launch(batch, nd.n_out, nd.n_in, pack_out=True)
             steps.append(PlanStep(
                 "dense", nd.name,
                 {"fc_idx": fc_idx, "thresholded": True, "pack_out": True},
                 f"{nd.n_in}->{nd.n_out} popcount_gemm launch ({why}; "
-                f"threshold->pack fused)"))
+                f"threshold->pack fused)", (d["key"],)))
             k0 = nd.n_out
             i += 1
         else:
             idxs = tuple(fc for fc, _, _ in run[i:j])
             names = " -> ".join(str(nd.n_out) for _, nd, _ in run[i:j])
             steps.append(PlanStep(
-                "fused_stack", run[i][1].name, {"fc_indices": idxs},
+                "fused_stack", run[i][1].name,
+                {"fc_indices": idxs, "smem_bytes": sp["smem_bytes"]},
                 f"fused_mlp over {j - i} layers ({k0}->{names}), "
                 f"row tiles of BM={sp['bm']} rows, each on a cluster of "
                 f"CS={sp['cs']} blocks that split every layer's output "
                 f"words and exchange activations through distributed "
                 f"shared memory ({_fmt_kb(sp['smem_bytes'])} shared "
-                f"memory per block), 1 launch vs {j - i} chained"))
+                f"memory per block), 1 launch vs {j - i} chained",
+                (fused_key(batch, k0, ns),)))
             k0 = run[j - 1][1].n_out
             i = j
     return steps
 
 
+def _dense_nodes(spec: BNNSpec):
+    """fc-index-ordered BinaryDense nodes (the indices build_plan
+    records)."""
+    return [nd for nd in spec.nodes if isinstance(nd, BinaryDense)]
+
+
+def plan_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
+                     batch: int, backend: Optional[str] = None
+                     ) -> Tuple[tuple, ...]:
+    """The tuning keys an existing plan's launches resolve to at a
+    *different* batch size: the same plan structure (segment boundaries,
+    conv impls), only the row terms rescaled through the same plan_*
+    twins dispatch consults.  The serving engine warms the tuning table
+    per dispatch level this way while serving ONE compiled plan."""
+    dn = _dense_nodes(spec)
+    conv_nodes = spec.conv_nodes
+    keys = []
+    for s in plan:
+        if s.kind == "binary_conv":
+            nd = conv_nodes[s.args["conv_idx"]]
+            d = plan_conv_launch(
+                nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.kh, nd.kw,
+                stride=s.args["stride"], padding=s.args["pad"],
+                backend=backend, pack_out=True, impl=s.args["impl"],
+                nb=batch)
+            keys.append(d["key"])
+        elif s.kind == "dense":
+            nd = dn[s.args["fc_idx"]]
+            d = plan_dense_launch(batch, nd.n_out, nd.n_in, backend=backend,
+                                  pack_out=s.args["pack_out"])
+            keys.append(d["key"])
+        elif s.kind == "fused_stack":
+            nds = [dn[j] for j in s.args["fc_indices"]]
+            keys.append(fused_key(batch, nds[0].n_in,
+                                  [nd.n_out for nd in nds]))
+    return tuple(keys)
+
+
+def batches_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
+                        batches: Sequence[int],
+                        backend: Optional[str] = None
+                        ) -> Tuple[tuple, ...]:
+    """Deduplicated union of ``plan_tuning_keys`` over many batch sizes,
+    in first-seen order: the serving engine's prewarm set over its
+    (bucket, valid) dispatch grid, where many levels share a row count
+    and so a key."""
+    keys, seen = [], set()
+    for b in batches:
+        for k in plan_tuning_keys(spec, plan, b, backend=backend):
+            if k not in seen:
+                seen.add(k)
+                keys.append(k)
+    return tuple(keys)
+
+
 def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                batch: int = 1,
                conv_impl: str = "auto") -> Tuple[PlanStep, ...]:
-    """Run passes 2-4 over a validated spec (see module docstring)."""
+    """Run passes 2-5 over a validated spec (see module docstring)."""
     if conv_impl not in ("auto", "direct", "im2col"):
         raise ValueError(f"conv_impl must be 'auto', 'direct', or "
                          f"'im2col', got {conv_impl!r}")
@@ -140,13 +212,18 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
             why = "forced" if conv_impl != "auto" else (
                 f"b1 tensor-core implicit GEMM, tile {tiles['bm']}x"
                 f"{tiles['bn']}")
+            args = {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad,
+                    "impl": d["impl"]}
+            if tiles is not None:
+                args["smem_bytes"] = conv_smem_bytes(
+                    tiles["bm"], tiles["bn"], nd.kh * nd.kw * d["c32"],
+                    d["c32"])
             steps.append(PlanStep(
-                "binary_conv", nd.name,
-                {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad,
-                 "impl": d["impl"]},
+                "binary_conv", nd.name, args,
                 f"packed conv {nd.c_in}->{nd.c_out} k{nd.kh} "
                 f"s{nd.stride} p{nd.pad}, impl={d['impl']} ({why}); "
-                f"{thr.name} folded into the threshold->pack epilogue"))
+                f"{thr.name} folded into the threshold->pack epilogue",
+                (d["key"],)))
             conv_i += 1
             h, w = nd.h_out, nd.w_out
             i += 1                     # consume the fused BNThreshold
@@ -184,12 +261,14 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 steps.extend(_segment_dense_run(run, k0, batch))
             if i < len(nodes) and isinstance(nodes[i], BinaryDense):
                 tail = nodes[i]        # un-thresholded (Logits) tail
+                d = plan_dense_launch(batch, tail.n_out, tail.n_in,
+                                      backend=backend, pack_out=False)
                 steps.append(PlanStep(
                     "dense", tail.name,
                     {"fc_idx": fc_i, "thresholded": False,
                      "pack_out": False},
                     f"{tail.n_in}->{tail.n_out} popcount_gemm int32 dot "
-                    f"(no threshold: classifier head)"))
+                    f"(no threshold: classifier head)", (d["key"],)))
                 fc_i += 1
                 i += 1
             continue                   # i already advanced past the run

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.ops import binary_binary_dense, kernel_threshold
 from repro_torch.kernels.packed import WORD, PackedArray, get_backend
 from repro_torch.kernels.popcount_gemm import popcount_gemm_plain
@@ -170,11 +170,19 @@ def fused_mlp_words(x: torch.Tensor, ws: Sequence[torch.Tensor],
 
 
 def launch_config(device: torch.device, m: int, k0: int, ns: Sequence[int],
-                  w0: Optional[int] = None) -> Tuple[int, int]:
-    """The ``(BM, CS)`` a launch on ``device`` takes: ``stack_plan`` with
+                  w0: Optional[int] = None,
+                  tuned: bool = True) -> Tuple[int, int]:
+    """The ``(BM, CS)`` a launch on ``device`` takes: the tuning table's
+    entry for ``("fused_binary_mlp", "cuda", m, k0, tuple(ns))`` where it
+    has one (``tuned``; ``kernels.autotune``), else ``stack_plan`` with
     the clusters of 16 and of 8 blocks the card runs at once
     (``cudaOccupancyMaxActiveClusters``).  Raises where the stack does
-    not fit one launch or the card can schedule neither cluster."""
+    not fit one launch or the card can schedule neither cluster (a
+    tuned config the card cannot schedule raises at launch)."""
+    hit = autotune.get_table().get(
+        ("fused_binary_mlp", "cuda", m, k0, tuple(ns))) if tuned else None
+    if hit:
+        return hit["bm"], hit["cs"]
     buf_words = stack_plan(m, k0, ns, w0=w0)["buf_words"]
     clusters = {cs: _active_clusters(device, ROW_TILES[-1], cs, buf_words)
                 for cs in CLUSTERS}

@@ -12,9 +12,10 @@ kernel, which emits packed words directly, so the inter-layer activation
 never exists in device memory as int32.
 
 The Hopper kernels mask their own ragged edges, so nothing is padded
-beyond a whole word of K.  Block sizes are fixed constants of the
-kernels for now (the tuning table of ``repro.kernels.autotune`` is not
-ported yet).
+beyond a whole word of K.  Each kernel's launch plan comes from the
+tuning table (``kernels.autotune``) where it has an entry, else from
+the kernel's rule; ``plan_dense_launch`` / ``plan_conv_launch`` give
+the tuning keys.
 """
 from __future__ import annotations
 
@@ -225,21 +226,23 @@ def binary_binary_dense(xp: Packable, wp: Packable, k: Optional[int] = None,
 
 def plan_dense_launch(m: int, n: int, k: int, backend: Optional[str] = None,
                       pack_out: bool = False,
-                      op: str = "popcount_gemm") -> dict:
+                      op: str = "popcount_gemm", planes: int = 1) -> dict:
     """Static twin of the GEMM dispatch: the launch geometry of an
-    [m, k] x [k, n] binary GEMM, without touching any operand.  Oracle
-    backends plan under "cuda", the deployment target.  For
-    ``op="xnor_gemm"`` it also reports the kernel's launch plan
-    (``tiles``: ``xnor_gemm.tile_plan`` on an H100's 132 SMs, for bf16
-    activations; float32 ones run three MMA planes, ``planes=3``)."""
+    [m, k] x [k, n] binary GEMM, without touching any operand, and its
+    tuning key (``kernels.autotune``).  Oracle backends plan under
+    "cuda", the deployment target.  For ``op="xnor_gemm"`` it also
+    reports the kernel's launch plan (``tiles``: ``xnor_gemm.tile_plan``
+    on an H100's 132 SMs, for bf16 activations; float32 ones run three
+    MMA planes, ``planes=3``, and key under ``"xnor_gemm_f32"``)."""
     be = get_backend(backend)
     kb = be if be.uses_kernels else get_backend("cuda")
     k32 = kb.pad_k(round_up(k, 32)) // 32
-    opk = op + "+pack" if pack_out else op
+    base = "xnor_gemm_f32" if op == "xnor_gemm" and planes > 1 else op
+    opk = base + "+pack" if pack_out else base
     d = {"op": opk, "backend": kb.name, "m": m, "n": n, "k32": k32,
          "key": (opk, kb.name, m, n, k32)}
     if op == "xnor_gemm":
-        d["tiles"] = tile_plan(m, n, k32)
+        d["tiles"] = tile_plan(m, n, k32, planes=planes, pack_out=pack_out)
     return d
 
 
@@ -272,7 +275,10 @@ def plan_conv_launch(h: int, w: int, c: int, f: int, kh: int, kw: int,
     could overflow shared memory; im2col only pays the KH*KW-fold patch
     matrix in device memory.  im2col runs when forced.  For "direct" it
     also reports the kernel's launch plan (``tiles``:
-    ``packed_conv.tile_plan`` on an H100's 132 SMs).
+    ``packed_conv.tile_plan`` on an H100's 132 SMs).  The tuning key's M
+    is the launch's ``nb * ho * wo`` pixels: the port's kernel tiles the
+    whole batch's pixels, so its plan depends on the batch (the
+    reference's per-image TPU kernel keys on ``ho * wo``).
     """
     if impl not in ("auto", "direct", "im2col"):
         raise ValueError(f"impl must be 'auto', 'direct', or 'im2col', "
@@ -293,8 +299,9 @@ def plan_conv_launch(h: int, w: int, c: int, f: int, kh: int, kw: int,
     else:
         op = "packed_conv+pack" if pack_out else "packed_conv"
         d.update(impl="direct", op=op,
-                 key=(op, kb.name, ho * wo, f, kh * kw * c32),
-                 tiles=conv_tile_plan(nb * ho * wo, f, kh * kw * c32))
+                 key=(op, kb.name, nb * ho * wo, f, kh * kw * c32),
+                 tiles=conv_tile_plan(nb * ho * wo, f, kh * kw * c32,
+                                      pack_out=pack_out))
     return d
 
 

@@ -22,26 +22,31 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.packed import WORD, popcount_u32
 from repro_torch.kernels.popcount_gemm import (apply_threshold_plain,
                                                check_threshold_args,
                                                threshold_mode)
 
 __all__ = ["im2col_words", "out_size", "packed_conv2d",
-           "packed_conv2d_plain", "pad_words_spatial", "tile_plan"]
+           "packed_conv2d_plain", "pad_words_spatial", "smem_bytes",
+           "tile_plan"]
 
 MMA_WORDS = 8           # K of one b1 m16n8k256 MMA, in words
+KS_WORDS = 16           # K of one shared-memory stage, in words
 # the kernel's output tiles (BM pixels x BN filters), largest first
 TILES = ((128, 128), (64, 128), (64, 64))
 H100_SMS = 132
 
 
-def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS) -> dict:
+def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS,
+              pack_out: bool = False, tuned: bool = True) -> dict:
     """The launch plan of a conv with ``m`` output pixels, ``f`` filters
     and ``k32`` = KH*KW*C32 words per window.
 
-    The tile is the largest of ``TILES`` whose grid has at least half
+    The tile is the tuning table's entry for ``("packed_conv[+pack]",
+    "cuda", m, f, k32)`` where it has one (``tuned``; ``kernels.autotune``),
+    else the rule: the largest of ``TILES`` whose grid has at least half
     as many blocks as the card has SMs.  Each tile in ``TILES`` halves
     the one before, so the next has twice the blocks: from that point on
     it would not spread the work over more SMs, and the larger tile
@@ -51,12 +56,27 @@ def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS) -> dict:
     beside this choice.  K is zero-padded to ``k_words``, a multiple of
     the MMA depth (8 words).  Returns ``bm``, ``bn``, ``k_words``, the
     grid (pixel tiles, filter tiles) and its block count."""
-    for bm, bn in TILES:
+    hit = autotune.get_table().get(
+        ("packed_conv+pack" if pack_out else "packed_conv", "cuda", m, f,
+         k32)) if tuned else None
+    for bm, bn in ((hit["bm"], hit["bn"]),) if hit else TILES:
         grid = (-(-m // bm), -(-f // bn))
         if 2 * grid[0] * grid[1] >= sms:
             break
     return {"bm": bm, "bn": bn, "k_words": -(-k32 // MMA_WORDS) * MMA_WORDS,
             "grid": grid, "blocks": grid[0] * grid[1]}
+
+
+def smem_bytes(bm: int, bn: int, k32: int, c32: int) -> int:
+    """Dynamic shared memory of one block of tile (bm, bn) over ``k32``
+    = KH*KW*C32 words of K (``csrc/packed_conv.cu``): a ring of 4 stages
+    of 16 words of K (pixel rows of 20 words, weight rows of BN + 8), the
+    counts pc_x [BM] and pc_w [BN], and the gather table, one int a
+    chunk of K (4-word chunks where C32 % 4 == 0, else words)."""
+    stage = bm * (KS_WORDS + 4) + KS_WORDS * (bn + 8)
+    fixed = 4 * (4 * stage + bm + bn)
+    stages = -(-(-(-k32 // MMA_WORDS) * MMA_WORDS) // KS_WORDS)
+    return fixed + 4 * stages * (KS_WORDS // (4 if c32 % 4 == 0 else 1))
 
 
 def out_size(n: int, k: int, stride: int, pad: int) -> int:
@@ -152,7 +172,8 @@ def packed_conv2d(xw: torch.Tensor, ww: torch.Tensor, *, kh: int, kw: int,
     if xw.device.type == "cpu":
         return packed_conv2d_plain(xw, ww, **args)
     _build.require_cuda_tensor(xw, "packed_conv2d")
-    p = tile_plan(n * ho * wo, f, taps_words, _build.device_sms(xw.device))
+    p = tile_plan(n * ho * wo, f, taps_words, _build.device_sms(xw.device),
+                  pack_out)
     return _launch(xw, ww, (p["bm"], p["bn"]), **args)
 
 

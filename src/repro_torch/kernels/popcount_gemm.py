@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.packed import WORD, pack_words
 from repro_torch.kernels.ref import popcount_gemm_ref
 
@@ -31,13 +31,16 @@ TILES = ((64, 64, 1), (64, 32, 2), (16, 32, 4), (16, 8, 4))
 
 
 def tile_plan(m: int, n: int, k32: int, sms: int,
-              pack_out: bool = False) -> dict:
+              pack_out: bool = False, tuned: bool = True) -> dict:
     """The launch plan of an [m, k32] x [n, k32] word GEMM on a card of
     ``sms`` SMs.
 
-    The candidates are the tiles no taller than M rounded up to 16 rows
-    (a taller one only multiplies zero rows) and, where ``pack_out``,
-    whose warps own 32 columns.  The tile is the first candidate whose
+    The tile is the tuning table's entry for ``("popcount_gemm[+pack]",
+    "cuda", m, n, k32)`` where it has one (``tuned``;
+    ``kernels.autotune``), else the rule.  The rule's candidates are the
+    tiles no taller than M rounded up to 16 rows (a taller one only
+    multiplies zero rows) and, where ``pack_out``, whose warps own 32
+    columns.  The tile is the first candidate whose
     grid has at least half as many blocks as the card has SMs: beyond
     that point a smaller tile would not spread the work over more SMs,
     and the larger one reads each word for more MMAs.  Where no grid is
@@ -46,9 +49,12 @@ def tile_plan(m: int, n: int, k32: int, sms: int,
     ``k_words``, whole stages of ``MMA_WORDS * wk`` words.  Returns
     ``bm``, ``bn``, ``wk``, ``k_words``, the grid (row tiles, column
     tiles) and its block count."""
+    hit = autotune.get_table().get(
+        ("popcount_gemm+pack" if pack_out else "popcount_gemm", "cuda", m,
+         n, k32)) if tuned else None
     rows = max(16, -(-m // 16) * 16)
-    tiles = [t for t in TILES
-             if t[0] <= rows and (not pack_out or t[1] >= 32)]
+    tiles = [(hit["bm"], hit["bn"], hit["wk"])] if hit else \
+        [t for t in TILES if t[0] <= rows and (not pack_out or t[1] >= 32)]
     for bm, bn, wk in tiles:
         grid = (-(-m // bm), -(-n // bn))
         if 2 * grid[0] * grid[1] >= sms:

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.packed import WORD, pack_words
 from repro_torch.kernels.popcount_gemm import threshold_mode
 from repro_torch.kernels.ref import xnor_gemm_ref
@@ -47,11 +47,15 @@ REDUCE_US = 2.0         # the second pass's launch
 
 
 def tile_plan(m: int, n: int, k32: int, sms: int = H100_SMS,
-              planes: int = 1) -> dict:
+              planes: int = 1, pack_out: bool = False,
+              tuned: bool = True) -> dict:
     """The launch plan of an [m, 32*k32] x [32*k32, n] xnor_gemm.
 
-    BM is 16 for m <= 16, else 64; BN is 64 or 128; K may be split into
-    ``splits`` parts, each a block of its own, whose float32 partial
+    The plan is the tuning table's entry for ``("xnor_gemm[+pack]",
+    "cuda", m, n, k32)`` (``"xnor_gemm_f32[+pack]"`` where ``planes`` is
+    3) where it has one (``tuned``; ``kernels.autotune``), else the
+    rule's.  BM is 16 for m <= 16, else 64; BN is 64 or 128; K may be
+    split into ``splits`` parts, each a block of its own, whose float32 partial
     sums a second pass adds in a fixed order.  The plan minimises a cost
     model: blocks run in rounds of one per SM, so the time is the number
     of rounds times one block's work (BM * BN * K / splits
@@ -60,12 +64,20 @@ def tile_plan(m: int, n: int, k32: int, sms: int = H100_SMS,
     ``bn``, ``splits``, the grid (row tiles, column tiles, splits), its
     block count, ``waves`` (blocks over ``sms``, rounded up) and the
     model's ``est_us``."""
-    cands = [(16, 128), (16, 64)] if m <= 16 else [(64, 128), (64, 64)]
+    op = ("xnor_gemm" if planes == 1 else "xnor_gemm_f32") + \
+        ("+pack" if pack_out else "")
+    hit = autotune.get_table().get((op, "cuda", m, n, k32)) \
+        if tuned else None
+    cands = [(hit["bm"], hit["bn"])] if hit else \
+        [(16, 128), (16, 64)] if m <= 16 else [(64, 128), (64, 64)]
     best = None
     for bm, bn in cands:
         gm, gn = -(-m // bm), -(-n // bn)
         for splits in range(1, MAX_SPLITS + 1):
-            if splits > 1 and -(-k32 // splits) < MIN_SPLIT_WORDS:
+            if hit and splits != hit["splits"]:
+                continue
+            if not hit and splits > 1 and \
+                    -(-k32 // splits) < MIN_SPLIT_WORDS:
                 break
             blocks = gm * gn * splits
             waves = -(-blocks // sms)
@@ -149,7 +161,8 @@ def xnor_gemm(x: torch.Tensor, wp: torch.Tensor, alpha: torch.Tensor,
     _build.require_cuda_tensor(x, "xnor_gemm")
     p = tile_plan(x.shape[0], wp.shape[1], wp.shape[0],
                   _build.device_sms(x.device),
-                  planes=3 if x.dtype == torch.float32 else 1)
+                  planes=3 if x.dtype == torch.float32 else 1,
+                  pack_out=pack_out)
     return _launch(x, wp, alpha, (p["bm"], p["bn"], p["splits"]),
                    threshold, threshold_vec, pack_out, valid_n)
 

@@ -15,8 +15,13 @@ The counterpart of ``repro.serving.server``, with the same constructor
   (a request of another input kind is a payload error).  The graphs
   share one memory pool and replay in turn on the server's stream, each
   flight's copy, replay and output clone under one dispatch lock.
-  ``prewarm=True`` captures every ``dispatch_grid`` level at
-  construction (the port has no tuning table yet);
+  ``prewarm=True`` first resolves the launch plan of every key those
+  levels launch (``kernels.autotune.warm`` over
+  ``compiled.tuning_keys_for_batches``: the tuning table, the rules and
+  the fused stack's occupancy query, none of them inside a capture),
+  then captures every ``dispatch_grid`` level at construction.  A
+  replayed graph keeps the plan it was captured with: a tuning table
+  changed afterwards changes no replay;
 * **streams and events for jax's async dispatch** — a flight is
   enqueued on a server-owned ``torch.cuda.Stream`` and records a
   ``torch.cuda.Event``; only the completer thread (or a synchronous
@@ -67,6 +72,7 @@ import torch
 from repro_torch.graph.replay import (CaptureError, GraphedApply, kind_of,
                                       rows_of, spec_kind, tensor_of)
 from repro_torch.kernels._build import LaunchError
+from repro_torch.kernels.autotune import warm
 from repro_torch.kernels.packed import PackedArray, resolve_device
 from repro_torch.runtime.straggler import StepWatchdog, WatchdogConfig
 from repro_torch.serving.bucketing import (
@@ -222,8 +228,10 @@ class BNNServer:
     completer; admit_window_s: how long a partial batch may be held
     open for late-arriving rows WHILE the device is busy (a partial
     batch launches immediately when the device is idle); prewarm:
-    capture the CUDA graph of every (bucket, valid) dispatch level at
-    construction instead of on first touch; device: the server's
+    resolve every dispatch level's launch plans
+    (``kernels.autotune.warm``), then capture the CUDA graph of every
+    (bucket, valid) dispatch level at construction instead of on first
+    touch (a graph keeps the plans it was captured with); device: the server's
     device — None means the card, and a host without one raises; pass
     ``"cpu"`` (with a CompiledBNN compiled for the CPU) to serve there.
 
@@ -331,7 +339,10 @@ class BNNServer:
         self._thread_restarts = 0
         if prewarm:
             kind = spec_kind(compiled.spec)
-            for bucket, valid in dispatch_grid(self.max_batch):
+            grid = dispatch_grid(self.max_batch)
+            warm(compiled.tuning_keys_for_batches(
+                sorted({v for _, v in grid})), self.device)
+            for bucket, valid in grid:
                 self._graph(bucket, valid, kind)
             if cuda:
                 # a graph's first replay uploads it to the card: pay that

@@ -24,7 +24,7 @@ import json
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -62,33 +62,59 @@ def _group(name: str) -> str:
     return "other: " + name[:60]
 
 
+# torch.profiler on the H100 returns, now and then, a session with no
+# device event at all, at times a few sessions in a row: such a session
+# is asked again, up to TRIES sessions; SESSIONS counts the sessions
+# opened and the empty ones among them
+TRIES = 10
+SESSIONS = {"opened": 0, "empty": 0}
+
+
+def device_events(fn: Callable[[], object], iters: int = 1
+                  ) -> Tuple[List, float]:
+    """The device events (``key_averages()``, CUDA only) of ``iters``
+    calls of ``fn`` under torch.profiler, and the wall seconds of those
+    calls.  ``fn`` must launch device work: a session that saw no device
+    event at all is the profiler's loss, and is asked again, up to
+    ``TRIES`` sessions with a growing pause between them, then this
+    raises.  No time is ever taken another way."""
+    for attempt in range(TRIES):
+        SESSIONS["opened"] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, wall_s
+        SESSIONS["empty"] += 1
+        time.sleep(0.05 * (attempt + 1))
+    raise AssertionError(f"the profiler saw no device event in {TRIES} "
+                         f"sessions")
+
+
 def kernel_ms(fn: Callable[[], object], symbol: str, iters: int = 20
               ) -> float:
     """Device time of one call's launches of the kernels whose symbol
     contains ``symbol``, from torch.profiler over ``iters`` calls of
-    ``fn``.  (A back-to-back CUDA-event timing of a kernel shorter than
-    the host's launch path through the wrapper measures the host.)  The
-    profiler has, rarely, reported no device time at all: it is asked
-    three times, then this raises -- a kernel whose symbol the profiler
-    never shows is a failure, never a time taken another way."""
+    ``fn`` (``device_events``).  (A back-to-back CUDA-event timing of a
+    kernel shorter than the host's launch path through the wrapper
+    measures the host.)  Raises where the profiler saw device kernels
+    but none named like ``symbol``: that kernel did not run."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and \
-                    symbol in e.key:
-                us += _device_us(e)
-        if us > 0:
-            return us / iters / 1e3
-    raise AssertionError(f"the profiler saw no device time of a kernel "
-                         f"named like {symbol} in three tries")
+    events, _ = device_events(fn, iters)
+    us = sum(_device_us(e) for e in events if symbol in e.key)
+    if us <= 0:
+        raise AssertionError(
+            f"the profiler saw no device time of a kernel named like "
+            f"{symbol}; it saw {sorted(e.key[:60] for e in events)[:8]}")
+    return us / iters / 1e3
 
 
 def device_kernels(fn: Callable[[], object]) -> Dict[str, int]:
@@ -96,12 +122,7 @@ def device_kernels(fn: Callable[[], object]) -> Dict[str, int]:
     call), by name, with how many times each ran (torch.profiler)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {e.key: e.count for e in device_events(fn)[0]}
 
 
 def device_times(fn: Callable[[], object], iters: int = 2
@@ -111,15 +132,9 @@ def device_times(fn: Callable[[], object], iters: int = 2
     after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out: Dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key] = out.get(e.key, 0.0) + _device_us(e) / iters
+    for e in device_events(fn, iters)[0]:
+        out[e.key] = out.get(e.key, 0.0) + _device_us(e) / iters
     return out
 
 
@@ -138,18 +153,11 @@ def trace_forward(workload: Workload, batch: int, iters: int = 20,
     for _ in range(2):
         forward(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            forward(x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    events, wall_s = device_events(lambda: forward(x), iters)
+    wall_us = wall_s * 1e6
     groups: Dict[str, float] = {}
     kernels: Dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         us = _device_us(e)
         groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + us / iters
         kernels[e.key[:160]] = kernels.get(e.key[:160], 0) + e.count / iters

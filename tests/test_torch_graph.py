@@ -330,7 +330,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "models/attention.py", "models/moe.py", "models/ssm.py",
                    "models/rglru.py", "models/transformer.py",
                    "models/quantize.py", "models/model.py",
-                   "launch/serve.py"):
+                   "launch/serve.py", "robustness/inject.py",
+                   "kernels/autotune.py", "graph/tuning.py",
+                   "analysis/lint.py", "analysis/audit.py",
+                   "analysis/rules/layering.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
