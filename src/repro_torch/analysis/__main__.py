@@ -1,7 +1,8 @@
 """CLI for the port's contract linter: ``python -m repro_torch.analysis``.
 
 The gate is ``python -m repro_torch.analysis --gate``: lint
-``src/repro_torch`` and ``chip_smoke.py`` with the port's RPL catalog,
+``src/repro_torch``, ``chip_smoke.py`` and the example twins
+(``examples/torch_*.py``) with the port's RPL catalog,
 print one line per finding (``RPL### path:line message (DESIGN.md
 §N)``), exit nonzero on any.  Stdlib-only by design — see
 :mod:`repro_torch.analysis.lint`.
@@ -20,7 +21,8 @@ from repro_torch.analysis.rules import ALL_RULES
 
 def default_gate_paths() -> List[Path]:
     root = repo_root()
-    return [root / "src" / "repro_torch", root / "chip_smoke.py"]
+    return [root / "src" / "repro_torch", root / "chip_smoke.py",
+            *sorted((root / "examples").glob("torch_*.py"))]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -32,8 +34,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "paths",
         nargs="*",
         type=Path,
-        help="files or directories to lint (default: src/repro_torch + "
-        "chip_smoke.py)",
+        help="files or directories to lint (default: src/repro_torch, "
+        "chip_smoke.py and examples/torch_*.py)",
     )
     parser.add_argument(
         "--gate",

@@ -13,8 +13,9 @@ on a host with nothing installed.
 API:
 
 * :func:`lint_paths` / :func:`lint_files` -> ``list[Finding]``
-* ``python -m repro_torch.analysis --gate`` lints ``src/repro_torch`` +
-  ``chip_smoke.py`` and exits nonzero on any finding, one line each::
+* ``python -m repro_torch.analysis --gate`` lints ``src/repro_torch``,
+  ``chip_smoke.py`` and ``examples/torch_*.py`` and exits nonzero on
+  any finding, one line each::
 
       RPL004 src/repro_torch/serving/server.py:441 <message> (DESIGN.md §10)
 

@@ -121,6 +121,9 @@ _SIGN_SITES = {
     # the card's smoke run draws random +-1 operands by the pack
     # convention to hold each kernel against its plain version
     "chip_smoke.py": (ast.Gt,),
+    # the quickstart's numpy sign-net oracle spells the pack convention
+    # and the fold compare, as the reference's example does
+    "examples/torch_quickstart.py": (ast.Gt, ast.GtE),
 }
 
 _WHERE_CHAINS = frozenset(

@@ -10,7 +10,8 @@ payload is int8 with per (token, head) float32 scales.
 
 The online-softmax chunking runs as a Python loop over
 ``attn_q_chunk`` x ``attn_kv_chunk`` tiles (the reference's
-``lax.scan``); with grad enabled each q chunk is recomputed in the
+``lax.scan``; ``op_cost.scan``, which a dry-run's counter may scale
+from one trip); with grad enabled each q chunk is recomputed in the
 backward pass, as the reference's ``jax.checkpoint``.  Scores
 and the value sums are float32, as the reference's
 ``preferred_element_type``.  Caches are updated functionally (the
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        dtype_of, wparams)
+from repro_torch.runtime import op_cost
 
 NEG_INF = -1e30
 _Q_CHUNK = threading.local()
@@ -134,7 +136,9 @@ def _q_chunk(qi, qpos, k, v, kv_positions, causal: bool, window: int,
                        device=qi.device)
         lse = torch.zeros((B, qc, Hkv, G), dtype=f32, device=qi.device)
         acc = torch.zeros((B, qc, Hkv, G, D), dtype=f32, device=qi.device)
-        for j in range(0, k.shape[1], kc):
+
+        def tile(carry, j):
+            m, lse, acc = carry
             kj, vj = k[:, j:j + kc], v[:, j:j + kc]
             kpos = kv_positions[j:j + kc]
             s = torch.einsum("bqhgd,bkhd->bqhgk", qi, kj.to(f32)) * scale
@@ -150,7 +154,9 @@ def _q_chunk(qi, qpos, k, v, kv_positions, causal: bool, window: int,
             lse = lse * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
                 "bqhgk,bkhd->bqhgd", p.to(vj.dtype).to(f32), vj.to(f32))
-            m = m_new
+            return (m_new, lse, acc), None
+        (m, lse, acc), _ = op_cost.scan(tile, (m, lse, acc),
+                                        range(0, k.shape[1], kc))
         return acc / torch.clamp(lse, min=1e-30)[..., None]
     finally:
         _Q_CHUNK.depth -= 1
@@ -169,13 +175,14 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     Sq = q.shape[1]
     qc = _pick_chunk(Sq, q_chunk)
     kc = _pick_chunk(k.shape[1], kv_chunk)
-    outs = []
-    for i in range(0, Sq, qc):
+
+    def q_tile(_, i):
         args = (q[:, i:i + qc].to(torch.float32), q_positions[i:i + qc], k,
                 v, kv_positions, causal, window, kc)
         out = checkpoint(_q_chunk, *args, use_reentrant=False) \
             if torch.is_grad_enabled() else _q_chunk(*args)
-        outs.append(out.to(q.dtype))
+        return None, out.to(q.dtype)
+    _, outs = op_cost.scan(q_tile, None, range(0, Sq, qc))
     return torch.cat(outs, dim=1)
 
 

@@ -20,7 +20,6 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.binarize import ste_sign
 from repro_torch.kernels.packed import PackedArray
@@ -60,6 +59,14 @@ def _maybe_bin(w, mode):
     return ste_sign(w) * alpha
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)`` as a compare with an iota (the
+    reference's ``jax.nn.one_hot``): the same values, and no host read
+    (``F.one_hot`` checks its range with ``.item()`` on the CPU, and
+    dispatches other ops on each device)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def router_probs(p, x, cfg):
     """Returns (top-k weights [B,S,k], indices [B,S,k], aux loss)."""
     logits = x.to(torch.float32) @ p["router"]             # [B,S,E]
@@ -69,8 +76,8 @@ def router_probs(p, x, cfg):
     # load-balancing aux loss (Switch):  E * sum_e f_e * p_e
     e = cfg.num_experts
     me = torch.mean(probs, dim=(0, 1))
-    one_hot = F.one_hot(idx, e).to(torch.float32)
-    fe = torch.mean(one_hot.sum(dim=2), dim=(0, 1))
+    fe = torch.mean(one_hot(idx, e, torch.float32).sum(dim=2),
+                    dim=(0, 1))
     aux = e * torch.sum(me * fe)
     return w.to(x.dtype), idx, aux
 
@@ -90,7 +97,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
         u = torch.einsum("bsd,edf->besf", x, wu)
         h = f(g) * u
         y_e = torch.einsum("besf,efd->besd", h, wd)        # [B,E,S,D]
-        comb = torch.sum(F.one_hot(idx, E).to(x.dtype) * w[..., None],
+        comb = torch.sum(one_hot(idx, E, x.dtype) * w[..., None],
                          dim=2)
         y = torch.einsum("besd,bse->bsd", y_e, comb)
         return y, aux
@@ -100,15 +107,15 @@ def moe_apply(p, x, cfg, impl: str = "dense"
     k = cfg.top_k
     cap = int(2.0 * S * k / E) or 1
     # position of each (token, k) within its expert's buffer
-    onehot = F.one_hot(idx, E).to(torch.int32)             # [B,S,k,E]
+    onehot = one_hot(idx, E, torch.int32)                  # [B,S,k,E]
     flat = onehot.reshape(B, S * k, E)
     pos_in_e = torch.cumsum(flat, dim=1) - 1               # [B,S*k,E]
     pos = torch.sum(flat * pos_in_e, dim=-1).reshape(B, S, k)
 
     if impl == "capacity":
         keep = pos < cap
-        disp = (F.one_hot(idx, E).to(x.dtype)[..., None]
-                * F.one_hot(torch.clamp(pos, max=cap - 1), cap).to(x.dtype)
+        disp = (one_hot(idx, E, x.dtype)[..., None]
+                * one_hot(torch.clamp(pos, max=cap - 1), cap, x.dtype)
                 [..., None, :]
                 * keep[..., None, None].to(x.dtype))       # [B,S,k,E,C]
         xe = torch.einsum("bsd,bskec->becd", x, disp)      # [B,E,C,D]

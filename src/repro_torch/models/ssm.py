@@ -2,9 +2,10 @@
 
 The port of ``repro.models.ssm``.  Train/prefill runs the recurrence
 h_t = a_t * h_{t-1} + bx_t as a chunked scan: a sequential loop over
-time-chunks (the reference's ``lax.scan``) whose inner step is a
-parallel prefix scan over the chunk (``associative_scan``), so the
-materialized state tensor is [B, chunk, d_inner, d_state].  Decode is
+time-chunks (the reference's ``lax.scan``; here ``op_cost.scan``) whose
+inner step is a parallel prefix scan over the chunk
+(``associative_scan``), so the materialized state tensor is [B, chunk,
+d_inner, d_state].  Decode is
 the O(1) single-step recurrence.  The selective scan stays in float32;
 the in/out projections are binarized.  Every ``shard_act`` call of the
 reference is dropped: the port runs on one card.
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense, dtype_of, normal, uniform,
                                        wparams)
+from repro_torch.runtime import op_cost
 
 
 def ssm_init(gen, cfg, device) -> Dict[str, Any]:
@@ -93,13 +95,12 @@ def _scan_chunked(a, bx, h0, chunk: int):
     c = chunk
     while S % c:
         c -= 1
-    h = h0
-    hs = []
-    for i in range(0, S, c):
+
+    def body(h, i):
         aa, bb = associative_scan(a[:, i:i + c], bx[:, i:i + c], dim=1)
         h_seq = aa * h[:, None] + bb              # [B,c,C,N]
-        h = h_seq[:, -1]
-        hs.append(h_seq)
+        return h_seq[:, -1], h_seq
+    h, hs = op_cost.scan(body, h0, range(0, S, c))
     return h, torch.cat(hs, dim=1)
 
 

@@ -163,10 +163,12 @@ def test_rule_fires_on_its_corpus_file(tmp_path, rule_id):
 
 
 def test_tree_is_clean():
-    """The gate's promise: zero findings on src/repro_torch and
-    chip_smoke.py."""
+    """The gate's promise: zero findings on src/repro_torch,
+    chip_smoke.py and the example twins."""
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 4
     findings = lint_paths([ROOT / "src" / "repro_torch",
-                           ROOT / "chip_smoke.py"], root=ROOT)
+                           ROOT / "chip_smoke.py", *twins], root=ROOT)
     assert findings == [], "\n".join(f.format() for f in findings)
 
 

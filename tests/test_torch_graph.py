@@ -311,7 +311,8 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("graph/replay.py", "serving/server.py",
@@ -333,8 +334,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "launch/serve.py", "robustness/inject.py",
                    "kernels/autotune.py", "graph/tuning.py",
                    "analysis/lint.py", "analysis/audit.py",
-                   "analysis/rules/layering.py"):
+                   "analysis/rules/layering.py", "runtime/op_cost.py",
+                   "launch/dryrun.py"):
         assert f"src/repro_torch/{module}" in scanned, module
+    for twin in ("quickstart", "serve_bnn", "train_bnn_lm",
+                 "tulip_asic_sim"):
+        assert f"examples/torch_{twin}.py" in scanned, twin
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
