@@ -225,17 +225,42 @@
    equal exactly, the dry-run's scaled count equal to the full one,
    argument + temp bytes within 20% of ``max_memory_allocated``; the
    flop and byte terms at the card's peak printed beside the step's
-   device ms.
+   device ms;
+15. runs the device mesh, the sharding rules and data-parallel
+   serving: (a) ``serving.data_mesh()`` over every visible card and, on
+   a one-card machine, a mesh of 4 slots on cuda:0 (how many distinct
+   cards each spans is printed); (b) full-width BinaryNet served by
+   ``BNNServer(max_batch=256, mesh=...)`` on each mesh beside the
+   one-device server (all prewarmed): 1, 2, 3, 4, 8, 11 and 255 rows
+   each equal to the single-device ``apply`` bit for bit and launching
+   8 kernels on every slot that received rows; phase 6's burst (512
+   requests of 1..256 rows, seed 0, 4 threads) on every server, each
+   result equal to ``apply`` on its own rows, then two steady bursts a
+   server in turns (images/s, p50/p99); one flight of 200 rows under
+   the profiler (8 kernels x 4 slots on the 4-slot mesh); no fallback,
+   levels within ``trace_bound``; (c) XNOR-AlexNet at ``max_batch=32``
+   on the same meshes: the split gate against the CPU first, then 1, 2,
+   3, 4, 8, 11, 22 and 31 rows, each launching 6 kernels a slot that
+   received rows and equal bit for bit to the single-device ``apply``
+   of the pieces the mesh ran (cuDNN orders conv2's float sums by the
+   batch), and against the whole batch's through the split: the
+   pieces' float activations within 1e-5 * max|h|, the served logits
+   the binary tail's on them (no burst: a burst's flights are cut where
+   the checker cannot see); a flight of 27 rows under the profiler;
+   (d) ``runtime.sharding.param_specs``' parameter bytes a device of
+   qwen1.5-0.5b and mixtral-8x22b at their published configs on the
+   (16, 16) and (2, 16, 16) meshes, baseline and packed (meta tensors).
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
-steps 3-6, 8, 9, 10, 11, 13 and 14, each counted from 0 just before
-it runs (step 12 launches none) (a graph's replay counts the kernels
+steps 3-6, 8, 9, 10, 11, 13, 14 and 15, each counted from 0 just
+before it runs (step 12 launches none) (a graph's replay counts the kernels
 its capture recorded; in step 10 the simulator's oracle ``apply``; in
 step 11 the eight held calls of (a); in step 13 the curves, the
 untuned and tuned forwards and the tuned server, not the tuner's
 timing runs, and not the audit's, whose launches it records apart; in
-step 14 the quickstart twin's ``main``).  Any failure raises and exits
+step 14 the quickstart twin's ``main``; in step 15 the mesh servers'
+held rows, bursts and profiled flights).  Any failure raises and exits
 non-zero; no phase catches its own failure.  The last line is the
 device summary JSON; the line before it the card's name and power
 limit; before that the ``kernels`` JSON.  Results also go to
@@ -1445,12 +1470,27 @@ def wall_ms(fn, iters):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+PROFILER_PAD = 512     # one-element adds ahead of each profiled call
+
+
 def port_kernels(fn):
     """The port's kernels one call of ``fn`` runs on the card, by the
-    profiler (name -> launches)."""
+    profiler (name -> launches).  A session can lose its first device
+    records: on the H100, late in a long process, ten sessions in a row
+    showed only the call's last three port kernels (a 50 ms wait before
+    the call did not change that).  ``PROFILER_PAD`` one-element torch
+    adds launched ahead of ``fn`` in each session take that loss; only
+    the port's kernels are counted."""
     from repro_torch.trace import GROUPS, device_kernels
+    pad = torch.zeros(1, device=DEVICE)
+
+    def padded():
+        for _ in range(PROFILER_PAD):
+            pad.add_(1)
+        return fn()
+
     seen = {}
-    for name, count in device_kernels(fn).items():
+    for name, count in device_kernels(padded).items():
         for frag, group in GROUPS[:5]:
             if frag in name:
                 seen[group] = seen.get(group, 0) + count
@@ -1571,6 +1611,48 @@ def graphed_path(launches):
 SERVED = (("BinaryNet", 256, 512), ("AlexNet", 32, 64))
 
 
+def burst(srv, xs, clients=4):
+    """Submit ``xs`` to a started server from ``clients`` threads at
+    once; returns the results, the wall time and each request's latency
+    (submit to resolution, ms), sorted."""
+    import threading
+    n_req = len(xs)
+    futs, lat = [None] * n_req, [None] * n_req
+    # a future wakes its waiters before it runs its callbacks: the
+    # latencies are read only once every callback has run
+    timed = threading.Semaphore(0)
+
+    def done(f, i, t):
+        lat[i] = (time.perf_counter() - t) * 1e3
+        timed.release()
+
+    def client(k):
+        for i in range(k, n_req, clients):
+            t = time.perf_counter()
+            futs[i] = srv.submit(xs[i])
+            futs[i].add_done_callback(lambda f, i=i, t=t: done(f, i, t))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for c in threads:
+        c.start()
+    for c in threads:
+        c.join()
+    out = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    for _ in range(n_req):
+        if not timed.acquire(timeout=60):
+            raise AssertionError("a latency callback never ran")
+    return out, wall, sorted(lat)
+
+
+def pcts(ms):
+    """p50 and p99 of sorted milliseconds."""
+    n = len(ms)
+    return dict(p50=ms[n // 2], p99=ms[min(n - 1, int(0.99 * n))])
+
+
 def serving_path(launches):
     """``BNNServer(max_batch, prewarm=True)`` over full-width BinaryNet
     (max_batch 256, 512 requests) and XNOR-AlexNet (32, 64): requests of
@@ -1587,8 +1669,6 @@ def serving_path(launches):
     images/s, p50/p99 latency, the in-flight peak and how much memory
     the prewarmed server holds (``memory_reserved`` around its
     construction)."""
-    import threading
-
     import numpy as np
 
     from repro_torch import graph
@@ -1631,50 +1711,12 @@ def serving_path(launches):
         torch.cuda.synchronize()
         srv.start()
 
-        def burst():
-            """The requests from 4 client threads at once; returns the
-            results, the wall time and each request's latency (submit to
-            resolution, ms)."""
-            futs, lat = [None] * n_req, [None] * n_req
-            # a future wakes its waiters before it runs its callbacks:
-            # the latencies are read only once every callback has run
-            timed = threading.Semaphore(0)
-
-            def done(f, i, t):
-                lat[i] = (time.perf_counter() - t) * 1e3
-                timed.release()
-
-            def client(k):
-                for i in range(k, n_req, 4):
-                    t = time.perf_counter()
-                    futs[i] = srv.submit(xs[i])
-                    futs[i].add_done_callback(
-                        lambda f, i=i, t=t: done(f, i, t))
-
-            t0 = time.perf_counter()
-            clients = [threading.Thread(target=client, args=(k,))
-                       for k in range(4)]
-            for c in clients:
-                c.start()
-            for c in clients:
-                c.join()
-            out = [f.result(timeout=600) for f in futs]
-            wall = time.perf_counter() - t0
-            for _ in range(n_req):
-                if not timed.acquire(timeout=60):
-                    raise AssertionError("a latency callback never ran")
-            return out, wall, sorted(lat)
-
-        def pcts(ms):
-            n = len(ms)
-            return dict(p50=ms[n // 2], p99=ms[min(n - 1, int(0.99 * n))])
-
         _build.reset_launch_counts()
         # the first burst after start-up pays the allocator's growth and
         # the threads' first CUDA calls; the second is the steady state
         bursts, got, seen = [], [], []
         for _ in range(2):
-            out_b, wall, lat = burst()
+            out_b, wall, lat = burst(srv, xs)
             bursts.append(dict(wall_s=wall,
                                images_per_s=float(rows.sum()) / wall,
                                latency_ms=pcts(lat)))
@@ -3730,6 +3772,314 @@ def twins_dryrun_path(launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 15: the mesh, the sharding rules, data-parallel serving        #
+# ------------------------------------------------------------------ #
+MESH_SLOTS = 4                  # slots of the mesh on one card
+# (label, workload, max_batch, burst requests or None, row counts held,
+# rows of the profiled flight: one piece on each of 4 slots)
+MESH_SERVED = (("BinaryNet", "binarynet", 256, 512,
+                (1, 2, 3, 4, 8, 11, 255), 200),
+               ("AlexNet", "alexnet", 32, None,
+                (1, 2, 3, 4, 8, 11, 22, 31), 27))
+MESH_ROUNDS = 2                 # steady bursts a server, in turns
+RULE_ARCHS = ("qwen1.5-0.5b", "mixtral-8x22b")
+
+
+def per_device_bytes(arch, multi_pod, packed):
+    """(bytes of ``arch``'s published params, the bytes one device holds
+    of them under ``param_specs`` on the production mesh), on meta
+    tensors: each leaf's bytes over the slots its spec splits it into."""
+    import math
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.packed import PackedArray
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import abstract_params
+    from repro_torch.models.quantize import pack_model_params
+    from repro_torch.runtime.sharding import P, param_specs
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    params = abstract_params(get_arch(arch))
+    if packed:
+        params = pack_model_params(params)
+    specs = tree.leaves(param_specs(params, mesh, ("decoder", "encoder")),
+                        is_leaf=lambda s: isinstance(s, P))
+    total = held = 0
+    for leaf, spec in zip(tree.leaves(params), specs):
+        t = leaf.words if isinstance(leaf, PackedArray) else leaf
+        nbytes = t.numel() * t.element_size()
+        split = math.prod(mesh.shape[a] for e in spec if e is not None
+                          for a in (e if isinstance(e, tuple) else (e,)))
+        total += nbytes
+        held += nbytes // split
+    return total, held
+
+
+def rules_bytes():
+    """15d: the parameter bytes a device holds of qwen1.5-0.5b and
+    mixtral-8x22b at their published configs under ``param_specs``
+    (FSDP over "data", TP over "model") on the (16, 16) and
+    (2, 16, 16) meshes, baseline and packed."""
+    out = {}
+    for arch in RULE_ARCHS:
+        for multi_pod in (False, True):
+            for packed in (False, True):
+                total, held = per_device_bytes(arch, multi_pod, packed)
+                key = (f"{arch} {'2x16x16' if multi_pod else '16x16'} "
+                       f"{'packed' if packed else 'baseline'}")
+                out[key] = dict(total_bytes=total, per_device_bytes=held)
+                print(f"param_specs {key}: {held} bytes a device of "
+                      f"{total} ({total / held:.1f}x less)")
+    return out
+
+
+def replicated(cb, params, x, pieces):
+    """What a mesh flight of ``x`` computes: each piece of ``pieces``
+    (``BNNServer.split``) through the single-device ``apply`` at its
+    graph's rows (zero-padded) and valid rows, the rows put back in
+    order."""
+    outs = []
+    for _, lo, hi, rows, valid in pieces:
+        xp = torch.zeros((rows, *x.shape[1:]), dtype=x.dtype,
+                         device=x.device)
+        xp[:hi - lo] = x[lo:hi]
+        outs.append(cb.apply(params, xp, valid_rows=valid)[:hi - lo])
+    return torch.cat(outs)
+
+
+def mesh_bursts(label, spec, cb, params, servers, max_batch, n_req,
+                launches):
+    """Phase 6's burst on every server: ``n_req`` requests of
+    1..max_batch rows (seed 0) from 4 threads, every result equal to
+    ``apply`` on its own rows; the first burst of each server warms it
+    up, then ``MESH_ROUNDS`` steady bursts a server in turns (images/s,
+    p50/p99 latency).  Starts the servers."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    rows = np.random.default_rng(0).integers(1, max_batch + 1, n_req)
+    data = images(spec, int(rows.sum()), 0)
+    offs = np.concatenate([[0], np.cumsum(rows)])
+    xs = [data[offs[i]:offs[i + 1]] for i in range(n_req)]
+    wants = [cb.apply(params, x) for x in xs]
+    sync()
+    for srv in servers.values():
+        srv.start()
+    names = list(servers)
+    order = names + [n for r in range(MESH_ROUNDS)
+                     for n in (names if r % 2 else names[::-1])]
+    bursts = {n: [] for n in names}
+    _build.reset_launch_counts()
+    for i, name in enumerate(order):
+        got, wall, lat = burst(servers[name], xs)
+        for x, y, w in zip(xs, got, wants):
+            if not torch.equal(y, w):
+                raise AssertionError(f"{label} served by {name}: a result "
+                                     f"({x.shape[0]} rows) differs from "
+                                     f"apply on its own rows")
+        if i >= len(names):            # the first burst of each warms up
+            bursts[name].append(dict(wall_s=wall,
+                                     images_per_s=float(rows.sum()) / wall,
+                                     latency_ms=pcts(lat)))
+    add_launches(launches, _build.launch_counts())
+    for name in names:
+        b = bursts[name]
+        print(f"{label} served by {name}: steady bursts of {n_req} "
+              f"requests ({int(rows.sum())} images, 4 threads) at "
+              f"{[round(r['images_per_s'], 1) for r in b]} images/s, p50 "
+              f"{[round(r['latency_ms']['p50'], 3) for r in b]} ms, p99 "
+              f"{[round(r['latency_ms']['p99'], 3) for r in b]} ms; all "
+              f"results equal apply on their own rows")
+    return bursts
+
+
+def mesh_model(label, key, max_batch, n_req, rows_list, flight_rows,
+               meshes, launches):
+    """15b/c: ``label`` at full width served by ``BNNServer(max_batch,
+    mesh=...)`` on every mesh of ``meshes`` (prewarmed): each of
+    ``rows_list`` launching one forward's kernels on every slot that
+    received rows and equal bit for bit to the single-device ``apply``
+    (BinaryNet, whose one float conv sums integers); AlexNet's conv2
+    sums alpha-scaled floats in an order cuDNN picks by the batch, so
+    each of its results is held bit for bit against the single-device
+    ``apply`` of the pieces the mesh ran (``replicated``) and, through
+    the split at ``SPLIT_AT``, against the whole batch's: the pieces'
+    float activations within 1e-5 * max|h| of the whole batch's, the
+    served logits the binary tail's on them.  With ``n_req``: beside
+    the one-device server, a burst of ``n_req`` requests of
+    1..max_batch rows (seed 0) from 4 threads, every result equal to
+    ``apply`` on its own rows, then ``MESH_ROUNDS`` steady bursts a
+    server in turns.  One flight of ``flight_rows`` rows under the
+    profiler; no fallback, graphs within ``trace_bound``."""
+    from repro_torch import graph
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.kernels import _build
+    from repro_torch.serving import BNNServer
+    per_forward = BINARYNET_PER_FORWARD if key == "binarynet" \
+        else ALEXNET_PER_FORWARD
+    spec = graph.from_workload(WORKLOADS[key])
+    cb = graph.compile(spec, device=DEVICE, batch=max_batch)
+    params = cb.init(torch.Generator().manual_seed(0))
+    out = {}
+    if key == "alexnet":
+        # the float entry convs: the card against the CPU through the
+        # split, before the mesh is held against the card
+        out["split_gate"] = alexnet_vs_cpu(spec, cb, params,
+                                           images(spec, 11, 15))
+        print(f"AlexNet (phase 15) split gate: {out['split_gate']}")
+        head, tail = cb.split(SPLIT_AT)
+    servers, prewarm_s = {}, {}
+    for name, mesh in [*([("one device", None)] if n_req else []),
+                       *meshes.items()]:
+        t0 = time.perf_counter()
+        servers[name] = BNNServer(cb, params, max_batch=max_batch,
+                                  prewarm=True, max_queue_rows=None,
+                                  mesh=mesh, device=DEVICE)
+        prewarm_s[name] = time.perf_counter() - t0
+
+    held = {}
+    for name in meshes:
+        srv, rows_out = servers[name], []
+        for rows in rows_list:
+            x = images(spec, rows, 100 + rows)
+            want = cb.apply(params, x)
+            sync()
+            _build.reset_launch_counts()
+            got = srv.apply_batch(x)
+            sync()
+            counts = _build.launch_counts()
+            add_launches(launches, counts)
+            split = srv.split(rows)
+            pieces = len(split)
+            expect_launches(f"{label} on mesh {name}, {rows} rows", counts,
+                            {k: v * pieces for k, v in per_forward.items()})
+            rec = dict(rows=rows, pieces=pieces,
+                       whole_batch_equal=torch.equal(got, want))
+            if key == "alexnet":
+                if not torch.equal(got, replicated(cb, params, x, split)):
+                    raise AssertionError(f"AlexNet on mesh {name}: {rows} "
+                                         f"rows differ from the apply of "
+                                         f"the pieces it ran")
+                h = replicated(head, params, x, split)
+                h_whole = head.apply(params, x)
+                err = float((h - h_whole).abs().max())
+                tol = 1e-5 * float(h_whole.abs().max())
+                if err > tol or not torch.equal(tail.apply(params, h), got):
+                    raise AssertionError(f"AlexNet on mesh {name}, {rows} "
+                                         f"rows: the pieces' float layers "
+                                         f"{err} from the whole batch's "
+                                         f"(tol {tol}), or the tail on "
+                                         f"them differs from the served")
+                rec.update(float_err=err, float_tol=tol, sign_flips=int(
+                    ((h > 0) != (h_whole > 0)).sum()))
+            elif not rec["whole_batch_equal"]:
+                raise AssertionError(f"{label} on mesh {name}: {rows} rows "
+                                     f"differ from the single-device apply")
+            rows_out.append(rec)
+        held[name] = rows_out
+        exact = [r["rows"] for r in rows_out if r["whole_batch_equal"]]
+        print(f"{label} on mesh {name} (max_batch {max_batch}): rows "
+              f"{list(rows_list)}, pieces {[r['pieces'] for r in rows_out]}"
+              f", each {sum(per_forward.values())} kernels a piece; equal "
+              f"to the single-device apply of the whole batch bit for bit "
+              f"at {exact}")
+        if key == "alexnet":
+            print(f"  AlexNet: every row count equal to the apply of the "
+                  f"pieces it ran; the pieces' float activations within "
+                  f"{max(r['float_err'] for r in rows_out):.3g} of the "
+                  f"whole batch's (tol >= "
+                  f"{min(r['float_tol'] for r in rows_out):.3g}), signs "
+                  f"differing {[r['sign_flips'] for r in rows_out]}, the "
+                  f"binary tail on them equal to the served logits")
+        print(f"  prewarm "
+              f"{prewarm_s[name]:.2f} s, {servers[name].jit_traces()} "
+              f"levels, graphs a slot "
+              f"{[s['graphs'] for s in servers[name].slots()]}")
+    out["rows"] = held
+    out["prewarm_s"] = prewarm_s
+    if n_req:
+        out["bursts"] = mesh_bursts(label, spec, cb, params, servers,
+                                    max_batch, n_req, launches)
+    else:
+        for srv in servers.values():
+            srv.start()
+
+    flights = {}
+    x1 = images(spec, flight_rows, 7)
+    for name in meshes:
+        srv = servers[name]
+        pieces = len(srv.split(flight_rows))
+        want1 = {k: v * pieces for k, v in per_forward.items()}
+        n_flights = [0]
+
+        def flight():
+            n_flights[0] += 1
+            return srv.submit(x1).result(timeout=60)
+
+        _build.reset_launch_counts()
+        seen, views = replay_kernels(f"{label} mesh {name} flight of "
+                                     f"{flight_rows} rows", flight, want1)
+        counted = {k: v for k, v in _build.launch_counts().items() if v}
+        if counted != {k: n_flights[0] * v for k, v in want1.items()}:
+            raise AssertionError(f"{label} mesh {name}: the counts rose by "
+                                 f"{counted} in {n_flights[0]} flights of "
+                                 f"{pieces} pieces")
+        add_launches(launches, counted)
+        flights[name] = dict(rows=flight_rows, pieces=pieces,
+                             profiler_kernels=seen, views=views,
+                             flights=n_flights[0])
+        print(f"{label} mesh {name}: a profiled flight of {flight_rows} "
+              f"rows ran {seen} (view {views}) = {pieces} slots x one "
+              f"forward")
+    out["profiled_flight"] = flights
+
+    for name, srv in servers.items():
+        srv.stop()
+        st = srv.stats()
+        faults = st["faults"]
+        if any(faults.values()) or st["jit_traces"] > st["trace_bound"]:
+            raise AssertionError(f"{label} served by {name}: faults "
+                                 f"{faults}, {st['jit_traces']} levels "
+                                 f"(bound {st['trace_bound']})")
+        out.setdefault("servers", {})[name] = dict(
+            devices=st["devices"], levels=st["jit_traces"],
+            trace_bound=st["trace_bound"], batches=st["batches"],
+            slots=srv.slots())
+        if name != "one device":
+            print(f"{label} served by {name}: devices {st['devices']}, "
+                  f"slots {srv.slots()}, no fallback")
+    return out
+
+
+def mesh_path(launches):
+    """Phase 15: (a) the meshes, ``serving.data_mesh()`` over every
+    visible card and, on a one-card machine, ``MESH_SLOTS`` slots on
+    cuda:0; (b) BinaryNet and (c) XNOR-AlexNet served on them
+    (``mesh_model``); (d) ``param_specs``' bytes a device
+    (``rules_bytes``)."""
+    from repro_torch.serving import data_mesh
+    t_phase = time.perf_counter()
+    meshes = {"every card": data_mesh()}
+    if torch.cuda.device_count() == 1:
+        meshes[f"{MESH_SLOTS} slots on cuda:0"] = data_mesh(
+            devices=[torch.device("cuda", 0)] * MESH_SLOTS)
+    out = {"meshes": {}}
+    for name, mesh in meshes.items():
+        cards = len(mesh.distinct_devices())
+        out["meshes"][name] = dict(shape=mesh.shape, slots=mesh.size,
+                                   cards=cards)
+        print(f"mesh {name}: {mesh.shape}, {mesh.size} slots on {cards} "
+              f"distinct card(s)")
+    for label, key, max_batch, n_req, rows_list, flight_rows in MESH_SERVED:
+        out[label] = mesh_model(label, key, max_batch, n_req, rows_list,
+                                flight_rows, meshes, launches)
+    out["rules"] = rules_bytes()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the mesh phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -3900,6 +4250,7 @@ def main():
     llm_train = llm_train_path(launches)
     faults = faults_tuning_audit_path(launches)
     twins = twins_dryrun_path(launches)
+    meshed = mesh_path(launches)
     from repro_torch.trace import SESSIONS
     print(f"torch.profiler: {SESSIONS['opened']} sessions opened, "
           f"{SESSIONS['empty']} of them saw no device event and were "
@@ -3927,6 +4278,7 @@ def main():
          "fused_vs_chained_replayed": stack_race, "train": trained,
          "sim": simulated, "llm": llm, "llm_train": llm_train,
          "faults_tuning_audit": faults, "twins_dryrun": twins,
+         "mesh": meshed,
          "profiler_sessions": SESSIONS,
          "device": device},
         indent=1))

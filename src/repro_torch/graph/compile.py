@@ -160,6 +160,15 @@ class CompiledBNN:
         return compile(self.spec, backend=backend, device=self.device,
                        batch=self.batch)
 
+    def to(self, device: Union[str, torch.device]) -> "CompiledBNN":
+        """The same plan for another device (a serving mesh builds one
+        per distinct device it spans); ``self`` when it is the same."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return CompiledBNN(self.spec, self.plan, self.backend, dev,
+                           self.batch)
+
     # -------------------------------------------------------------- #
     def init(self, generator: torch.Generator, threshold_range: int = 3,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:

@@ -14,9 +14,10 @@ resumes from the latest complete checkpoint and reproduces exactly the
 step sequence an uninterrupted run would have produced.  A step-time
 watchdog records straggler events.
 
-The port runs on one card: the reference's mesh (``launch/mesh.py``)
-and sharding rules (``runtime/sharding.py``) have no counterpart, and a
-``mesh`` other than None raises.  ``train`` runs on the card unless the
+The port trains on one card: SPMD training over a ``torch.distributed``
+``DeviceMesh`` (FSDP + TP placements from ``runtime.sharding.
+param_specs``) is the next slice of the port, and until then a ``mesh``
+other than None raises.  ``train`` runs on the card unless the
 caller passes ``device="cpu"``; it never falls back to the CPU.
 
 Bit-identical resume on the card needs a deterministic step: the
@@ -119,7 +120,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     card).  run_steps: execute at most this many steps this invocation
     (simulated preemption — the schedule horizon stays ``steps``)."""
     if mesh is not None:
-        raise ValueError("the port trains on one card: mesh must be None")
+        raise ValueError("SPMD training over a mesh (a torch.distributed "
+                         "DeviceMesh with param_specs placements) is the "
+                         "port's next slice: mesh must be None")
     dev = resolve_device(device)
     if dev.type == "cuda":
         _deterministic_cublas()

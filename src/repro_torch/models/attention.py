@@ -15,8 +15,7 @@ from one trip); with grad enabled each q chunk is recomputed in the
 backward pass, as the reference's ``jax.checkpoint``.  Scores
 and the value sums are float32, as the reference's
 ``preferred_element_type``.  Caches are updated functionally (the
-input cache is not written), as the reference's ``.at[].set``.  Every
-``shard_act`` call is dropped: the port runs on one card.
+input cache is not written), as the reference's ``.at[].set``.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        dtype_of, wparams)
 from repro_torch.runtime import op_cost
+from repro_torch.runtime.sharding import shard_act
 
 NEG_INF = -1e30
 _Q_CHUNK = threading.local()
@@ -316,6 +316,7 @@ def attn_apply(p, x, cfg, *, kind: str = "causal",
                 q = apply_rope(q, qp, cfg.rope_theta)
                 k = apply_rope(k, qp, cfg.rope_theta)
         qg = _group(q, cfg.num_kv_heads)
+        qg = shard_act(qg, (("pod", "data"), None, "model", None, None))
         if decode:
             cache = cache_insert(cache, k, v, step)
             out = decode_attention(qg, cache, step)

@@ -21,8 +21,7 @@ A packed x (the fully-binary surface) runs on the port's kernels:
 ``dense`` and ``packed_dense`` through ``popcount_gemm``, ``packed_mlp``
 through ``compile_dense_stack`` (``fused_binary_mlp``).
 
-Every ``shard_act`` call of the reference is dropped: the port runs on
-one card.  Numerics mirrored on purpose: the norms and RoPE compute in
+Numerics mirrored on purpose: the norms and RoPE compute in
 float32 and cast back, layernorm's variance is the population one
 (``jnp.var``), gelu is the tanh approximation (``jax.nn.gelu``'s
 default), and ``ste_sign`` maps 0 to +1 while the pack bit is
@@ -45,6 +44,7 @@ from repro_torch.graph.compile import compile as graph_compile
 from repro_torch.graph.compile import compile_dense_stack
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.packed import PackedArray
+from repro_torch.runtime.sharding import shard_act
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -307,6 +307,7 @@ def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = f(g) * u
     else:
         h = f(dense(wparams(p, "w_up", "b_up"), x, mode))
+    h = shard_act(h, (("pod", "data"), None, "model"))
     return dense(wparams(p, "w_down", "b_down"), h, mode)
 
 

@@ -12,8 +12,7 @@ on the card unless the caller passes a CPU device; ``abstract_params``
 builds the tree on torch's ``meta`` device.  ``forward`` / ``prefill``
 / ``decode_step`` run on the device of the params they are given, with
 no autograd (serving); ``loss_fn`` runs the same forward core
-(``_forward``) with grad enabled.  Every ``shard_act`` call of the
-reference is dropped: the port runs on one card.
+(``_forward``) with grad enabled.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_xent, dtype_of,
                                        embed_init, embed_lookup,
                                        logits_apply, norm_init, normal)
+from repro_torch.runtime.sharding import shard_act
 
 
 def decoder_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -89,6 +89,7 @@ def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     """The forward core, under whatever grad mode the caller runs."""
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
+    x = shard_act(x, (("pod", "data"), None, "model"))
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     if cfg.learned_pos:
         x = x + params["pos_emb"][None, :S]

@@ -11,8 +11,7 @@ implementations:
     sliced off (the reference's ``.at[].set(mode="drop")``) and its
     output is zeroed.
 
-Expert weights are [E, d_model, d_ff].  Every ``shard_act`` call of the
-reference is dropped: the port runs on one card.
+Expert weights are [E, d_model, d_ff].
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch
 from repro_torch.core.binarize import ste_sign
 from repro_torch.kernels.packed import PackedArray
 from repro_torch.models.layers import act_fn, dtype_of, normal
+from repro_torch.runtime.sharding import shard_act
 
 
 def moe_init(gen, cfg, device) -> Dict[str, Any]:
@@ -96,6 +96,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
         g = torch.einsum("bsd,edf->besf", x, wg)
         u = torch.einsum("bsd,edf->besf", x, wu)
         h = f(g) * u
+        h = shard_act(h, (("pod", "data"), None, None, "model"))
         y_e = torch.einsum("besf,efd->besd", h, wd)        # [B,E,S,D]
         comb = torch.sum(one_hot(idx, E, x.dtype) * w[..., None],
                          dim=2)
@@ -121,6 +122,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
         xe = torch.einsum("bsd,bskec->becd", x, disp)      # [B,E,C,D]
         h = f(torch.einsum("becd,edf->becf", xe, wg)) \
             * torch.einsum("becd,edf->becf", xe, wu)
+        h = shard_act(h, (("pod", "data"), None, None, "model"))
         ye = torch.einsum("becf,efd->becd", h, wd)
         y = torch.einsum("becd,bskec,bsk->bsd", ye, disp, w.to(x.dtype))
         return y, aux
@@ -137,6 +139,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
                       buf_tok[..., None].expand(B, E, cap, D))  # [B,E,C,D]
     h = f(torch.einsum("becd,edf->becf", xe, wg)) \
         * torch.einsum("becd,edf->becf", xe, wu)
+    h = shard_act(h, (("pod", "data"), None, None, "model"))
     ye = torch.einsum("becf,efd->becd", h, wd)             # [B,E,C,D]
     # combine: each token's k expert outputs back from the buffers
     ye_flat = ye.reshape(B, E * cap, D)

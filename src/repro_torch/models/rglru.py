@@ -9,8 +9,7 @@ The port of ``repro.models.rglru``.  The diagonal recurrence runs as a
 prefix scan in float32 (``ssm.associative_scan``, the reference's
 ``jax.lax.associative_scan``); the surrounding projections and the
 conv1d are binarizable.  The gelu is the tanh approximation
-(``jax.nn.gelu``'s default).  Every ``shard_act`` call of the reference
-is dropped: the port runs on one card.
+(``jax.nn.gelu``'s default).
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense, dtype_of, gelu, normal,
                                        uniform, wparams)
 from repro_torch.models.ssm import _conv_train, _pad_left, associative_scan
+from repro_torch.runtime.sharding import shard_act
 
 _C = 8.0
 
@@ -59,6 +59,7 @@ def rglru_apply(p, x, cfg, state: Optional[Dict] = None):
 
     xz = dense(wparams(p, "in_proj"), x, mode)
     u, gate_in = torch.chunk(xz, 2, dim=-1)       # [B,S,W]
+    u = shard_act(u, (("pod", "data"), None, "model"))
 
     decode = state is not None and S == 1
     if decode:

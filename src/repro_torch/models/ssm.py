@@ -7,8 +7,7 @@ inner step is a parallel prefix scan over the chunk
 (``associative_scan``), so the materialized state tensor is [B, chunk,
 d_inner, d_state].  Decode is
 the O(1) single-step recurrence.  The selective scan stays in float32;
-the in/out projections are binarized.  Every ``shard_act`` call of the
-reference is dropped: the port runs on one card.
+the in/out projections are binarized.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense, dtype_of, normal, uniform,
                                        wparams)
 from repro_torch.runtime import op_cost
+from repro_torch.runtime.sharding import shard_act
 
 
 def ssm_init(gen, cfg, device) -> Dict[str, Any]:
@@ -117,6 +117,7 @@ def ssm_apply(p, x, cfg, state: Optional[Dict] = None,
 
     xz = dense(wparams(p, "in_proj"), x, mode)
     xs, z = torch.chunk(xz, 2, dim=-1)            # [B,S,din]
+    xs = shard_act(xs, (("pod", "data"), None, "model"))
 
     decode = state is not None and S == 1
     if decode:

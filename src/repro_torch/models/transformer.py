@@ -16,8 +16,7 @@ the reference's ``jax.checkpoint`` of a cycle: "full" recomputes the
 whole cycle in the backward pass, "dots" keeps the matmul outputs and
 recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``; an
 attention q chunk, checkpointed on its own, keeps none),
-"none" keeps every activation.  Every ``shard_act`` call of the
-reference is dropped: the port runs on one card.
+"none" keeps every activation.
 
 Block kinds:
   attn          causal self-attention + MLP (or MoE)
@@ -44,6 +43,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dtype_of, mlp_apply,
                                        mlp_init, norm_init)
+from repro_torch.runtime.sharding import shard_act
 
 
 # ------------------------------------------------------------------ #
@@ -177,6 +177,7 @@ def block_apply(p, x, cfg, kind: str, *,
     elif "mlp" in p:
         h2 = apply_norm(p["norm2"], x, cfg.norm)
         x = x + mlp_apply(p["mlp"], h2, cfg)
+    x = shard_act(x, (("pod", "data"), None, "model"))
     return x, new_cache, aux
 
 

@@ -1,5 +1,5 @@
 """The serving subsystem of the port: BNNServer over compile(), on one
-card (DESIGN.md §9/§10/§11).
+device or data-parallel over a mesh (DESIGN.md §9/§10/§11).
 
 The counterpart of ``repro.serving``: pow2 batch bucketing with ragged
 row-validity masking and a bounded set of CUDA graphs (one per
@@ -9,7 +9,8 @@ stream) with latency percentiles and a ``stats()`` surface, and the
 failure-handling contract (errors.py typed taxonomy; deadlines, bounded
 queue, poison-batch bisection, a fallback to the ``"torch"`` backend
 on the same card, supervised worker loops, ``health()``).  Placement
-reduces to one device: a mesh other than None raises.
+(``placement.py``) splits request rows over a mesh's data axes and
+replicates the parameters per device.
 """
 
 from repro_torch.serving.bucketing import (

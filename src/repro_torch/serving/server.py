@@ -1,20 +1,17 @@
-"""BNNServer: continuously-batched, fault-tolerant serving over the
-port's ``compile()`` on one card (DESIGN.md §9 bucketing, §10
-continuous batching, §11 failure handling).
+"""BNNServer: continuously-batched, data-parallel, fault-tolerant
+serving over the port's ``compile()`` (DESIGN.md §9 bucketing/sharding,
+§10 continuous batching, §11 failure handling).
 
 The counterpart of ``repro.serving.server``, with the same constructor
-(less the mesh, which must be None, and donation), ``submit``,
-``apply_batch``, ``flush``, ``start``/``stop``, ``health`` and
-``stats``.  The translations:
+(less donation), ``submit``, ``apply_batch``, ``flush``,
+``start``/``stop``, ``health`` and ``stats``.  The translations:
 
 * **one CUDA graph per dispatch level** — where the reference jits
   ``CompiledBNN.apply`` once per (bucket, valid_rows) level, the port
   captures a :class:`~repro_torch.graph.replay.GraphedApply` per
   (bucket, valid_rows) level and replays it; ``jit_traces()`` counts
-  the graphs captured, at most ``trace_bound(max_batch, ragged=True)``
-  (a request of another input kind is a payload error).  The graphs
-  share one memory pool and replay in turn on the server's stream, each
-  flight's copy, replay and output clone under one dispatch lock.
+  the levels captured, at most ``trace_bound(max_batch, ragged=True)``
+  (a request of another input kind is a payload error).
   ``prewarm=True`` first resolves the launch plan of every key those
   levels launch (``kernels.autotune.warm`` over
   ``compiled.tuning_keys_for_batches``: the tuning table, the rules and
@@ -22,9 +19,30 @@ The counterpart of ``repro.serving.server``, with the same constructor
   then captures every ``dispatch_grid`` level at construction.  A
   replayed graph keeps the plan it was captured with: a tuning table
   changed afterwards changes no replay;
-* **streams and events for jax's async dispatch** — a flight is
-  enqueued on a server-owned ``torch.cuda.Stream`` and records a
-  ``torch.cuda.Event``; only the completer thread (or a synchronous
+* **data-parallel sharding over a mesh** — ``mesh`` is a
+  :class:`~repro_torch.launch.mesh.Mesh` whose slots may repeat a
+  device (4 slots on one card run the split of 4 cards).  Where
+  ``fit_spec`` splits a bucket over the data axes, its rows are cut into
+  as many pieces, and piece *i* replays on its slot a graph of ``bucket
+  // n`` rows with ``clamp(valid - i * bucket // n, 0, bucket // n)``
+  valid rows; where the mesh does not divide the bucket (a 1- or 2-row
+  bucket on 4 slots) the flight runs whole on the first slot, which is
+  what replication computes.  The pieces are gathered on the first
+  slot's device and sliced to the request's rows: bit for bit the
+  single-device ``apply`` wherever the forward's sums do not depend on
+  the batch (every binary layer; a float entry conv on integer images),
+  and the ``apply`` of the pieces where they do (AlexNet's conv2, whose
+  float sums cuDNN orders by the batch).  Each slot has its own
+  streams, graph memory pool and graphs (``slots()``); the params and
+  the CompiledBNN are placed once per distinct device.  A slot's graphs
+  share its pool and replay in turn on its stream (a pool shared by the
+  slots of a card would make all their replays run in turn), and one
+  dispatch lock keeps each flight's copies, replays and output clones
+  together, so the pieces of a flight run at once on their slots'
+  streams, on one card or several;
+* **streams and events for jax's async dispatch** — a flight's pieces
+  are enqueued on their slots' ``torch.cuda.Stream``s and each records
+  a ``torch.cuda.Event``; only the completer thread (or a synchronous
   ``apply_batch`` / ``flush`` caller) blocks, in ``event.synchronize()``,
   before a future resolves.  Results are ready for the device's default
   stream (their memory is recorded on it, so a caller freeing one can
@@ -33,7 +51,7 @@ The counterpart of ``repro.serving.server``, with the same constructor
   rows into the graph's static input buffer (or, on the degraded and
   CPU paths, pads into a fresh tensor), so there is no donation;
 * **the degraded step** re-executes a flight whose kernels failed,
-  eagerly and without a graph, counted in
+  eagerly, without a graph and whole on the first slot, counted in
   ``stats()["faults"]["backend_fallbacks"]``.  On the card it launches
   the same kernels again, one by one, through ``compiled.apply``: the
   port never gives way to a kernel's plain version there, so a flight
@@ -74,6 +92,7 @@ from repro_torch.graph.replay import (CaptureError, GraphedApply, kind_of,
 from repro_torch.kernels._build import LaunchError
 from repro_torch.kernels.autotune import warm
 from repro_torch.kernels.packed import PackedArray, resolve_device
+from repro_torch.runtime.sharding import BATCH_AXES, NamedSharding, fit_spec
 from repro_torch.runtime.straggler import StepWatchdog, WatchdogConfig
 from repro_torch.serving.bucketing import (
     bucket_for,
@@ -90,7 +109,8 @@ from repro_torch.serving.errors import (
     ServerOverloaded,
     ServingError,
 )
-from repro_torch.serving.placement import replicate, shard_batch
+from repro_torch.serving.placement import (check_mesh, replicate,
+                                           shard_batch)
 
 __all__ = ["BNNServer"]
 
@@ -111,6 +131,18 @@ def _slice_rows(x: Any, start: int, stop: int) -> Any:
     if isinstance(x, PackedArray):
         return x.with_words(x.words[start:stop])
     return x[start:stop]
+
+
+def _to(x: Any, device: torch.device) -> Any:
+    return x.with_words(x.words.to(device)) if isinstance(x, PackedArray) \
+        else x.to(device)
+
+
+def _with_index(device: torch.device) -> torch.device:
+    """``device`` with its index (a bare "cuda" is the current card)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _concat_rows(xs: Sequence[Any]) -> Any:
@@ -200,15 +232,64 @@ class _Request:
         return self.deadline is not None and now >= self.deadline
 
 
+class _Slot:
+    """One slot of the serving mesh: its device, the CompiledBNN and
+    params there (one object per distinct device, shared by its slots),
+    its own streams and graph memory pool, and the graphs captured for
+    it, keyed by (rows, valid rows)."""
+
+    __slots__ = ("index", "device", "compiled", "params", "stream",
+                 "capture_stream", "pool", "callers", "graphs")
+
+    def __init__(self, index: int, device: torch.device, compiled: Any,
+                 params: Any):
+        cuda = device.type == "cuda"
+        self.index = index
+        self.device = device
+        self.compiled = compiled
+        self.params = params
+        # flights replay on stream; graphs are captured on capture_stream
+        # into the slot's memory pool
+        self.stream = torch.cuda.Stream(device) if cuda else None
+        self.capture_stream = torch.cuda.Stream(device) if cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.callers = torch.cuda.default_stream(device) if cuda else None
+        self.graphs: Dict[Tuple[int, int], GraphedApply] = {}
+
+
+class _Level:
+    """One (bucket, valid) dispatch level: each piece its rows split
+    into as (slot, first row, graph), in row order."""
+
+    __slots__ = ("pieces",)
+
+    def __init__(self, pieces: Tuple[Tuple[_Slot, int, GraphedApply], ...]):
+        self.pieces = pieces
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """The kernel launches of one replay of every piece."""
+        out: Dict[str, int] = {}
+        for _, _, g in self.pieces:
+            for k, v in g.launches.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+
+# one chunk's pieces: (unresolved output, event or None, slot) each
+_Parts = List[Tuple[Any, Any, _Slot]]
+
+
 class _Flight:
     """One launched-but-unresolved micro-batch: its admitted requests
-    and the chunk outputs, each with the event its stream recorded
-    after it (None on the CPU, where a chunk is computed at launch)."""
+    and, for each chunk, its pieces (each output with the event its
+    slot's stream recorded after it; None on the CPU, where a piece is
+    computed at launch) and its row count."""
 
     __slots__ = ("reqs", "outs", "t_launch")
 
     def __init__(
-        self, reqs: List[_Request], outs: List[Tuple[Any, int, Any]],
+        self, reqs: List[_Request], outs: List[Tuple[_Parts, int]],
         t_launch: float,
     ):
         self.reqs = reqs
@@ -217,13 +298,14 @@ class _Flight:
 
 
 class BNNServer:
-    """Serving front door over a compiled BNN on one card (see module
-    docstring).
+    """Serving front door over a compiled BNN (see module docstring).
 
     compiled: the CompiledBNN to serve; params: its bound parameter
-    tree (moved to the server's device at construction); max_batch:
-    bucket ceiling, rounded up to a power of two; mesh: must be None
-    (the port serves one card); dispatch_ahead: max
+    tree (moved to the server's device, or to each device of the mesh,
+    at construction); max_batch: bucket ceiling, rounded up to a power
+    of two; mesh: a :class:`~repro_torch.launch.mesh.Mesh` to split
+    flights over (``serving.data_mesh``), or None for one device;
+    dispatch_ahead: max
     launched-but-unresolved batches the dispatcher may run ahead of the
     completer; admit_window_s: how long a partial batch may be held
     open for late-arriving rows WHILE the device is busy (a partial
@@ -232,8 +314,9 @@ class BNNServer:
     (``kernels.autotune.warm``), then capture the CUDA graph of every
     (bucket, valid) dispatch level at construction instead of on first
     touch (a graph keeps the plans it was captured with); device: the server's
-    device — None means the card, and a host without one raises; pass
-    ``"cpu"`` (with a CompiledBNN compiled for the CPU) to serve there.
+    device — None means the card (with a mesh: its first slot's
+    device), and a host without one raises; pass ``"cpu"`` (with a
+    CompiledBNN compiled for the CPU) to serve there.
 
     Robustness knobs (DESIGN.md §11): max_queue_rows bounds the queue
     (None: unbounded; ``submit`` raises ServerOverloaded past it);
@@ -272,7 +355,17 @@ class BNNServer:
             raise ValueError(f"max_queue_rows must be >= 1, got {max_queue_rows}")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            slot_devices = [self.device]
+        else:
+            slot_devices = [resolve_device(d)
+                            for d in check_mesh(mesh).slots()]
+            self.device = slot_devices[0]
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device}")
         if compiled.device.type != self.device.type:
             raise ValueError(f"the CompiledBNN runs on {compiled.device}, "
                              f"the server on {self.device}")
@@ -286,15 +379,16 @@ class BNNServer:
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
         self.supervise_interval_s = supervise_interval_s
-        self.params = replicate(params, self.device, mesh)
-        cuda = self.device.type == "cuda"
-        # flights replay on _stream; graphs are captured on _capture_stream
-        # into one shared memory pool
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
-        self._capture_stream = torch.cuda.Stream(self.device) if cuda else None
-        self._pool = torch.cuda.graph_pool_handle() if cuda else None
-        self._callers = torch.cuda.default_stream(self.device) if cuda else None
-        self._graphs: Dict[Tuple, GraphedApply] = {}
+        # the params and the CompiledBNN once per distinct device
+        placed: Dict[torch.device, Tuple[Any, Any]] = {}
+        for dev in dict.fromkeys(_with_index(d) for d in slot_devices):
+            same = dev == _with_index(compiled.device)
+            placed[dev] = (compiled if same else compiled.to(dev),
+                           replicate(params, dev))
+        self._slots = [_Slot(i, dev, *placed[dev]) for i, dev in
+                       enumerate(_with_index(d) for d in slot_devices)]
+        self.params = self._slots[0].params
+        self._graphs: Dict[Tuple[int, int], _Level] = {}
         self._dispatch_lock = threading.Lock()
         self._chaos = chaos
         self._watchdog = StepWatchdog(watchdog_cfg or WatchdogConfig())
@@ -326,6 +420,7 @@ class BNNServer:
         self._padded_rows = 0
         self._valid_rows = 0
         self._real_rows = 0
+        self._slot_rows = [0] * len(self._slots)
         self._hbm_bytes = 0
         self._inflight_n = 0
         self._inflight_peak = 0
@@ -340,17 +435,23 @@ class BNNServer:
         if prewarm:
             kind = spec_kind(compiled.spec)
             grid = dispatch_grid(self.max_batch)
-            warm(compiled.tuning_keys_for_batches(
-                sorted({v for _, v in grid})), self.device)
+            valids: Dict[torch.device, set] = {}
+            for bucket, valid in grid:
+                for slot, _, _, pv in self._layout(bucket, valid):
+                    valids.setdefault(slot.device, set()).add(pv)
+            for dev, vs in valids.items():
+                warm(compiled.tuning_keys_for_batches(sorted(vs)), dev)
             for bucket, valid in grid:
                 self._graph(bucket, valid, kind)
-            if cuda:
+            for slot in self._slots:
+                if slot.stream is None:
+                    continue
                 # a graph's first replay uploads it to the card: pay that
                 # here, not in the first flight of each level
-                with torch.cuda.stream(self._stream):
-                    for g in self._graphs.values():
+                with torch.cuda.stream(slot.stream):
+                    for g in slot.graphs.values():
                         g.graph.replay()
-                self._stream.synchronize()
+                slot.stream.synchronize()
 
     # -- the bucketed, masked dispatch core -------------------------- #
     def trace_bound(self) -> int:
@@ -359,37 +460,90 @@ class BNNServer:
         return trace_bound(self.max_batch, ragged=True)
 
     def jit_traces(self) -> int:
-        """The CUDA graphs captured (on the CPU: the dispatch levels
-        touched), the port's count of the reference's jit traces."""
+        """The dispatch levels captured, the port's count of the
+        reference's jit traces (on one device, one graph each)."""
         with self._trace_lock:
             return len(self._graphs)
 
     def graphs(self) -> List[GraphedApply]:
-        """The captured graphs (capture time, launches per replay)."""
+        """The captured graphs of every slot (capture time, launches per
+        replay)."""
         with self._trace_lock:
-            return list(self._graphs.values())
+            return [g for s in self._slots for g in s.graphs.values()]
+
+    def slots(self) -> List[Dict[str, Any]]:
+        """Per slot, in mesh order: its device, the graphs captured for
+        it and the request rows it has received (padding not counted)."""
+        with self._trace_lock:
+            graphs = [len(s.graphs) for s in self._slots]
+        with self._stats_lock:
+            rows = list(self._slot_rows)
+        return [{"device": str(s.device), "graphs": g, "rows": r}
+                for s, g, r in zip(self._slots, graphs, rows)]
+
+    def split(self, rows: int) -> List[Tuple[int, int, int, int, int]]:
+        """How a flight of ``rows`` rows (at most ``max_batch``) is cut:
+        for each piece that receives rows, in row order, ``(slot index,
+        first row, stop row, graph rows, graph valid rows)`` — the piece
+        runs as ``apply`` of its rows padded to the graph's rows with
+        ``valid_rows`` the graph's valid rows."""
+        bucket = bucket_for(rows, self.max_batch)
+        return [(slot.index, lo, min(rows, lo + pb), pb, pv)
+                for slot, lo, pb, pv in
+                self._layout(bucket, ragged_valid(rows, bucket)) if lo < rows]
+
+    def _owners(self, bucket: int) -> List[_Slot]:
+        """The slot of each piece a bucket's rows are cut into: where
+        ``fit_spec`` splits the bucket over the mesh's data axes, the
+        first slot holding each block of rows, else the first slot."""
+        if self.mesh is None:
+            return self._slots[:1]
+        spec = fit_spec((bucket,), (BATCH_AXES,), self.mesh)
+        first: Dict[int, _Slot] = {}
+        for slot, block in zip(self._slots, NamedSharding(
+                self.mesh, spec).blocks((bucket,))):
+            first.setdefault(block[0][0], slot)
+        return [first[lo] for lo in sorted(first)]
+
+    def _layout(self, bucket: int, valid: int
+                ) -> List[Tuple[_Slot, int, int, int]]:
+        """The pieces of a (bucket, valid) level that hold valid rows:
+        (slot, first row, rows, valid rows) each."""
+        owners = self._owners(bucket)
+        pb = bucket // len(owners)
+        return [(slot, i * pb, pb, min(valid - i * pb, pb))
+                for i, slot in enumerate(owners) if i * pb < valid]
 
     def _inflight(self) -> int:
         with self._stats_lock:
             return self._inflight_n
 
     def _graph(self, bucket: int, valid: int, kind: Tuple
-               ) -> Tuple[GraphedApply, bool]:
-        """The graph of one dispatch level, captured on first touch
-        under the trace lock (concurrent first touches cannot capture
-        twice, so the per-level bound holds); returns (graph, hit)."""
+               ) -> Tuple[_Level, bool]:
+        """The graphs of one dispatch level, one per piece, each captured
+        on its slot's first touch of the piece's (rows, valid) under the
+        trace lock (concurrent first touches cannot capture twice, so
+        the per-level bound holds); returns (level, hit)."""
         if kind != spec_kind(self.compiled.spec):
             raise ValueError(f"request kind {kind} is not the spec's input "
                              f"{spec_kind(self.compiled.spec)}")
         key = (bucket, valid)
         with self._trace_lock:
-            g = self._graphs.get(key)
-            if g is not None:
-                return g, True
-            g = GraphedApply(self.compiled, self.params, bucket, valid,
-                             pool=self._pool, stream=self._capture_stream)
-            self._graphs[key] = g
-            return g, False
+            level = self._graphs.get(key)
+            if level is not None:
+                return level, True
+            pieces = []
+            for slot, lo, pb, pv in self._layout(bucket, valid):
+                g = slot.graphs.get((pb, pv))
+                if g is None:
+                    g = GraphedApply(slot.compiled, slot.params, pb, pv,
+                                     pool=slot.pool,
+                                     stream=slot.capture_stream)
+                    slot.graphs[(pb, pv)] = g
+                pieces.append((slot, lo, g))
+            level = _Level(tuple(pieces))
+            self._graphs[key] = level
+            return level, False
 
     def _fallback_apply(self) -> Any:
         """The degraded path, chosen on the first backend fault and run
@@ -400,48 +554,63 @@ class BNNServer:
         bit-identical by the backend registry contract)."""
         with self._fallback_lock:
             if self._fallback is None:
+                first = self._slots[0].compiled
                 self._fallback = (
-                    self.compiled if self.device.type == "cuda"
-                    else self.compiled.with_backend(self.fallback_backend))
+                    first if self.device.type == "cuda"
+                    else first.with_backend(self.fallback_backend))
             return self._fallback
 
-    def _enqueue(self, run: Any, x: Any) -> Tuple[Any, Any]:
-        """Run ``run()`` on the server's stream, after the work the
-        calling thread has queued (the payload's producers), and record
-        the flight's event; returns (output, event).  The dispatch lock
-        keeps each flight's copy, replay and clone together: the graphs
-        share one memory pool."""
-        if self._stream is None:
-            return run(), None
+    def _enqueue(self, work: List[Tuple[_Slot, Any, Any]]) -> _Parts:
+        """Run each ``(slot, run, payload)``'s ``run()`` on its slot's
+        stream, after the work the calling thread has queued on that
+        device (the payload's producers), and record its event; returns
+        [(output, event, slot)].  The dispatch lock keeps a flight's
+        copies, replays and clones together: a slot's graphs share its
+        memory pool."""
+        if work[0][0].stream is None:
+            return [(run(), None, slot) for slot, run, _ in work]
+        parts: _Parts = []
         with self._dispatch_lock:
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            if tensor_of(x).is_cuda:
-                # the payload is read on the server's stream
-                tensor_of(x).record_stream(self._stream)
-            with torch.cuda.stream(self._stream):
-                out = run()
-                ev = torch.cuda.Event()
-                ev.record(self._stream)
-        return out, ev
+            for slot, run, x in work:
+                slot.stream.wait_stream(torch.cuda.current_stream(slot.device))
+                if tensor_of(x).device == slot.device:
+                    # the payload is read on the slot's stream
+                    tensor_of(x).record_stream(slot.stream)
+                # the stream's context makes its card the current device
+                with torch.cuda.stream(slot.stream):
+                    out = run()
+                    ev = torch.cuda.Event()
+                    ev.record(slot.stream)
+                parts.append((out, ev, slot))
+        return parts
 
-    def _launch(self, x: Any, rows: int, fallback: bool = False
-                ) -> Tuple[Any, Any]:
-        """Enqueue one micro-batch at its (bucket, valid) level; returns
-        the UNRESOLVED output (``valid`` >= ``rows`` rows) and its
-        event.  Degraded dispatches skip the graph cache: they run
-        ``_fallback_apply()`` eagerly (same bounded level set)."""
+    def _launch(self, x: Any, rows: int, fallback: bool = False) -> _Parts:
+        """Enqueue one micro-batch at its (bucket, valid) level, a piece
+        on each slot that receives rows; returns the UNRESOLVED pieces
+        (together ``valid`` >= ``rows`` rows).  Degraded dispatches skip
+        the graph cache: they run ``_fallback_apply()`` eagerly and
+        whole on the first slot (same bounded level set)."""
         bucket = bucket_for(rows, self.max_batch)
         valid = ragged_valid(rows, bucket)
         hit: Optional[bool] = None
         if fallback:
-            fb = self._fallback_apply()
-            out, ev = self._enqueue(lambda: fb.apply(
-                self.params, _pad_rows(shard_batch(x, self.device), bucket),
-                valid_rows=valid), x)
+            fb, first = self._fallback_apply(), self._slots[0]
+            work = [(first, lambda: fb.apply(
+                first.params, _pad_rows(shard_batch(x, first.device),
+                                        bucket), valid_rows=valid), x)]
         else:
-            g, hit = self._graph(bucket, valid, kind_of(x))
-            out, ev = self._enqueue(lambda: g(x), x)
+            level, hit = self._graph(bucket, valid, kind_of(x))
+            work = []
+            for slot, lo, g in level.pieces:
+                if lo >= rows:
+                    break
+                piece = x if len(level.pieces) == 1 else \
+                    _slice_rows(x, lo, lo + g.batch)
+                work.append((slot, lambda g=g, p=piece: g(p), piece))
+        parts = self._enqueue(work)
         with self._stats_lock:
+            for slot, _, p in work:
+                self._slot_rows[slot.index] += rows_of(p)
             if hit is True:
                 self._bucket_hits += 1
             elif hit is False:
@@ -451,34 +620,41 @@ class BNNServer:
             self._valid_rows += valid
             self._real_rows += rows
             self._hbm_bytes += self._level_traffic(valid)
-        return out, ev
+        return parts
 
     def _launch_chunks(
         self, x: Any, rows: int, fallback: bool = False
-    ) -> List[Tuple[Any, int, Any]]:
+    ) -> List[Tuple[_Parts, int]]:
         """Enqueue a payload as max_batch chunks + remainder; returns
-        [(unresolved out, chunk rows, event)]."""
-        outs: List[Tuple[Any, int, Any]] = []
+        [(unresolved pieces, chunk rows)]."""
+        outs: List[Tuple[_Parts, int]] = []
         chunks = split_rows(rows, self.max_batch)
         off = 0
         for chunk in chunks:
             piece = x if len(chunks) == 1 else _slice_rows(x, off, off + chunk)
-            out, ev = self._launch(piece, chunk, fallback)
-            outs.append((out, chunk, ev))
+            outs.append((self._launch(piece, chunk, fallback), chunk))
             off += chunk
         return outs
 
-    def _finish_chunks(self, outs: List[Tuple[Any, int, Any]]) -> Any:
-        """Resolve launched chunks (``event.synchronize()``) and
-        reassemble the true-row-count result.  Each output's memory is
-        recorded on the default stream, where callers use it."""
-        parts = []
-        for out, chunk, ev in outs:
-            if ev is not None:
-                ev.synchronize()
-                tensor_of(out).record_stream(self._callers)
-            parts.append(_slice_rows(out, 0, chunk))
-        return parts[0] if len(parts) == 1 else _concat_rows(parts)
+    def _finish_chunks(self, outs: List[Tuple[_Parts, int]]) -> Any:
+        """Resolve launched chunks (``event.synchronize()``), gather each
+        chunk's pieces on the first slot's device and reassemble the
+        true-row-count result.  Each piece's memory is recorded on its
+        device's default stream, where callers (and the gather) use
+        it."""
+        first = self._slots[0].device
+        results = []
+        for parts, chunk in outs:
+            ys = []
+            for out, ev, slot in parts:
+                if ev is not None:
+                    ev.synchronize()
+                    tensor_of(out).record_stream(slot.callers)
+                ys.append(out)
+            y = ys[0] if len(ys) == 1 else \
+                _concat_rows([_to(p, first) for p in ys])
+            results.append(_slice_rows(y, 0, chunk))
+        return results[0] if len(results) == 1 else _concat_rows(results)
 
     def _level_traffic(self, valid: int) -> int:
         b = self._traffic_cache.get(valid)
@@ -1047,7 +1223,7 @@ class BNNServer:
             "compute_occupancy": real / valid if valid else 0.0,
             "hbm_bytes": hbm,
             "hbm_bytes_per_request": hbm / max(requests, 1),
-            "devices": 1,
+            "devices": 1 if self.mesh is None else self.mesh.size,
             "faults": faults,
             "straggler_flags": straggler_flags,
             "straggler_median_s": straggler_median,

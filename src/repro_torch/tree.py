@@ -13,12 +13,18 @@ The reference's optimizer and checkpointer walk their trees with
 
 A :class:`TreeDef` records the containers, so ``unflatten(treedef,
 leaves)`` rebuilds the same nesting around new leaves.
+``flatten_with_path`` names each leaf as the reference's sharding rules
+do (``runtime.sharding``); ``is_leaf`` stops the walk at a container
+(a ``PartitionSpec`` is a tuple).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
-__all__ = ["TreeDef", "flatten", "leaves", "map", "unflatten"]
+__all__ = ["TreeDef", "flatten", "flatten_with_path", "leaves", "map",
+           "unflatten"]
+
+IsLeaf = Optional[Callable[[Any], bool]]
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -62,32 +68,60 @@ class TreeDef:
         return f"({inner}{',' if len(self.children) == 1 else ''})"
 
 
-def _flatten(tree: Any, out: List[Any]) -> TreeDef:
+def _flatten(tree: Any, out: List[Any], is_leaf: IsLeaf = None,
+             paths: Optional[List[str]] = None, path: str = "") -> TreeDef:
+    """Append ``tree``'s leaves to ``out`` (and, when ``paths`` is a
+    list, each leaf's path to it)."""
+    def sub(v: Any, key: Any) -> TreeDef:
+        if paths is None:
+            return _flatten(v, out, is_leaf)
+        return _flatten(v, out, is_leaf, paths,
+                        f"{path}/{key}" if path else str(key))
+
     if tree is None:
         return TreeDef("none")
-    if isinstance(tree, dict):
-        keys = tuple(sorted(tree))
-        return TreeDef("dict", keys,
-                       tuple(_flatten(tree[k], out) for k in keys))
-    if _is_namedtuple(tree):
-        return TreeDef("namedtuple", type(tree),
-                       tuple(_flatten(v, out) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return TreeDef("list" if isinstance(tree, list) else "tuple", None,
-                       tuple(_flatten(v, out) for v in tree))
+    if is_leaf is None or not is_leaf(tree):
+        if isinstance(tree, dict):
+            keys = tuple(sorted(tree))
+            return TreeDef("dict", keys, tuple(sub(tree[k], k) for k in keys))
+        if _is_namedtuple(tree):
+            return TreeDef("namedtuple", type(tree),
+                           tuple(sub(v, f) for f, v in
+                                 zip(tree._fields, tree)))
+        if isinstance(tree, (list, tuple)):
+            return TreeDef("list" if isinstance(tree, list) else "tuple",
+                           None, tuple(sub(v, i) for i, v in enumerate(tree)))
     out.append(tree)
+    if paths is not None:
+        # the reference flattens a PackedArray to its words leaf (matched
+        # by name: kernels.packed imports this module)
+        words = type(tree).__name__ == "PackedArray"
+        paths.append(f"{path}/words" if words and path else
+                     "words" if words else path)
     return TreeDef("leaf")
 
 
-def flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+def flatten(tree: Any, is_leaf: IsLeaf = None) -> Tuple[List[Any], TreeDef]:
     """(leaves in jax's order, the tree's structure)."""
     out: List[Any] = []
-    treedef = _flatten(tree, out)
+    treedef = _flatten(tree, out, is_leaf)
     return out, treedef
 
 
-def leaves(tree: Any) -> List[Any]:
-    return flatten(tree)[0]
+def flatten_with_path(tree: Any, is_leaf: IsLeaf = None
+                      ) -> Tuple[List[Tuple[str, Any]], TreeDef]:
+    """([(path, leaf)] in jax's order, the tree's structure).  A path
+    joins with "/" what the reference's ``sharding._key_str`` gives for
+    each key: a dict key, a sequence index, a NamedTuple field name, and
+    ``words`` for a PackedArray (one leaf here, its words leaf there)."""
+    out: List[Any] = []
+    paths: List[str] = []
+    treedef = _flatten(tree, out, is_leaf, paths)
+    return list(zip(paths, out)), treedef
+
+
+def leaves(tree: Any, is_leaf: IsLeaf = None) -> List[Any]:
+    return flatten(tree, is_leaf)[0]
 
 
 def unflatten(treedef: TreeDef, flat: List[Any]) -> Any:
@@ -113,13 +147,14 @@ def unflatten(treedef: TreeDef, flat: List[Any]) -> Any:
     return build(treedef)
 
 
-def map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+def map(fn: Callable[..., Any], tree: Any, *rest: Any,
+        is_leaf: IsLeaf = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     every tree in ``rest`` (each of the same structure)."""
-    flat, treedef = flatten(tree)
+    flat, treedef = flatten(tree, is_leaf)
     others = []
     for r in rest:
-        f, td = flatten(r)
+        f, td = flatten(r, is_leaf)
         if td != treedef:
             raise ValueError(f"tree structures differ: {treedef} vs {td}")
         others.append(f)

@@ -327,6 +327,8 @@ def test_caller_buffer_never_written(rows):
 
 
 def test_placement_is_one_device():
+    """Without a mesh, placement moves trees to one device; a mesh that
+    is not a Mesh is refused everywhere."""
     x = torch.arange(8, dtype=torch.int32)
     tree = {"a": x, "b": [PackedArray(x.clone(), 200)],
             "c": np.arange(3)}
@@ -337,14 +339,218 @@ def test_placement_is_one_device():
     moved = tserving.replicate(tree, torch.device("cpu"))
     assert torch.equal(moved["c"], torch.arange(3))
     assert tserving.shard_batch(x, torch.device("cpu")) is x
-    assert tserving.data_mesh() is None
     for fn in (tserving.replicate, tserving.shard_batch):
-        with pytest.raises(ValueError, match="one card"):
+        with pytest.raises(TypeError, match="Mesh"):
             fn(tree, torch.device("cpu"), mesh=object())
     cb = tgraph.compile(tgraph.from_dense_stack(64, [32]), device="cpu")
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(TypeError, match="Mesh"):
         BNNServer(cb, cb.init(torch.Generator().manual_seed(0)),
                   mesh=object(), device="cpu")
+
+
+CPU4 = [torch.device("cpu")] * 4                   # 4 slots, one device
+
+
+def test_placement_on_a_mesh_holds_pieces_and_copies():
+    mesh = tserving.data_mesh(devices=CPU4)
+    assert mesh.shape == {"data": 4, "model": 1} and mesh.size == 4
+    x = torch.arange(24, dtype=torch.int32).reshape(8, 3)
+    xp = PackedArray(x.clone(), 96)
+    pieces = tserving.shard_batch({"x": x, "p": [xp]}, mesh=mesh)
+    assert len(pieces) == 4
+    for i, piece in enumerate(pieces):
+        assert torch.equal(piece["x"], x[2 * i:2 * i + 2])
+        assert torch.equal(piece["p"][0].words, x[2 * i:2 * i + 2])
+        assert piece["p"][0].length == 96
+    # rows the mesh does not divide are replicated: every slot, all rows
+    assert all(torch.equal(p, x[:3])
+               for p in tserving.shard_batch(x[:3], mesh=mesh))
+    # 2 x 2: rows split over "data" only, copies along "model"
+    mesh22 = tserving.data_mesh(model=2, devices=CPU4)
+    assert mesh22.shape == {"data": 2, "model": 2}
+    got = [p.tolist() for p in tserving.shard_batch(x, mesh=mesh22)]
+    assert got == [x[:4].tolist()] * 2 + [x[4:].tolist()] * 2
+    copies = tserving.replicate({"w": x, "p": xp}, mesh=mesh)
+    assert list(copies) == [torch.device("cpu")]       # one per device
+    assert torch.equal(copies[torch.device("cpu")]["p"].words, x)
+    with pytest.raises(ValueError, match="model=3"):
+        tserving.data_mesh(model=3, devices=CPU4)
+
+
+def _mesh_dense_server(max_batch=8):
+    jcb, jparams, _, tcb, tparams, _ = _mlp(max_batch=max_batch,
+                                            backend="cuda")
+    mesh = tserving.data_mesh(devices=CPU4)
+    srv = BNNServer(tcb, tparams, max_batch=max_batch, mesh=mesh,
+                    device="cpu")
+    return jcb, jparams, tcb, tparams, srv
+
+
+def test_sharded_packed_words_bit_identical():
+    """The reference's sharded test on a 4-slot CPU mesh: the dense
+    stack's packed words at 1, 2, 3, 4, 8 and 11 rows (3 and 11 do not
+    divide the mesh) equal the single-device apply of both packages."""
+    jcb, jparams, tcb, tparams, srv = _mesh_dense_server()
+    one = BNNServer(tcb, tparams, max_batch=8, device="cpu")
+    rng = np.random.default_rng(7)
+    for rows in (1, 2, 3, 4, 8, 11):
+        jx, tx = _pair(rng, rows)
+        got = srv.apply_batch(tx)
+        assert torch.equal(got.words, tcb.apply(tparams, tx).words)
+        assert torch.equal(got.words, one.apply_batch(tx).words)
+        _same_words(got, jcb.apply(jparams, jx))
+    assert srv.stats()["devices"] == srv.mesh.size == 4
+    assert srv.jit_traces() <= srv.trace_bound()
+    # 1 and 2 rows run whole on slot 0; 3 and 4 one row a slot; 8 two;
+    # 11 = 8 + 3
+    assert [s["rows"] for s in srv.slots()] == [10, 7, 7, 5]
+    assert srv.split(2) == [(0, 0, 2, 2, 2)]
+    assert [p[:3] for p in srv.split(3)] == [(0, 0, 1), (1, 1, 2),
+                                             (2, 2, 3)]
+    assert [p[:3] for p in srv.split(7)] == [(0, 0, 2), (1, 2, 4),
+                                             (2, 4, 6), (3, 6, 7)]
+    assert all(p[3] == 2 and 1 <= p[4] <= 2 for p in srv.split(7))
+
+
+def test_sharded_binarynet_logits_bit_identical():
+    """BinaryNet through a 4-slot CPU mesh at max_batch 4: 3 rows (one
+    a slot, the fourth slot idle) equal the single-device apply of both
+    packages exactly, one dispatch level captured."""
+    from repro.core.workloads import binarynet_cifar10 as jbinarynet
+    from repro_torch.core.workloads import binarynet_cifar10
+    jcb = jgraph.compile(jbinarynet(), backend="xla", batch=4)
+    jparams = jcb.init(jax.random.PRNGKey(0))
+    tcb = tgraph.compile(binarynet_cifar10(), device="cpu", batch=4)
+    tparams = params_from_numpy(np_tree(jparams), "cpu")
+    srv = BNNServer(tcb, tparams, max_batch=4,
+                    mesh=tserving.data_mesh(devices=CPU4), device="cpu")
+    x = np.array(jax.random.normal(jax.random.PRNGKey(1), (3, 32, 32, 3),
+                                   jnp.float32))
+    got = srv.apply_batch(torch.from_numpy(x))
+    assert torch.equal(got, tcb.apply(tparams, torch.from_numpy(x)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jcb.apply(jparams, x)))
+    assert srv.jit_traces() <= 1
+    assert [s["rows"] for s in srv.slots()] == [1, 1, 1, 0]
+
+
+def test_mesh_server_queue_and_degraded_step():
+    """Submitted requests coalesce and split over the mesh like
+    synchronous ones; a forced backend fault takes the degraded step
+    whole on the first slot."""
+    from repro_torch.robustness import ChaosMonkey
+    jcb, jparams, tcb, tparams, _ = _mesh_dense_server()
+    chaos = ChaosMonkey()
+    srv = BNNServer(tcb, tparams, max_batch=8, chaos=chaos,
+                    mesh=tserving.data_mesh(devices=CPU4), device="cpu")
+    rng = np.random.default_rng(11)
+    pairs = [_pair(rng, r) for r in (2, 5, 1, 8, 3)]
+    futs = [srv.submit(t) for _, t in pairs]
+    srv.flush()
+    for f, (jx, tx) in zip(futs, pairs):
+        _same_words(f.result(timeout=5), jcb.apply(jparams, jx))
+    chaos.fail_next(tserving.BackendFault("forced"))
+    jx, tx = pairs[1]
+    fut = srv.submit(tx)
+    srv.flush()
+    _same_words(fut.result(timeout=5), jcb.apply(jparams, jx))
+    assert srv.stats()["faults"]["backend_fallbacks"] == 1
+
+
+def test_mesh_server_refusals():
+    cb = tgraph.compile(tgraph.from_dense_stack(64, [32]), device="cpu")
+    params = cb.init(torch.Generator().manual_seed(0))
+    from repro_torch.launch.mesh import make_production_mesh
+    with pytest.raises(ValueError, match="shape-only"):
+        BNNServer(cb, params, mesh=make_production_mesh(), device="cpu")
+    mesh = tserving.data_mesh(devices=CPU4)
+    with pytest.raises(ValueError, match="runs on"):
+        BNNServer(tgraph.compile(tgraph.from_dense_stack(64, [32]),
+                                 device="meta"), params, mesh=mesh)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _counts_of(fn):
+    """The port's kernel launches one call of ``fn`` makes on the card."""
+    _build.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def _mesh_twin(srv, cb, params, xs):
+    """Every payload through the (prewarmed) mesh server equals
+    ``cb.apply`` on the card bit for bit, and each flight launches one
+    forward's kernels on every slot that received rows."""
+    for x in xs:
+        rows = int((x.words if isinstance(x, PackedArray) else x).shape[0])
+        want = cb.apply(params, x)
+        one = _counts_of(lambda: cb.apply(params, x))
+        got = []
+        counts = _counts_of(lambda: got.append(srv.apply_batch(x)))
+        wt = want.words if isinstance(want, PackedArray) else want
+        gt = got[0].words if isinstance(got[0], PackedArray) else got[0]
+        assert gt.device == wt.device and torch.equal(gt, wt), rows
+        assert counts == {k: v * len(srv.split(rows))
+                          for k, v in one.items()}, rows
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_packed_words_bit_identical(cuda):
+    cb = tgraph.compile(tgraph.from_dense_stack(256, [128, 64]),
+                        device=cuda, batch=4)
+    params = cb.init(torch.Generator().manual_seed(0))
+    srv = BNNServer(cb, params, max_batch=8, prewarm=True,
+                    mesh=tserving.data_mesh(devices=[cuda] * 4))
+    gen = torch.Generator().manual_seed(7)
+    xs = [binarize_pack(torch.randn(rows, 256, generator=gen).to(cuda))
+          for rows in (1, 2, 3, 4, 8)]
+    _mesh_twin(srv, cb, params, xs)
+    x11 = binarize_pack(torch.randn(11, 256, generator=gen).to(cuda))
+    assert torch.equal(srv.apply_batch(x11).words,
+                       cb.apply(params, x11).words)
+    assert srv.stats()["devices"] == 4
+    assert srv.jit_traces() <= srv.trace_bound()
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_binarynet_logits_bit_identical(cuda):
+    from repro_torch.core.workloads import binarynet_cifar10
+    cb = tgraph.compile(binarynet_cifar10(), device=cuda, batch=4)
+    params = cb.init(torch.Generator().manual_seed(0))
+    srv = BNNServer(cb, params, max_batch=4, prewarm=True,
+                    mesh=tserving.data_mesh(devices=[cuda] * 4))
+    x = torch.randn(3, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    _mesh_twin(srv, cb, params, [x.to(cuda)])
+    assert srv.jit_traces() == srv.trace_bound()    # prewarmed, no more
+    assert [s["rows"] for s in srv.slots()] == [1, 1, 1, 0]
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_over_two_cards(cuda):
+    """A mesh over two cards: each piece's kernels launch on its own
+    card (``Kernel.launch`` sets the runtime's device), and the gathered
+    logits equal one card's apply."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core.workloads import binarynet_cifar10
+    cb = tgraph.compile(binarynet_cifar10(), device=cuda, batch=8)
+    params = cb.init(torch.Generator().manual_seed(0))
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    srv = BNNServer(cb, params, max_batch=8, prewarm=True,
+                    mesh=tserving.data_mesh(devices=cards * 2))
+    x = torch.randn(7, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(2)).to(cuda)
+    _mesh_twin(srv, cb, params, [x])
+    assert [s["device"] for s in srv.slots()] == \
+        ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]
+    assert all(s["rows"] for s in srv.slots())
 
 
 def test_server_and_graphs_need_a_card_unless_cpu(monkeypatch):
