@@ -249,12 +249,27 @@
    the checker cannot see); a flight of 27 rows under the profiler;
    (d) ``runtime.sharding.param_specs``' parameter bytes a device of
    qwen1.5-0.5b and mixtral-8x22b at their published configs on the
-   (16, 16) and (2, 16, 16) meshes, baseline and packed (meta tensors).
+   (16, 16) and (2, 16, 16) meshes, baseline and packed (meta tensors);
+16. trains SPMD over a ``torch.distributed`` mesh: a world-1 NCCL
+   process group (one card takes one rank; a store file in a temporary
+   directory, destroyed at the end of the phase) and
+   ``launch.mesh.make_process_mesh()`` on it; (a) ``train(mesh=...)``
+   at 12b's config and run (qwen1.5-0.5b, bf16, logits_chunk 8192,
+   remat "full", batch 8 x seq 512, 4 steps): its losses, params and
+   opt state (DTensors placed by ``param_specs``) must equal 12b's
+   uninterrupted run bit for bit (12b's result is kept on the host, not
+   rerun); then the mesh step's median wall ms of 5 on 12b's timed
+   batch, printed beside 12b's; (b) at 2 layers (published widths), a
+   mesh run cut at 2 whose checkpoint the plain ``train`` resumes to 4,
+   and a plain run cut at 2 that the mesh resumes, each equal to the
+   plain uninterrupted run bit for bit.  The multi-rank path runs only
+   on the CPU (``tests/test_torch_spmd.py``: 4 gloo ranks).
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
 steps 3-6, 8, 9, 10, 11, 13, 14 and 15, each counted from 0 just
-before it runs (step 12 launches none) (a graph's replay counts the kernels
+before it runs (steps 12 and 16 launch none, each checked) (a graph's
+replay counts the kernels
 its capture recorded; in step 10 the simulator's oracle ``apply``; in
 step 11 the eight held calls of (a); in step 13 the curves, the
 untuned and tuned forwards and the tuned server, not the tuner's
@@ -3003,6 +3018,13 @@ def grads_ratio(what, got, want, tol):
     return worst
 
 
+def host_leaves(tree_):
+    """Every leaf of a tree whole and on the host (a DTensor gathered)."""
+    from repro_torch import tree
+    return [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+            .detach().cpu() for t in tree.leaves(tree_)]
+
+
 def bits_equal(a, b):
     """Two trees equal bit for bit (bf16 compared as its int16 bits)."""
     from repro_torch import tree
@@ -3123,6 +3145,8 @@ def llm_train_full():
                              "the uninterrupted run's")
     del cut, res
     params, opt = ref["params"], ref["opt_state"]
+    # phase 16 holds the mesh run against this run: a host copy of it
+    kept = dict(losses=ref["losses"], state=host_leaves((params, opt)))
     opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=max(FULL_STEPS, 2),
                                 warmup_steps=max(2, FULL_STEPS // 10))
     step_fn = make_train_step(cfg, opt_cfg)
@@ -3189,7 +3213,8 @@ def llm_train_full():
           f"{run_s:.1f} s for the uninterrupted run")
     print("  device us a step by group: " + ", ".join(
         f"{g} {us:.0f}" for g, us in out["device_us_by_group"].items()))
-    return out, params, batch
+    kept["step_wall_ms_median"] = wall_ms
+    return out, params, batch, kept
 
 
 def settle():
@@ -3269,17 +3294,19 @@ def llm_train_path(launches):
     config, cut and resumed (``llm_train_full``), (c) the chunked loss's
     and remat's peak memory (``llm_train_memory``), (d) the example's
     200 steps (``llm_train_example``).  No port kernel runs on this
-    path: ``launches`` is not added to."""
+    path: ``launches`` is not added to.  Returns the phase's record and
+    (b)'s uninterrupted run on the host (losses, every leaf of params
+    and opt state, the median step ms), which phase 16 is held to."""
     t_phase = time.perf_counter()
     out = {"reduced": llm_train_reduced()}
-    out["full"], params, batch = llm_train_full()
+    out["full"], params, batch, kept = llm_train_full()
     out["memory"] = llm_train_memory(params, batch)
     del params, batch
     torch.cuda.empty_cache()
     out["example"] = llm_train_example()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"the LLM training phase took {out['phase_s']:.1f} s")
-    return out
+    return out, kept
 
 
 # ------------------------------------------------------------------ #
@@ -4080,6 +4107,159 @@ def mesh_path(launches):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 16: SPMD training over a torch.distributed mesh                #
+# ------------------------------------------------------------------ #
+SPMD_LAYERS = 2        # 16b's depth (the published widths)
+
+
+def spmd_full(mesh, kept):
+    """16a: ``train(mesh=...)`` on the world-1 NCCL mesh at 12b's
+    config and run (qwen1.5-0.5b, bf16, logits_chunk 8192, remat
+    "full", batch 8 x seq 512, FULL_STEPS steps): losses, params and opt
+    state equal 12b's uninterrupted run (``kept``) bit for bit; then
+    FULL_TIMED mesh steps on 12b's timed batch (host clock, median)
+    beside 12b's.  No port kernel runs."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import make_mesh_train_step, train
+    from repro_torch.optim import adamw
+    cfg = get_arch(LLM_ARCH).replace(logits_chunk=FULL_CHUNK, remat="full")
+    logs = []
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=FULL_STEPS, global_batch=FULL_BATCH,
+                seq_len=FULL_SEQ, mesh=mesh, device=DEVICE, log_every=1,
+                log_fn=logs.append)
+    sync()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"{LLM_ARCH} training on the mesh",
+                    _build.launch_counts(), {})
+    if run["losses"] != kept["losses"]:
+        raise AssertionError(f"mesh losses {run['losses']} vs 12b's "
+                             f"{kept['losses']}")
+    if not bits_equal(host_leaves((run["params"], run["opt_state"])),
+                      kept["state"]):
+        raise AssertionError("the mesh run's params / opt state differ "
+                             "from 12b's uninterrupted run")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=max(FULL_STEPS, 2),
+                                warmup_steps=max(2, FULL_STEPS // 10))
+    step_fn = make_mesh_train_step(cfg, opt_cfg, mesh)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=FULL_SEQ,
+                      global_batch=FULL_BATCH)
+    batch = {k: torch.from_numpy(v).to(DEVICE).long()
+             for k, v in global_batch_at(dcfg, FULL_STEPS).items()}
+    params, opt = run["params"], run["opt_state"]
+    del run
+    wall = []
+    for _ in range(FULL_TIMED):
+        sync()
+        t0 = time.perf_counter()
+        _, _, met = step_fn(params, opt, batch)
+        float(met["loss"])
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(wall)[len(wall) // 2]
+    base_ms = kept["step_wall_ms_median"]
+    print(f"{LLM_ARCH} trained on the world-1 {dist.get_backend()} mesh "
+          f"{mesh}: losses, "
+          f"params and opt state equal 12b's uninterrupted run bit for "
+          f"bit; step {wall_ms:.1f} ms median of {FULL_TIMED} (host clock; "
+          f"{[round(x, 1) for x in wall]}) beside 12b's {base_ms:.1f} ms "
+          f"({wall_ms / base_ms:.3f}x); peak device memory "
+          f"{peak / 2**30:.2f} GiB; {run_s:.1f} s for the run")
+    return dict(losses=kept["losses"], bit_identical_to_12b=True,
+                run_s=run_s, step_wall_ms=wall, step_wall_ms_median=wall_ms,
+                step_wall_ms_median_12b=base_ms, peak_mem_bytes=peak,
+                log=logs)
+
+
+def spmd_resume(mesh):
+    """16b: qwen1.5-0.5b at its published widths cut to SPMD_LAYERS
+    layers (same run otherwise): a mesh run cut at FULL_CUT whose
+    checkpoint the plain ``train`` resumes, and a plain run cut there
+    that the mesh resumes, each equal to the plain uninterrupted run bit
+    for bit (losses, params, opt state)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import train
+    cfg = get_arch(LLM_ARCH).replace(logits_chunk=FULL_CHUNK, remat="full",
+                                     num_layers=SPMD_LAYERS)
+    kw = dict(steps=FULL_STEPS, global_batch=FULL_BATCH, seq_len=FULL_SEQ,
+              device=DEVICE, log_fn=lambda *_: None)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = train(cfg, **kw)
+    want_losses = ref["losses"]
+    want = host_leaves((ref["params"], ref["opt_state"]))
+    del ref
+    out = {}
+    for label, first, then in (("mesh -> plain", mesh, None),
+                               ("plain -> mesh", None, mesh)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as d:
+            cut = train(cfg, ckpt_dir=d, ckpt_every=FULL_CUT,
+                        run_steps=FULL_CUT, mesh=first, **kw)
+            res = train(cfg, ckpt_dir=d, ckpt_every=FULL_CUT, mesh=then,
+                        **kw)
+        losses = cut["losses"] + res["losses"]
+        got = host_leaves((res["params"], res["opt_state"]))
+        del cut, res
+        if losses != want_losses:
+            raise AssertionError(f"{label}: losses {losses} vs the "
+                                 f"uninterrupted run's {want_losses}")
+        if not bits_equal(got, want):
+            raise AssertionError(f"{label}: the resumed params / opt state "
+                                 f"differ from the uninterrupted run's")
+        out[label] = dict(losses=losses, bit_identical=True)
+    sync()
+    expect_launches("the cut and resumed mesh runs", _build.launch_counts(),
+                    {})
+    secs = time.perf_counter() - t0
+    print(f"{LLM_ARCH} at {SPMD_LAYERS} layers, published widths: a mesh "
+          f"checkpoint at step {FULL_CUT} resumed by the plain train, and a "
+          f"plain one resumed on the mesh, each equal to the uninterrupted "
+          f"run bit for bit (losses, params, opt state); {secs:.1f} s")
+    return dict(out, num_layers=SPMD_LAYERS, seconds=secs)
+
+
+def spmd_path(kept):
+    """Phase 16, SPMD training over a ``torch.distributed`` mesh: a
+    world-1 process group (NCCL on the card; a store file in a temporary
+    directory, destroyed at the end of the phase), ``make_process_mesh()``
+    on it, then (a) ``spmd_full`` against phase 12b's run ``kept`` and
+    (b) ``spmd_resume``.  No port kernel runs on this path: the
+    ``kernels`` line's launches are not added to."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_process_mesh
+    t_phase = time.perf_counter()
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_process_mesh(device=DEVICE)
+            out = dict(mesh=str(mesh), backend=backend,
+                       full=spmd_full(mesh, kept), resume=spmd_resume(mesh))
+        finally:
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"the SPMD training phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -4247,10 +4427,12 @@ def main():
     trained = train_path(launches)
     simulated = sim_path(launches)
     llm = llm_path(rnd, launches)
-    llm_train = llm_train_path(launches)
+    llm_train, run_12b = llm_train_path(launches)
     faults = faults_tuning_audit_path(launches)
     twins = twins_dryrun_path(launches)
     meshed = mesh_path(launches)
+    spmd = spmd_path(run_12b)
+    del run_12b
     from repro_torch.trace import SESSIONS
     print(f"torch.profiler: {SESSIONS['opened']} sessions opened, "
           f"{SESSIONS['empty']} of them saw no device event and were "
@@ -4278,7 +4460,7 @@ def main():
          "fused_vs_chained_replayed": stack_race, "train": trained,
          "sim": simulated, "llm": llm, "llm_train": llm_train,
          "faults_tuning_audit": faults, "twins_dryrun": twins,
-         "mesh": meshed,
+         "mesh": meshed, "spmd": spmd,
          "profiler_sessions": SESSIONS,
          "device": device},
         indent=1))

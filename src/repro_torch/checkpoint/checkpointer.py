@@ -23,6 +23,17 @@ flattens to that one leaf) and restored into the template's
 PackedArray.  The reference cannot read a port
 checkpoint with bfloat16 leaves (it would cast the uint16 values), nor
 restore its own (ROADMAP hazard 11).
+
+SPMD state (DTensor leaves on a ``torch.distributed`` ``DeviceMesh``
+that spans the default process group) is saved whole: every rank takes
+part in each leaf's ``full_tensor()`` gather, rank 0 alone writes the
+same mesh-agnostic files, and rank 0's outcome is then sent to every
+rank (a barrier that also raises a failed write everywhere).
+``restore(..., shardings=)`` is the elastic path, as the reference's:
+a ``runtime.sharding.MeshSharding`` leaf places its leaf as a DTensor
+on its mesh, each rank keeping its own block of what it read, so a
+checkpoint of any world size (or of one process) reads back onto any
+mesh; without ``shardings`` every leaf comes back whole.
 """
 from __future__ import annotations
 
@@ -52,14 +63,47 @@ class ChecksumError(IOError):
 _BF16 = "bfloat16"
 
 
+def _is_dtensor(x: Any) -> bool:
+    if not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _spmd(tree: Any) -> bool:
+    """Whether ``tree`` is SPMD state: it holds a DTensor leaf."""
+    return any(_is_dtensor(x) for x in _tree.leaves(tree))
+
+
 def _to_host(x: Any) -> Any:
     """A leaf as a host copy of its bytes: a CPU tensor (its dtype
-    kept) or a numpy array."""
+    kept; a DTensor whole, gathered from every rank) or a numpy
+    array."""
     if isinstance(x, PackedArray):
         return x.with_words(_to_host(x.words))
+    if _is_dtensor(x):
+        return x.detach().full_tensor().to("cpu", copy=True)
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x)
+
+
+def _writer() -> bool:
+    """Whether this process writes SPMD state: rank 0."""
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _agree(error: Optional[BaseException]) -> None:
+    """Send rank 0's outcome of a write to every rank, and raise it
+    everywhere if it failed (every rank calls this once a save)."""
+    import torch.distributed as dist
+    msg = [None if error is None else f"{type(error).__name__}: {error}"]
+    dist.broadcast_object_list(msg, src=0)
+    if error is not None:
+        raise error
+    if msg[0] is not None:
+        raise IOError(f"rank 0 failed to write the checkpoint: {msg[0]}")
 
 
 def _stored(x: Any) -> Tuple[np.ndarray, Optional[str]]:
@@ -104,7 +148,23 @@ def _digest(arrs: List[np.ndarray]) -> str:
 def save(directory: str, step: int, tree: Any,
          extra: Optional[Dict[str, Any]] = None,
          keep: int = 3) -> str:
-    """Write ``tree`` as ``step``'s checkpoint; keep the newest ``keep``."""
+    """Write ``tree`` as ``step``'s checkpoint; keep the newest ``keep``.
+    SPMD state: every rank calls this, rank 0 writes."""
+    if not _spmd(tree):
+        return _write(directory, step, tree, extra, keep)
+    host = _tree.map(_to_host, tree)
+    final, error = os.path.join(directory, f"step_{step:08d}"), None
+    if _writer():
+        try:
+            final = _write(directory, step, host, extra, keep)
+        except Exception as e:   # raised on every rank by _agree
+            error = e
+    _agree(error)
+    return final
+
+
+def _write(directory: str, step: int, tree: Any,
+           extra: Optional[Dict[str, Any]], keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -168,12 +228,16 @@ def _like(a: np.ndarray, stored_as: Optional[str], t: Any) -> Any:
     return a.astype(np.asarray(t).dtype)
 
 
-def restore(directory: str, template: Any, step: Optional[int] = None
-            ) -> Tuple[Any, Dict[str, Any]]:
+def restore(directory: str, template: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, Dict[str, Any]]:
     """Load ``step`` (default: the latest) into ``template``'s tree
     structure, each leaf in its template leaf's dtype and on its
     device; raises :class:`ChecksumError` when the bytes do not match
-    the recorded fingerprint or digest."""
+    the recorded fingerprint or digest.  ``shardings``: a tree of
+    ``MeshSharding`` leaves of the template's structure (the elastic
+    path, ``sharding.named(specs, device_mesh)``): each leaf comes back
+    a DTensor placed by it, every rank reading the file and keeping its
+    own block."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {directory}")
@@ -194,46 +258,67 @@ def restore(directory: str, template: Any, step: Optional[int] = None
     if len(flat_t) != len(arrs):
         raise ValueError(f"leaf count mismatch: the template has "
                          f"{len(flat_t)}, the checkpoint {len(arrs)}")
+    if shardings is None:
+        flat_s: List[Any] = [None] * len(flat_t)
+    else:
+        flat_s, sdef = _tree.flatten(shardings)
+        if sdef != treedef:
+            raise ValueError("shardings and template differ in structure")
     dtypes = meta.get("leaf_dtypes", {})
     out = []
-    for i, (t, a) in enumerate(zip(flat_t, arrs)):
+    for i, (t, a, sh) in enumerate(zip(flat_t, arrs, flat_s)):
         shape = tuple(np.shape(t.words if isinstance(t, PackedArray) else t))
         if shape != a.shape:
             raise ValueError(f"shape mismatch {shape} vs {a.shape}")
-        out.append(_like(a, dtypes.get(str(i)), t))
+        x = _like(a, dtypes.get(str(i)), t)
+        out.append(x if sh is None else sh.distribute(x))
     return _tree.unflatten(treedef, out), meta
 
 
 class AsyncCheckpointer:
     """Write on a background thread, at most one save in flight
-    (training never blocks on I/O unless saves outpace the interval)."""
+    (training never blocks on I/O unless saves outpace the interval).
+    SPMD state: every rank calls ``save`` and ``wait`` alike; the
+    gathers run before ``save`` returns, the write on rank 0's thread,
+    and ``wait`` sends its outcome to every rank."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending: Optional[int] = None
+        self._spmd = False
         self.saved_steps: List[int] = []
 
     def wait(self) -> None:
+        if self._pending is None:
+            return
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        step, self._pending = self._pending, None
+        if self._spmd:
+            _agree(err)
+        elif err is not None:
             raise err
+        self.saved_steps.append(step)
 
     def save(self, step: int, tree: Any,
              extra: Optional[Dict[str, Any]] = None) -> None:
         self.wait()
         # on the host before control returns: the trainer may overwrite
         # the device tensors as soon as this returns
+        self._spmd = _spmd(tree)
         host = _tree.map(_to_host, tree)
+        self._pending = step
+        if self._spmd and not _writer():
+            return
 
         def run():
             try:
-                save(self.directory, step, host, extra, keep=self.keep)
-                self.saved_steps.append(step)
+                _write(self.directory, step, host, extra, self.keep)
             except BaseException as e:   # surfaced on the next wait()
                 self._error = e
 

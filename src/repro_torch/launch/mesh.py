@@ -16,6 +16,15 @@ with its own streams and graphs (``serving.BNNServer``).
 meshes by shape alone, with no devices: the sharding rules
 (``runtime.sharding.param_specs``) read only ``mesh.shape``.
 
+``make_process_mesh`` is the other kind of mesh, the one SPMD training
+runs on: a ``torch.distributed`` ``DeviceMesh`` over the ranks of the
+default process group, one rank (one process, one card) a point.
+``rules_mesh`` reads it as the shape-only :class:`Mesh` the rules take.
+
+    dist.init_process_group("gloo", ...)            # or "nccl"
+    dm = make_process_mesh(device="cpu")            # ("data", "model")
+    specs = param_specs(params, rules_mesh(dm), ("decoder", "encoder"))
+
 Functions, not module-level constants: importing this module touches
 no device.
 """
@@ -29,7 +38,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "current_mesh", "make_local_mesh", "make_production_mesh"]
+__all__ = ["Mesh", "current_mesh", "make_local_mesh", "make_process_mesh",
+           "make_production_mesh", "rules_mesh"]
 
 # the meshes entered in this context, innermost last
 _ENTERED: contextvars.ContextVar = contextvars.ContextVar(
@@ -127,3 +137,43 @@ def make_local_mesh(model: int = 1,
     grid = np.empty(n, dtype=object)
     grid[:] = devs
     return Mesh(grid.reshape(n // model, model), ("data", "model"))
+
+
+def make_process_mesh(model: int = 1, *, pods: int = 1, device=None):
+    """A ``torch.distributed`` ``DeviceMesh`` over the ranks of the
+    initialised default process group: ("data", "model") with ``model``
+    ranks on the model axis and the rest on "data" (the reference's
+    ``make_local_mesh``), or ("pod", "data", "model") where ``pods`` >
+    1.  Its device type is "cuda" (an NCCL group) unless ``device``
+    asks for the CPU (a gloo group); None means the card and raises
+    without one."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card "
+                           "unless the caller passes device='cpu'")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_process_mesh needs an initialised default "
+                           "process group (torch.distributed."
+                           "init_process_group)")
+    n = dist.get_world_size()
+    if model < 1 or pods < 1 or n % (model * pods):
+        raise ValueError(f"{n} ranks do not split into pods={pods} x "
+                         f"model={model}")
+    if pods > 1:
+        shape: Tuple[int, ...] = (pods, n // (pods * model), model)
+        names: Tuple[str, ...] = ("pod", "data", "model")
+    else:
+        shape, names = (n // model, model), ("data", "model")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def rules_mesh(mesh: Any) -> Mesh:
+    """A ``DeviceMesh`` as the shape-only :class:`Mesh` of its axis
+    names and sizes, which ``param_specs``, ``batch_specs``,
+    ``fit_spec`` and ``axis_size`` read (a :class:`Mesh` is returned
+    as it is)."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    return Mesh(None, mesh.mesh_dim_names, shape=tuple(mesh.shape))

@@ -12,6 +12,12 @@ implementations:
     output is zeroed.
 
 Expert weights are [E, d_model, d_ff].
+
+The Switch aux loss is ``E * sum_e mean(probs)_e * mean(onehot)_e``
+over the whole batch.  Inside an SPMD step each rank holds a share of
+the rows, so the two means are ``sharding.batch_mean``: global over the
+step's batch group (the reference's pjit takes them over the global
+batch), and the plain means in one process.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from repro_torch.core.binarize import ste_sign
 from repro_torch.kernels.packed import PackedArray
 from repro_torch.models.layers import act_fn, dtype_of, normal
-from repro_torch.runtime.sharding import shard_act
+from repro_torch.runtime.sharding import batch_mean, shard_act
 
 
 def moe_init(gen, cfg, device) -> Dict[str, Any]:
@@ -75,9 +81,8 @@ def router_probs(p, x, cfg):
     w = w / torch.sum(w, dim=-1, keepdim=True)
     # load-balancing aux loss (Switch):  E * sum_e f_e * p_e
     e = cfg.num_experts
-    me = torch.mean(probs, dim=(0, 1))
-    fe = torch.mean(one_hot(idx, e, torch.float32).sum(dim=2),
-                    dim=(0, 1))
+    me = batch_mean(probs, (0, 1))
+    fe = batch_mean(one_hot(idx, e, torch.float32).sum(dim=2), (0, 1))
     aux = e * torch.sum(me * fe)
     return w.to(x.dtype), idx, aux
 

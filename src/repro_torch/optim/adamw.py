@@ -81,23 +81,30 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        gn: Optional[torch.Tensor] = None
                         ) -> Tuple[Any, torch.Tensor]:
-    gn = global_norm(grads)
+    """Scale ``grads`` to a global norm of at most ``max_norm``; ``gn``
+    is their norm where the caller has it (None: ``global_norm``)."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return _tree.map(lambda g: (g.to(F32) * scale).to(g.dtype),
                      grads), gn
 
 
 def apply_updates(params: Any, opt: OptState, grads: Any, cfg: AdamWConfig,
-                  clip_mask: Optional[Any] = None
+                  clip_mask: Optional[Any] = None,
+                  grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, OptState, dict]:
     """One AdamW step.  ``clip_mask`` (a bool tree matching params, or
     None) selects which leaves the ``clip_latent`` [-1, 1] clamp applies
     to — the latent sign weights, never BN gamma/beta, whose folded
     thresholds must be free to grow past +-1.  None clamps every leaf
-    when cfg.clip_latent."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    when cfg.clip_latent.  ``grad_norm``: the global norm of the whole
+    gradient where ``grads`` are one rank's blocks of it (an SPMD
+    step); None computes it from ``grads``."""
+    grads, gn = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = opt.step + 1
     lr = schedule(cfg, step)
     stepf = step.to(F32)

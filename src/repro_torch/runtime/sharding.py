@@ -27,9 +27,10 @@ the spec and keeps it on the mesh (``mesh.constraints``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +39,10 @@ from repro_torch import tree as _tree
 from repro_torch.kernels.packed import PackedArray
 from repro_torch.launch.mesh import Mesh, current_mesh
 
-__all__ = ["BATCH_AXES", "NamedSharding", "P", "axis_size", "batch_specs",
-           "fit_spec", "named", "param_specs", "shard_act",
+__all__ = ["BATCH_AXES", "MeshSharding", "NamedSharding", "P", "axis_size",
+           "batch_group", "batch_mean", "batch_shard", "batch_specs",
+           "distribute", "fit_spec", "global_batch", "holds_first_copy",
+           "local_block", "named", "param_specs", "placements", "shard_act",
            "spec_for_param"]
 
 
@@ -292,9 +295,185 @@ class NamedSharding:
             else out
 
 
-def named(tree_specs: Any, mesh: Mesh) -> Any:
-    return _tree.map(lambda s: NamedSharding(mesh, s), tree_specs,
-                     is_leaf=_is_spec)
+def named(tree_specs: Any, mesh: Any) -> Any:
+    """A sharding in place of every spec: a :class:`NamedSharding` on a
+    :class:`Mesh`, a :class:`MeshSharding` on a ``DeviceMesh``."""
+    kind = NamedSharding if isinstance(mesh, Mesh) else MeshSharding
+    return _tree.map(lambda s: kind(mesh, s), tree_specs, is_leaf=_is_spec)
+
+
+# ------------------------------------------------------------------ #
+# DTensor placements on a torch.distributed DeviceMesh                 #
+# ------------------------------------------------------------------ #
+def _axes_of(entry: Any) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: Sequence[Any], mesh: Any) -> Tuple[Any, ...]:
+    """``spec`` on a ``DeviceMesh`` as DTensor placements, one per mesh
+    dim: ``Shard(d)`` where tensor dim ``d``'s entry names the dim's
+    axis, else ``Replicate()``.  A tensor dim split over several axes
+    must name them in mesh-dim order: DTensor cuts it by the first
+    mesh dim, then each piece by the next, which is the first-axis-major
+    order of :meth:`NamedSharding.blocks`."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out: List[Any] = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {P(*spec)} names {a!r}, not an axis "
+                                 f"of the mesh {names}")
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec {P(*spec)} splits dim {d} over {axes}, "
+                             f"not in the mesh's order {names}")
+        for i in dims:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {P(*spec)} names {names[i]!r} twice")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+class MeshSharding:
+    """A :class:`P` on a ``torch.distributed`` ``DeviceMesh``: the
+    DTensor ``placements`` it stands for, and ``distribute``."""
+
+    def __init__(self, mesh: Any, spec: Sequence[Any]):
+        self.mesh = mesh
+        self.spec = P(*spec)
+        self.placements = placements(self.spec, mesh)
+
+    def __repr__(self) -> str:
+        return f"MeshSharding({self.mesh!r}, {self.spec!r})"
+
+    def distribute(self, t: torch.Tensor) -> Any:
+        """``t``, which every rank holds whole and equal, as a DTensor on
+        the mesh's device: each rank keeps its own block, and nothing
+        is sent (a PackedArray is not a training leaf: raises)."""
+        from torch.distributed.tensor import distribute_tensor
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"cannot distribute a {type(t).__name__}")
+        return distribute_tensor(t, self.mesh, self.placements,
+                                 src_data_rank=None)
+
+
+def distribute(tree: Any, shardings: Any) -> Any:
+    """Every leaf of ``tree`` placed by the :class:`MeshSharding` at the
+    same place in ``shardings`` (``named``'s output)."""
+    return _tree.map(lambda t, s: s.distribute(t), tree, shardings)
+
+
+def local_block(t: torch.Tensor, like: Any) -> torch.Tensor:
+    """The block of ``t`` (whole, equal on every rank) that the DTensor
+    ``like`` holds on this rank, as a plain tensor."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def holds_first_copy(d: Any) -> bool:
+    """Whether this rank's block of the DTensor ``d`` is the first of its
+    copies: coordinate 0 on every mesh dim that ``d`` replicates on (a
+    sum over the mesh of the blocks such ranks hold counts each element
+    once)."""
+    from torch.distributed.tensor import Replicate
+    coord = d.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, d.placements)
+               if isinstance(pl, Replicate))
+
+
+# ------------------------------------------------------------------ #
+# the batch group of an SPMD step                                      #
+# ------------------------------------------------------------------ #
+def batch_shard(mesh: Any) -> Tuple[int, int]:
+    """(this rank's shard, the number of shards) of the global batch on
+    a ``DeviceMesh``: its coordinate over the mesh's ``BATCH_AXES``,
+    the first major, as ``batch_specs`` splits the batch dim; ranks
+    that differ only on "model" read the same rows."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for a in BATCH_AXES:
+        if a in names:
+            i = names.index(a)
+            index = index * mesh.shape[i] + coord[i]
+            count *= mesh.shape[i]
+    return index, count
+
+
+def batch_group(mesh: Any) -> Tuple[Any, int]:
+    """(process group, size) of the ranks whose rows together are the
+    global batch and that share this rank's other coordinates; the
+    group is None where it is this rank alone.  Every rank of the mesh
+    must call it (it makes the groups)."""
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names)
+    batch = [names.index(a) for a in BATCH_AXES if a in names]
+    rest = [i for i in range(len(names)) if i not in batch]
+    ranks = mesh.mesh.permute(*rest, *batch)
+    size = math.prod(mesh.shape[i] for i in batch)
+    if size == 1:
+        return None, 1
+    if size == dist.get_world_size():
+        return dist.group.WORLD, size
+    group, _ = dist.new_subgroups_by_enumeration(
+        ranks.reshape(-1, size).tolist())
+    return group, size
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) over a process group, and the same of the
+    gradient: every rank's loss reads the sum, so each member's input
+    gets the sum of every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        import torch.distributed as dist
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+# (group, size) of the SPMD step running in this process, or None.  A
+# process-wide setting, not a context variable: on the card the backward
+# recomputes a checkpointed layer on the autograd engine's own thread.
+_BATCH_GROUP: List[Optional[Tuple[Any, int]]] = [None]
+
+
+@contextlib.contextmanager
+def global_batch(group: Any, size: int) -> Iterator[None]:
+    """Inside the block, ``batch_mean`` averages over the rows of all
+    ``size`` ranks of ``group`` (each holding as many rows)."""
+    was = _BATCH_GROUP[0]
+    _BATCH_GROUP[0] = (group, size)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP[0] = was
+
+
+def batch_mean(x: torch.Tensor, dim: Tuple[int, ...]) -> torch.Tensor:
+    """``torch.mean(x, dim)`` over the batch dims ``dim``: over the
+    global batch inside ``global_batch`` (the mean of the ranks' equal
+    shares, differentiable), else over ``x``'s own rows."""
+    m = torch.mean(x, dim=dim)
+    at = _BATCH_GROUP[0]
+    if at is None or at[1] == 1:
+        return m
+    group, size = at
+    return _SumOverGroup.apply(m, group) / size
 
 
 # ------------------------------------------------------------------ #

@@ -14,8 +14,10 @@
   all ten reduced architectures.
 * ``train``: a kill-and-resume equals the port's own uninterrupted run
   bit for bit (the reference's own test of this fails on the CPU,
-  ROADMAP hazard 6); the CLI with ``--device cpu``; ``mesh`` not None
-  and ``device=None`` without a card raise.
+  ROADMAP hazard 6); the CLI with ``--device cpu``; a ``mesh`` that is
+  not a ``DeviceMesh``, of another device type or whose batch axes do
+  not divide the global batch, and ``device=None`` without a card,
+  raise.  SPMD training over a mesh is ``tests/test_torch_spmd.py``.
 
 ``loss_fn`` and one train step against the reference's, per
 architecture, are in ``tests/test_torch_llm_loss.py`` (they share these
@@ -436,13 +438,38 @@ def test_cli_on_the_cpu(capsys):
 
 
 def test_refusals():
+    """The mesh contract: ``mesh`` is None or a ``DeviceMesh`` (a
+    non-mesh raises), of ``device``'s type (None means the card), whose
+    batch axes divide the global batch; ``device=None`` without a card
+    raises.  The meshes are over torch's fake process group of 4 ranks
+    in this process (no collective runs before the refusals)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_process_mesh
     cfg = _resume_cfg()
     kw = dict(steps=1, global_batch=2, seq_len=8, log_fn=lambda *_: None)
-    with pytest.raises(ValueError, match="mesh must be None"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttrain.train(cfg, mesh=object(), device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.train(cfg, **kw)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_process_mesh(device="cpu")            # data 4, model 1
+        other = "cpu" if mesh.device_type == "cuda" else "cuda"
+        with pytest.raises(ValueError, match="device type"):
+            ttrain.train(cfg, mesh=mesh, device=other, **kw)
+        with pytest.raises(ValueError, match="device type"):
+            ttrain.train(cfg, mesh=mesh, **kw)             # None: the card
+        with pytest.raises(ValueError, match="does not split"):
+            ttrain.train(cfg, mesh=mesh, device="cpu",
+                         **dict(kw, global_batch=6))
+        with pytest.raises(ValueError, match="does not split"):
+            ttrain.train(cfg, mesh=make_process_mesh(model=2, device="cpu"),
+                         device="cpu", **dict(kw, global_batch=3))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cublas_config_is_checked(monkeypatch):
