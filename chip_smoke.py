@@ -263,12 +263,28 @@
    mesh run cut at 2 whose checkpoint the plain ``train`` resumes to 4,
    and a plain run cut at 2 that the mesh resumes, each equal to the
    plain uninterrupted run bit for bit.  The multi-rank path runs only
-   on the CPU (``tests/test_torch_spmd.py``: 4 gloo ranks).
+   on the CPU (``tests/test_torch_spmd.py``: 4 gloo ranks);
+17. runs the dry-run on the production meshes (after phase 16's
+   process group is destroyed): (a) on the host, the dry-run CLI with
+   ``--mesh both`` (torch's fake process group of 256 and 512 ranks,
+   meta tensors, the card hidden), one process per cell group, all
+   started together: qwen1.5-0.5b and mixtral-8x22b at train_4k,
+   prefill_32k and decode_32k baseline, and qwen1.5-0.5b decode_32k
+   packed, on (16, 16) and (2, 16, 16): every cell ok, each baseline
+   record's parameter bytes equal to phase 15d's ``param_specs`` bytes
+   a device, each cell's flops, bytes, collectives by kind and argument
+   + temp bytes printed with their ratio to the card's memory (over 1.0
+   printed, not failed); (b) while (a) runs, at 12b's config the mesh
+   step (``make_mesh_train_step`` through ``dryrun.place_cell``)
+   counted on meta tensors over a fake world of one and run on a
+   world-1 NCCL mesh on the card under the same counter: flops and
+   bytes equal exactly, argument + temp within 20% of
+   ``max_memory_allocated``.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
 steps 3-6, 8, 9, 10, 11, 13, 14 and 15, each counted from 0 just
-before it runs (steps 12 and 16 launch none, each checked) (a graph's
+before it runs (steps 12, 16 and 17 launch none, each checked) (a graph's
 replay counts the kernels
 its capture recorded; in step 10 the simulator's oracle ``apply``; in
 step 11 the eight held calls of (a); in step 13 the curves, the
@@ -4260,6 +4276,217 @@ def spmd_path(kept):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 17: the dry-run on the production meshes                       #
+# ------------------------------------------------------------------ #
+MESH_DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+MESH_DRY_PACKED = (("qwen1.5-0.5b", "decode_32k"),)
+MESH_DRY_DEADLINE = 150        # seconds the host sweep may take
+
+
+def mesh_sweep_start(out_dir):
+    """17a, started: the dry-run CLI with ``--mesh both`` (the (16, 16)
+    and (2, 16, 16) meshes on torch's fake process group, meta tensors)
+    on the host, one process per (arch, shape, variant) of RULE_ARCHS x
+    MESH_DRY_SHAPES baseline and MESH_DRY_PACKED packed, all started
+    together, the card hidden from them (the dry-run needs none)."""
+    cells = [(a, s, "baseline") for a in RULE_ARCHS
+             for s in MESH_DRY_SHAPES] + \
+        [(a, s, "packed") for a, s in MESH_DRY_PACKED]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, variant in cells:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "both", "--variant",
+               variant, "--out", str(out_dir)]
+        procs.append(((arch, shape, variant), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)))
+    return dict(procs=procs, t0=time.perf_counter(), out=out_dir)
+
+
+def mesh_sweep_stop(job):
+    """Kill whatever of the sweep still runs."""
+    for _, p in job["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def mesh_sweep_finish(job, total_memory):
+    """17a, ended: every process exits 0 within MESH_DRY_DEADLINE and
+    every cell is ok; each baseline record's parameter bytes equal
+    ``param_specs``' bytes a device (phase 15d's ``per_device_bytes``);
+    each cell's scaled flops, bytes, collectives by kind and argument +
+    temp bytes printed, with their ratio to the card's memory (a ratio
+    over 1.0 is printed, not failed)."""
+    failed = []
+    for cell, p in job["procs"]:
+        left = MESH_DRY_DEADLINE - (time.perf_counter() - job["t0"])
+        try:
+            out, err = p.communicate(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            mesh_sweep_stop(job)
+            raise AssertionError(f"the mesh dry-run passed its "
+                                 f"{MESH_DRY_DEADLINE} s deadline at {cell}")
+        if p.returncode:
+            failed.append((cell, out[-2000:], err[-2000:]))
+    secs = time.perf_counter() - job["t0"]
+    if failed:
+        raise AssertionError(f"mesh dry-run processes failed: {failed}")
+    cells, over = [], []
+    for (arch, shape, variant), _ in job["procs"]:
+        for mesh in ("single", "multi"):
+            path = job["out"] / f"{arch}__{shape}__{mesh}__{variant}.json"
+            rec = json.loads(path.read_text())
+            if not rec.get("ok"):
+                raise AssertionError(f"{path.name}: {rec.get('error')}")
+            mem = rec["memory"]
+            if variant == "baseline":
+                _, want = per_device_bytes(arch, mesh == "multi", False)
+                got = mem["argument_split"]["params"]
+                if got != want:
+                    raise AssertionError(
+                        f"{path.name}: {got} param bytes a device, "
+                        f"param_specs gives {want}")
+            held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            ratio = held / total_memory
+            c2 = rec["cost2"]
+            key = f"{arch} {shape} {mesh} {variant}"
+            if ratio > 1.0:
+                over.append(key)
+            cells.append(dict(cell=key, flops=c2["flops"], bytes=c2["bytes"],
+                              collectives=rec["collectives"],
+                              collectives_static=rec["collectives_static"],
+                              memory=mem, held_bytes=held,
+                              ratio_to_card=ratio, wall_s=rec["wall_s"]))
+            coll = {k: float(f"{v:.4g}")
+                    for k, v in rec["collectives"].items()}
+            print(f"mesh dry-run {key}: {c2['flops']:.4g} flops, "
+                  f"{c2['bytes']:.4g} bytes, collectives {coll}, "
+                  f"argument + temp {held / 1e9:.2f} GB = {ratio:.3f} of the "
+                  f"card's {total_memory / 1e9:.1f} GB"
+                  + (" (over)" if ratio > 1.0 else ""))
+    print(f"mesh dry-run on the host: {len(cells)} cells ok in {secs:.1f} s "
+          f"({len(job['procs'])} processes); over the card's memory: "
+          f"{over or 'none'}")
+    return dict(cells=cells, seconds=secs, over_card=over)
+
+
+def mesh_dryrun_vs_card():
+    """17b: at 12b's config (qwen1.5-0.5b bf16, batch 8 x seq 512,
+    logits_chunk 8192, remat "full") the mesh step
+    (``launch.train.make_mesh_train_step`` through
+    ``dryrun.place_cell``) counted on meta tensors over a fake world of
+    one, and run on a world-1 mesh on the card (NCCL; a store file in a
+    temporary directory, destroyed after) under the same counter: flops
+    and bytes equal exactly, argument + temp within DRYRUN_MEM_TOL of
+    ``max_memory_allocated``; where they differ, the ops that differ.
+    No port kernel runs."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_process_mesh
+    from repro_torch.models import init_params, input_specs
+    from repro_torch.runtime import op_cost
+    cfg = get_arch(LLM_ARCH).replace(logits_chunk=FULL_CHUNK, remat="full")
+    shape = ShapeConfig("phase12b", FULL_SEQ, FULL_BATCH, "train")
+    t0 = time.perf_counter()
+    with fake_world(1):
+        _, fn, meta_args = dryrun.build_cell(
+            LLM_ARCH, "train_4k", "baseline", cfg, shape,
+            mesh=make_process_mesh(device="cpu"))
+        with op_cost.Counter() as meta:
+            fn(*meta_args)
+        args_bytes = dryrun._nbytes(*meta_args)
+        del fn, meta_args
+    meta_s = time.perf_counter() - t0
+    predicted = args_bytes + meta.peak_bytes
+
+    params = init_params(torch.Generator(DEVICE).manual_seed(0), cfg,
+                         DEVICE)
+    gen = torch.Generator().manual_seed(1)
+    inputs = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                               generator=gen, dtype=v.dtype).to(DEVICE)
+              for k, v in input_specs(cfg, shape).items()}
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_process_mesh(device=DEVICE)
+            fn, args = dryrun.place_cell(cfg, shape, "baseline", mesh,
+                                         params, inputs)
+            del params, inputs
+            settle()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            with op_cost.Counter() as real:
+                new = fn(*args)
+            sync()
+            peak = torch.cuda.max_memory_allocated()
+            loss = float(new[2]["loss"])
+            del new, fn, args
+        finally:
+            dist.destroy_process_group()
+    expect_launches("17b's mesh step", _build.launch_counts(), {})
+    if (real.cost.flops, real.cost.bytes) != (meta.cost.flops,
+                                              meta.cost.bytes):
+        diff = {op: (meta.by_op.get(op), real.by_op.get(op))
+                for op in set(meta.by_op) | set(real.by_op)
+                if meta.by_op.get(op) != real.by_op.get(op)}
+        raise AssertionError(f"the card's count {real.cost} differs from "
+                             f"the meta count {meta.cost}; ops (meta, "
+                             f"card) {diff}")
+    ratio = predicted / peak
+    if abs(ratio - 1) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"argument + temp {predicted / 1e9:.2f} GB "
+                             f"vs max_memory_allocated {peak / 1e9:.2f} "
+                             f"GB: ratio {ratio:.3f}")
+    print(f"mesh dry-run vs the card, {LLM_ARCH} mesh train step at "
+          f"world 1 ({backend}; bf16, batch {FULL_BATCH} x seq {FULL_SEQ}, "
+          f"logits_chunk {FULL_CHUNK}, remat full): count equal on meta "
+          f"(fake world of one) and on the card ({meta.cost.flops:.6g} "
+          f"flops, {meta.cost.bytes:.6g} bytes, collectives "
+          f"{dict(meta.cost.collectives)} (card "
+          f"{dict(real.cost.collectives)}), {meta.ops} ops; meta run "
+          f"{meta_s:.1f} s); argument + temp {predicted / 1e9:.3f} GB vs "
+          f"max_memory_allocated {peak / 1e9:.3f} GB (ratio {ratio:.3f}); "
+          f"loss {loss:.4f}")
+    return dict(flops=meta.cost.flops, bytes=meta.cost.bytes,
+                collectives=dict(meta.cost.collectives),
+                collectives_card=dict(real.cost.collectives), ops=meta.ops,
+                argument_bytes=args_bytes, temp_bytes=meta.peak_bytes,
+                max_memory_allocated=peak, mem_ratio=ratio, meta_s=meta_s,
+                unpriced=dict(meta.unpriced))
+
+
+def mesh_dryrun_path():
+    """Phase 17, the dry-run on the production meshes: (a) the host
+    sweep started, (b) the mesh step counted on meta against the card
+    while it runs, then (a) read and gated.  No port kernel runs on
+    this path: the ``kernels`` line's launches are not added to."""
+    t_phase = time.perf_counter()
+    job = mesh_sweep_start(ROOT / "chiprun_out" / "dryrun_mesh")
+    try:
+        vs_card = mesh_dryrun_vs_card()
+        sweep = mesh_sweep_finish(
+            job, torch.cuda.get_device_properties(0).total_memory)
+    finally:
+        mesh_sweep_stop(job)
+    out = dict(sweep=sweep, vs_card=vs_card,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"the mesh dry-run phase took {out['phase_s']:.1f} s")
+    return out
+
+
 MMA_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -4433,6 +4660,7 @@ def main():
     meshed = mesh_path(launches)
     spmd = spmd_path(run_12b)
     del run_12b
+    mesh_dry = mesh_dryrun_path()
     from repro_torch.trace import SESSIONS
     print(f"torch.profiler: {SESSIONS['opened']} sessions opened, "
           f"{SESSIONS['empty']} of them saw no device event and were "
@@ -4460,7 +4688,7 @@ def main():
          "fused_vs_chained_replayed": stack_race, "train": trained,
          "sim": simulated, "llm": llm, "llm_train": llm_train,
          "faults_tuning_audit": faults, "twins_dryrun": twins,
-         "mesh": meshed, "spmd": spmd,
+         "mesh": meshed, "spmd": spmd, "mesh_dryrun": mesh_dry,
          "profiler_sessions": SESSIONS,
          "device": device},
         indent=1))

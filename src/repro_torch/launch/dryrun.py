@@ -1,59 +1,117 @@
-"""Dry-run: count every (arch x shape x variant) cell without allocation
-— the port's counterpart of ``repro.launch.dryrun``.
+"""Dry-run: count every (arch x shape x mesh x variant) cell without
+allocation — the port's counterpart of ``repro.launch.dryrun``.
 
 The reference jits each cell with ``ShapeDtypeStruct`` stand-ins on 512
 fake devices, compiles it, and reads XLA's ``memory_analysis`` and
-``cost_analysis`` plus ``hlo_cost.analyze`` of the compiled text.  The
-port has no HLO.  Here params and inputs are meta tensors
-(``abstract_params`` / ``input_specs``, packed trees through
-``pack_model_params``), the port's own step runs on them once under
-``repro_torch.runtime.op_cost.Counter``, and the record carries:
+``cost_analysis``, ``collective_bytes`` of the per-device HLO and
+``hlo_cost.analyze`` of it.  The port has no HLO.  Here params and
+inputs are meta tensors (``abstract_params`` / ``input_specs``, packed
+trees through ``pack_model_params``), the port's own step runs on them
+once under ``repro_torch.runtime.op_cost.Counter``, and the record
+carries:
 
-  * ``cost`` — the run as walked: every op dispatched, at the cut depth
-    and with each chunk loop counted once (what XLA's
-    ``cost_analysis`` gives for a ``while`` body);
+  * ``cost`` — the run at the walked depth (k cycles a stack, see
+    below), every op it dispatched, a chunk loop under no grad run one
+    trip and counted as all of them (``op_cost.scan``);
   * ``cost2`` / ``collectives`` — trip-scaled, the counterpart of
     ``hlo_cost.analyze``: a layer cycle is counted as the difference of
     two runs with k and k + 1 cycles (``op_cost.extrapolate``; it
-    prices the cycle's backward, remat recompute and optimizer work
-    with it) and scaled to the config's cycle count; chunk loops under
-    no grad run one trip, scaled (``op_cost.scan``);
+    prices the cycle's backward, remat recompute, optimizer work and,
+    on a mesh, its gathers and reductions with it) and scaled to the
+    config's cycle count;
+  * ``collectives_static`` — the walked run's collective operand bytes
+    by kind, with ``total``: the counterpart of the reference's count
+    of the HLO text, which counts a loop body once (0 on one card);
   * ``memory`` in XLA's names — ``argument_size_in_bytes`` (params +
-    optimizer state + inputs, at full size), ``output_size_in_bytes``
-    (the step's outputs) and ``temp_size_in_bytes`` (the peak of live
-    bytes created during the step, outputs live at that peak
-    included: torch has no donation), the last two extrapolated over
-    the cycles as the cost is;
+    optimizer state + inputs as this device holds them; their parts in
+    ``argument_split``), ``output_size_in_bytes`` (the step's outputs)
+    and ``temp_size_in_bytes`` (the peak of live bytes created during
+    the step, outputs live at that peak included: torch has no
+    donation), the last two extrapolated over the cycles as the cost
+    is;
   * ``n_params`` / ``n_params_active`` from ``cfg.param_count``, as the
     reference.
 
-``collectives_static`` is left out: it reads collective ops out of the
-HLO text.  The run needs no device; on a host with a card the record
-adds the card's ``total_memory`` beside the counts.
+The run needs no card; on a host with one the record adds the card's
+``total_memory`` beside the counts.
 
-The mesh has one value, ``one_card``.  ``tp_only_packed_kv8`` keeps its
-config changes (packed weights, int8 KV); its other difference in the
-reference, FSDP off, has no meaning on one card.
+Meshes.  ``one_card`` runs the one-process steps:
+``launch.train.make_train_step`` with ``optim.adamw`` for train (a
+packed tree trains its floating leaves and holds the words fixed:
+``jax.grad`` refuses integer leaves, so the reference's train x packed
+cells fail there), ``model.prefill`` at ``cache_capacity=seq_len``,
+``model.decode_step``; ``tp_only_packed_kv8`` keeps its config changes
+(packed weights, int8 KV), FSDP off has no meaning on one card.
 
-The step functions are the port's own: ``launch.train.make_train_step``
-with ``optim.adamw`` for train (a packed tree trains its floating
-leaves and holds the words fixed: ``jax.grad`` refuses integer leaves,
-so the reference's train x packed cells fail there), ``model.prefill``
-at ``cache_capacity=seq_len``, ``model.decode_step``.
+``single`` (16 x 16, ("data", "model")) and ``multi`` (2 x 16 x 16,
+("pod", "data", "model")) are the reference's production meshes, made
+real: ``run_cell`` opens torch's fake process group of 256 or 512
+ranks (``launch.mesh.fake_world``), builds the ``DeviceMesh`` with
+``make_process_mesh(16, pods=)`` and runs rank 0's view of the port's
+own SPMD step on meta tensors.  Params are DTensors placed by
+``param_specs(..., stacked_prefixes=("decoder", "encoder"))`` (FSDP
+off, ``fsdp_axis="__off__"``, for the ``tp_only*`` variants, as the
+reference), packed words split as words; the AdamW moments as their
+params, the step replicated; the inputs are the rank's blocks by
+``batch_specs``.  The steps:
+
+  * train — ``launch.train.make_mesh_train_step`` (a packed tree: its
+    twin ``_mesh_frozen_words_step``): every param gathered whole,
+    ``loss_fn`` and its grads on the rank's rows (MoE's batch
+    statistics over the batch group), loss and whole grads mean-reduced
+    over the batch group in float32, the global norm, AdamW on the
+    rank's blocks;
+  * prefill / decode — neither package has a mesh serving path; the
+    reference's is the jit inside its dry-run, so the port's is here:
+    the params gathered whole, the rank's inputs gathered over "model"
+    where ``batch_specs`` splits them there (KV caches' heads or seq,
+    ``conv``, ``h``, ``frames`` / ``image_embeds``' last dim; train
+    gathers its frontend inputs so too), ``prefill`` / ``decode_step``
+    on the rank's rows, and decode's new caches cut back to their
+    ``batch_specs`` blocks (the reference's ``out_shardings``).
+
+So the per-device numbers are the port's own step, in which "model"
+shards storage only: ranks that differ only on "model" compute the same
+rows.  A batch the batch axes do not divide is replicated over them by
+``fit_spec`` (long_500k's batch of 1: every rank computes the same row,
+as in the reference).  How the numbers differ from XLA's compiled
+program of the reference:
+
+  * flops — a device's dot flops are the global step's over pod x data,
+    not over pod x data x model (XLA propagates the tensor-parallel
+    split through the forward);
+  * temp — holds every param gathered whole (XLA gathers a layer's
+    FSDP blocks inside the loop), whole grads and their float32 copies
+    (XLA reduce-scatters them to the blocks), eager activations of the
+    rank's rows;
+  * collectives — operand bytes of each c10d op a rank calls: a
+    gather over two mesh dims is two all-gathers (the second's operand
+    the first's result), the grads an all-reduce each in float32, the
+    norm and MoE's two means an all-reduce each; XLA's are its
+    reduce-scatters and per-layer gathers;
+  * bytes — eager: every op a materialisation boundary, an upper bound
+    of a fused program's; decode's cache cut is a copy where XLA writes
+    the blocks in place.
+
+A fake group's collectives leave their outputs as they were: the
+counts are right, the values are not (meta tensors have none).
 
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape \\
       train_4k --variant baseline --out experiments/dryrun_torch
   python -m repro_torch.launch.dryrun --all --variant packed
+  python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape \\
+      decode_32k --mesh both --variant packed      # single and multi
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -61,20 +119,24 @@ from repro_torch import tree as _tree
 from repro_torch.configs import (ARCHS, SHAPES, get_arch, get_shape,
                                  shape_applicable)
 from repro_torch.kernels.packed import PackedArray
-from repro_torch.launch.train import deterministic, make_train_step
+from repro_torch.launch import train as T
+from repro_torch.launch.mesh import fake_world, make_process_mesh, rules_mesh
 from repro_torch.models import model as M
 from repro_torch.models.quantize import pack_model_params
 from repro_torch.models.transformer import find_cycle
 from repro_torch.optim import adamw
 from repro_torch.runtime import op_cost
+from repro_torch.runtime import sharding as shd
 
-__all__ = ["MESHES", "VARIANTS", "build_cell", "cell_config",
-           "cut_depth", "main", "run_cell", "step_cost"]
+__all__ = ["MESHES", "VARIANTS", "WORLDS", "build_cell", "cell_config",
+           "cut_depth", "main", "place_cell", "production_mesh", "run_cell",
+           "step_cost"]
 
 VARIANTS = ("baseline", "remat_none", "remat_dots", "packed",
             "moe_capacity", "moe_gather", "kv_int8", "tp_only_packed_kv8",
             "big_chunks", "remat_dots_big_chunks", "packed_moe_capacity")
-MESHES = ("one_card",)
+MESHES = ("one_card", "single", "multi")
+WORLDS = {"single": 256, "multi": 512}     # ranks of the production meshes
 BASE_CYCLES = 2        # the deepest base cut (k cycles, then k + 1)
 
 
@@ -111,43 +173,182 @@ def _packs(variant: str) -> bool:
         or variant == "tp_only_packed_kv8"
 
 
+def _is_float(t: Any) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+def _frozen_loss_and_grads(params, cfg, batch):
+    """(loss, grads) of a packed tree: ``loss_fn``'s gradients of the
+    floating leaves, None in place of every words leaf (held fixed)."""
+    flat, tdef = _tree.flatten(params)
+    idx = [i for i, t in enumerate(flat) if _is_float(t)]
+    train = [flat[i].detach().requires_grad_(True) for i in idx]
+    full = list(flat)
+    for i, t in zip(idx, train):
+        full[i] = t
+    with T.deterministic(train[0].device):
+        loss = M.loss_fn(_tree.unflatten(tdef, full), cfg, batch)
+        grads = torch.autograd.grad(loss, train, allow_unused=True,
+                                    materialize_grads=True)
+    out: List[Any] = [None] * len(flat)
+    for i, g in zip(idx, grads):
+        out[i] = g
+    return loss.detach(), _tree.unflatten(tdef, out)
+
+
 def _frozen_words_step(cfg, opt_cfg: adamw.AdamWConfig) -> Callable:
     """The train step over a packed tree: the floating leaves get
     ``loss_fn``'s gradients and AdamW, the words stay as they are."""
 
     def step(params, opt_state, batch):
+        loss, grads = _frozen_loss_and_grads(params, cfg, batch)
         flat, tdef = _tree.flatten(params)
-        idx = [i for i, t in enumerate(flat)
-               if isinstance(t, torch.Tensor) and t.is_floating_point()]
-        train = [flat[i].detach().requires_grad_(True) for i in idx]
-        full = list(flat)
-        for i, t in zip(idx, train):
-            full[i] = t
-        with deterministic(train[0].device):
-            loss = M.loss_fn(_tree.unflatten(tdef, full), cfg, batch)
-            grads = torch.autograd.grad(loss, train, allow_unused=True,
-                                        materialize_grads=True)
+        idx = [i for i, t in enumerate(flat) if _is_float(t)]
         with torch.no_grad():
             new, opt_state, metrics = adamw.apply_updates(
-                [t.detach() for t in train], opt_state, list(grads),
+                [flat[i] for i in idx], opt_state, _tree.leaves(grads),
                 opt_cfg)
         for i, t in zip(idx, new):
-            full[i] = t
-        return _tree.unflatten(tdef, full), opt_state, \
-            dict(metrics, loss=loss.detach())
+            flat[i] = t
+        return _tree.unflatten(tdef, flat), opt_state, \
+            dict(metrics, loss=loss)
+    return step
+
+
+def _mesh_frozen_words_step(cfg, opt_cfg: adamw.AdamWConfig,
+                            mesh) -> Callable:
+    """``_frozen_words_step`` on ``mesh``, the twin of
+    ``make_mesh_train_step``: every param gathered whole (words too),
+    the floating leaves' grads mean-reduced as ``mesh_loss_and_grads``
+    does, cut to their blocks, AdamW on them; the words DTensors stay as
+    they are.  Every rank of the mesh calls it (it makes the batch
+    group)."""
+    group, size = shd.batch_group(mesh)
+
+    def step(params, opt_state, batch):
+        loss, grads = T.mesh_loss_and_grads(
+            params, cfg, batch, group, size,
+            grads_of=_frozen_loss_and_grads)
+        flat, tdef = _tree.flatten(params)
+        idx = [i for i, t in enumerate(flat) if _is_float(t)]
+        trained = [flat[i] for i in idx]
+        blocks = [shd.local_block(g, p)
+                  for g, p in zip(_tree.leaves(grads), trained)]
+        del grads
+        new, opt_state, metrics = T.mesh_apply_updates(
+            trained, opt_state, blocks, opt_cfg)
+        for i, t in zip(idx, new):
+            flat[i] = t
+        return _tree.unflatten(tdef, flat), opt_state, \
+            dict(metrics, loss=loss)
     return step
 
 
 def _float_leaves(params) -> List[torch.Tensor]:
-    return [t for t in _tree.leaves(params)
-            if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    return [t for t in _tree.leaves(params) if _is_float(t)]
+
+
+# ------------------------------------------------------------------ #
+# the mesh steps' inputs                                               #
+# ------------------------------------------------------------------ #
+def _is_spec(x: Any) -> bool:
+    return isinstance(x, shd.P)
+
+
+def _model_dim(spec: shd.P) -> Optional[int]:
+    """The tensor dim that ``spec`` splits over "model", or None."""
+    for d, entry in enumerate(spec):
+        if "model" in shd._axes_of(entry):
+            return d
+    return None
+
+
+def _gather_model(batch: Any, specs: Any, mesh) -> Any:
+    """The rank's input blocks gathered over "model" wherever their
+    ``batch_specs`` split them there (an all-gather over the mesh's
+    "model" dim); the batch-axis splits stay."""
+    from torch.distributed.tensor import DTensor, Replicate
+    m = tuple(mesh.mesh_dim_names).index("model")
+
+    def one(x, spec):
+        d = _model_dim(spec)
+        if d is None:
+            return x
+        pl = shd.placements(spec, mesh)
+        keep = list(pl)
+        keep[m] = Replicate()
+        return DTensor.from_local(x, mesh, pl, run_check=False) \
+            .redistribute(mesh, keep).to_local()
+    return _tree.map(one, batch, specs, is_leaf=_is_spec)
+
+
+def _cut_model(out: Any, specs: Any, mesh) -> Any:
+    """Each leaf of ``out`` (whole over "model") cut to this rank's
+    block on the dim its spec splits over "model"."""
+    n = mesh.size(tuple(mesh.mesh_dim_names).index("model"))
+    at = mesh.get_local_rank("model")
+
+    def one(x, spec):
+        d = _model_dim(spec)
+        if d is None:
+            return x
+        blk = x.shape[d] // n
+        return x.narrow(d, at * blk, blk).clone()
+    return _tree.map(one, out, specs, is_leaf=_is_spec)
+
+
+def place_cell(cfg, shape, variant: str, mesh, params: Any,
+               inputs: Any) -> Tuple[Callable, tuple]:
+    """(step, args) of a cell on the ``DeviceMesh`` ``mesh`` from whole
+    ``params`` and ``inputs`` (meta or real, equal on every rank): the
+    params placed by ``param_specs`` (``fsdp_axis="__off__"`` for the
+    ``tp_only*`` variants), the AdamW moments as their params, the
+    inputs cut to this rank's ``batch_specs`` blocks; the step as the
+    module docstring says."""
+    fsdp = "__off__" if variant.startswith("tp_only") else "data"
+    p_shard, o_shard = T.shardings(params, mesh, fsdp_axis=fsdp)
+    placed = shd.distribute(params, p_shard)
+    b_specs = shd.batch_specs(inputs, rules_mesh(mesh))
+    rows = shd.distribute(inputs, shd.named(b_specs, mesh))
+    rows = _tree.map(lambda d: d.to_local(), rows)
+    if shape.kind == "train":
+        opt_cfg = adamw.AdamWConfig()
+        if _packs(variant):
+            f_shard = [s for t, s in zip(_tree.leaves(params),
+                                         _tree.leaves(p_shard))
+                       if _is_float(t)]
+            opt = shd.distribute(
+                adamw.init(_float_leaves(params)),
+                adamw.OptState(o_shard.step, f_shard, f_shard))
+            step = _mesh_frozen_words_step(cfg, opt_cfg, mesh)
+        else:
+            opt = shd.distribute(adamw.init(params), o_shard)
+            step = T.make_mesh_train_step(cfg, opt_cfg, mesh)
+
+        def fn(params, opt_state, batch):
+            return step(params, opt_state,
+                        _gather_model(batch, b_specs, mesh))
+        return fn, (placed, opt, rows)
+
+    def fn(params, batch):
+        with torch.no_grad():
+            full = _tree.map(shd.full_tensor, params)
+            batch = _gather_model(batch, b_specs, mesh)
+            if shape.kind == "prefill":
+                return M.prefill(full, cfg, batch,
+                                 cache_capacity=shape.seq_len)
+            logits, caches = M.decode_step(full, cfg, batch)
+            return logits, _cut_model(caches, b_specs["caches"], mesh)
+    return fn, (placed, rows)
 
 
 def build_cell(arch: str, shape_name: str, variant: str = "baseline",
-               cfg=None, shape=None) -> Tuple[Any, Callable, tuple]:
+               cfg=None, shape=None, mesh=None
+               ) -> Tuple[Any, Callable, tuple]:
     """(cfg, step, meta args) of one cell; ``cfg`` overrides the cell's
     config (the dry-run passes depth cuts of it), ``shape`` its
-    ShapeConfig."""
+    ShapeConfig; ``mesh`` a ``DeviceMesh`` places the cell on it
+    (``place_cell``), None is one card."""
     if cfg is None:
         cfg = cell_config(arch, shape_name, variant)
     shape = shape or get_shape(shape_name)
@@ -155,13 +356,15 @@ def build_cell(arch: str, shape_name: str, variant: str = "baseline",
     if _packs(variant):
         params = pack_model_params(params)
     inputs = M.input_specs(cfg, shape)
+    if mesh is not None:
+        return (cfg, *place_cell(cfg, shape, variant, mesh, params, inputs))
     if shape.kind == "train":
         opt_cfg = adamw.AdamWConfig()
         if _packs(variant):
             fn = _frozen_words_step(cfg, opt_cfg)
             opt = adamw.init(_float_leaves(params))
         else:
-            fn = make_train_step(cfg, opt_cfg)
+            fn = T.make_train_step(cfg, opt_cfg)
             opt = adamw.init(params)
         return cfg, fn, (params, opt, inputs)
     if shape.kind == "prefill":
@@ -213,6 +416,8 @@ def _tensor_storages(tree) -> Dict[int, int]:
         if isinstance(t, PackedArray):
             t = t.words
         if isinstance(t, torch.Tensor):
+            # a DTensor as the block this rank holds
+            t = getattr(t, "_local_tensor", t)
             st = t.untyped_storage()
             out[st._cdata] = st.nbytes()
     return out
@@ -236,10 +441,11 @@ def _measure(fn: Callable, args: tuple) -> Dict[str, Any]:
             "unpriced": dict(c.unpriced)}
 
 
-def _base_cut(cfg, deep: Dict[str, int]) -> Dict[str, int]:
-    """The shallowest cut that keeps every deep stack's cycle: 1 cycle
-    a stack where that is still the cycle, else ``BASE_CYCLES``."""
-    for k in (1, BASE_CYCLES):
+def _base_cut(cfg, deep: Dict[str, int], least: int = 1) -> Dict[str, int]:
+    """The shallowest cut of at least ``least`` cycles that keeps every
+    deep stack's cycle: 1 cycle a stack where that is still the cycle,
+    else ``BASE_CYCLES``."""
+    for k in range(least, BASE_CYCLES + 1):
         cut = {s: k for s in deep}
         try:
             cut_depth(cfg, cut)
@@ -251,21 +457,24 @@ def _base_cut(cfg, deep: Dict[str, int]) -> Dict[str, int]:
 
 
 def step_cost(arch: str, shape_name: str, variant: str = "baseline",
-              cfg=None, shape=None) -> Dict[str, Any]:
+              cfg=None, shape=None, mesh=None) -> Dict[str, Any]:
     """Count one cell: runs at k and k + 1 cycles a stack (k from
     ``_base_cut``; a stack no deeper than that runs whole), scaled to
     the config's cycle counts.  Returns the full config, the walked and
-    the scaled Cost, memory and the runs' op counts.  ``cfg`` and
-    ``shape`` override the cell's, as in ``build_cell``."""
+    the scaled Cost, memory and the runs' op counts.  ``cfg``,
+    ``shape`` and ``mesh`` as in ``build_cell``: on a mesh each cut is
+    placed anew, so a cycle's gathers and reductions scale with it; k
+    is at least 2 there (a stacked leaf of one cycle is gathered over a
+    dim after the first without the concatenation more cycles need)."""
     if cfg is None:
         cfg = cell_config(arch, shape_name, variant)
     stacks = _stacks(cfg)
     deep = {s: n for s, (_, n, _) in stacks.items() if n > BASE_CYCLES + 1}
-    base_cut = _base_cut(cfg, deep)
+    base_cut = _base_cut(cfg, deep, least=1 if mesh is None else 2)
 
     def run(cut):
         return _measure(*build_cell(arch, shape_name, variant,
-                                    cut_depth(cfg, cut), shape)[1:])
+                                    cut_depth(cfg, cut), shape, mesh)[1:])
     base = run(base_cut)
     runs = {"base": base}
     for s in deep:
@@ -283,12 +492,40 @@ def step_cost(arch: str, shape_name: str, variant: str = "baseline",
             "walked_cycles": base_cut}
 
 
+def production_mesh(mesh_kind: str):
+    """The reference's production mesh as a ``DeviceMesh`` over the
+    initialised (fake) process group of ``WORLDS[mesh_kind]`` ranks:
+    ("data", "model") = (16, 16) or ("pod", "data", "model") =
+    (2, 16, 16)."""
+    return make_process_mesh(16, pods=2 if mesh_kind == "multi" else 1,
+                             device="cpu")
+
+
+@contextlib.contextmanager
+def _world(n: int) -> Iterator[None]:
+    """A fake world of ``n`` ranks for the block: the process's own if
+    it already runs one of that size, else ``fake_world(n)``."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_backend() == "fake" \
+            and dist.get_world_size() == n:
+        yield
+        return
+    with fake_world(n):
+        yield
+
+
+def _with_total(collectives: Dict[str, float]) -> Dict[str, float]:
+    return dict(collectives, total=float(sum(collectives.values())))
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "one_card",
              variant: str = "baseline") -> Dict[str, Any]:
-    """The reference's record for one cell (see the module docstring)."""
+    """The reference's record for one cell (see the module docstring);
+    on ``single`` / ``multi`` rank 0's view, with ``mesh_shape`` and
+    ``rank`` added."""
     if mesh_kind not in MESHES:
-        raise ValueError(f"mesh {mesh_kind!r}: the port runs on one card "
-                         f"({MESHES})")
+        raise ValueError(f"mesh {mesh_kind!r}: the dry-run runs on one card "
+                         f"or on a production mesh, {MESHES}")
     cfg0 = get_arch(arch)
     shape = get_shape(shape_name)
     ok, why = shape_applicable(cfg0, shape)
@@ -301,13 +538,25 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "one_card",
         return rec
     t0 = time.time()
     try:
-        res = step_cost(arch, shape_name, variant)
-        cfg = res["cfg"]
-        _, _, args = build_cell(arch, shape_name, variant, cfg)
+        with contextlib.ExitStack() as stack:
+            dm = None
+            if mesh_kind != "one_card":
+                import torch.distributed as dist
+                stack.enter_context(_world(WORLDS[mesh_kind]))
+                dm = production_mesh(mesh_kind)
+                rec["mesh_shape"] = dict(zip(dm.mesh_dim_names, dm.shape))
+                rec["rank"] = dist.get_rank()
+            res = step_cost(arch, shape_name, variant, mesh=dm)
+            cfg = res["cfg"]
+            _, _, args = build_cell(arch, shape_name, variant, cfg, mesh=dm)
+        split = dict(zip(("params", "opt_state", "inputs")
+                         if len(args) == 3 else ("params", "inputs"),
+                         (_nbytes(a) for a in args)))
         rec["memory"] = {
             "argument_size_in_bytes": _nbytes(*args),
             "output_size_in_bytes": int(res["out"]),
             "temp_size_in_bytes": int(res["peak"]),
+            "argument_split": split,
         }
         c, c2 = res["cost"], res["cost2"]
         rec["cost"] = {"flops": c.flops, "bytes_accessed": c.bytes,
@@ -317,8 +566,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "one_card",
                         "collectives": dict(c2.collectives),
                         "collective_bytes": c2.collective_bytes,
                         "cycles": res["cycles"]}
-        rec["collectives"] = dict(c2.collectives,
-                                  total=c2.collective_bytes)
+        rec["collectives_static"] = _with_total(c.collectives)
+        rec["collectives"] = _with_total(c2.collectives)
         rec["n_params"] = cfg.param_count()
         rec["n_params_active"] = cfg.param_count(active_only=True)
         if torch.cuda.is_available():
@@ -337,12 +586,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="one_card", choices=MESHES)
+    ap.add_argument("--mesh", default="one_card",
+                    choices=("one_card", "single", "multi", "both"))
     ap.add_argument("--variant", default="baseline", choices=VARIANTS)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
         cells = [(a, s) for a in sorted(ARCHS) for s in sorted(SHAPES)]
     else:
@@ -352,17 +603,18 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     failures = 0
     for a, s in cells:
-        rec = run_cell(a, s, args.mesh, args.variant)
-        name = f"{a}__{s}__{args.mesh}__{args.variant}.json"
-        with open(os.path.join(args.out, name), "w") as f:
-            json.dump(rec, f, indent=1)
-        status = ("SKIP" if not rec.get("applicable")
-                  else "OK" if rec.get("ok") else "FAIL")
-        print(f"[{status}] {a} x {s} x {args.mesh} "
-              f"({rec.get('wall_s', 0):.1f}s)"
-              + (f" :: {rec.get('error', '')}" if status == "FAIL" else ""),
-              flush=True)
-        failures += status == "FAIL"
+        for mk in meshes:
+            rec = run_cell(a, s, mk, args.variant)
+            name = f"{a}__{s}__{mk}__{args.variant}.json"
+            with open(os.path.join(args.out, name), "w") as f:
+                json.dump(rec, f, indent=1)
+            status = ("SKIP" if not rec.get("applicable")
+                      else "OK" if rec.get("ok") else "FAIL")
+            print(f"[{status}] {a} x {s} x {mk} "
+                  f"({rec.get('wall_s', 0):.1f}s)"
+                  + (f" :: {rec.get('error', '')}" if status == "FAIL"
+                     else ""), flush=True)
+            failures += status == "FAIL"
     return 1 if failures else 0
 
 

@@ -25,21 +25,31 @@ default process group, one rank (one process, one card) a point.
     dm = make_process_mesh(device="cpu")            # ("data", "model")
     specs = param_specs(params, rules_mesh(dm), ("decoder", "encoder"))
 
+``fake_world`` is torch's fake default process group: ``n`` ranks in
+one process, collectives that move nothing.  Over it
+``make_process_mesh`` builds the production meshes as real
+``DeviceMesh`` objects, and the dry-run runs rank 0's view of an SPMD
+step on meta tensors (``launch.dryrun``):
+
+    with fake_world(512):
+        dm = make_process_mesh(16, pods=2, device="cpu")  # (2, 16, 16)
+
 Functions, not module-level constants: importing this module touches
 no device.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "current_mesh", "make_local_mesh", "make_process_mesh",
-           "make_production_mesh", "rules_mesh"]
+__all__ = ["Mesh", "current_mesh", "fake_world", "make_local_mesh",
+           "make_process_mesh", "make_production_mesh", "rules_mesh"]
 
 # the meshes entered in this context, innermost last
 _ENTERED: contextvars.ContextVar = contextvars.ContextVar(
@@ -167,6 +177,36 @@ def make_process_mesh(model: int = 1, *, pods: int = 1, device=None):
     else:
         shape, names = (n // model, model), ("data", "model")
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0) -> Iterator[None]:
+    """torch's fake default process group of ``n`` ranks for the block,
+    this process rank ``rank``; destroyed on exit.  Its collectives move
+    nothing and leave their outputs' values as they were: a run over it
+    is good for shapes and counts (meta tensors), not for values.
+    Raises where a default process group is already initialised: it
+    never joins or replaces one."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        raise RuntimeError("this torch has no torch.distributed")
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a default process group ({dist.get_backend()}, world "
+            f"{dist.get_world_size()}) is already initialised: fake_world "
+            f"never joins or replaces one")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("this torch has no fake process group "
+                           "(torch.testing._internal.distributed.fake_pg)"
+                           ) from e
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def rules_mesh(mesh: Any) -> Mesh:

@@ -54,7 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,7 +72,8 @@ from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.straggler import StepWatchdog
 
 __all__ = ["deterministic", "loss_and_grads", "main", "make_mesh_train_step",
-           "make_train_step", "mesh_loss_and_grads", "shardings", "train"]
+           "make_train_step", "mesh_apply_updates", "mesh_loss_and_grads",
+           "shardings", "train"]
 
 STACKED = ("decoder", "encoder")   # the reference's stacked_prefixes
 
@@ -136,11 +137,14 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 # ------------------------------------------------------------------ #
 # SPMD over a DeviceMesh                                               #
 # ------------------------------------------------------------------ #
-def shardings(params: Any, mesh: Any) -> Tuple[Any, adamw.OptState]:
+def shardings(params: Any, mesh: Any, fsdp_axis: str = "data"
+              ) -> Tuple[Any, adamw.OptState]:
     """(params', opt state's) ``MeshSharding`` trees on ``mesh``: the
     reference's ``param_specs(..., stacked_prefixes=("decoder",
-    "encoder"))``, the moments as their params, the step replicated."""
-    specs = shd.param_specs(params, rules_mesh(mesh), stacked_prefixes=STACKED)
+    "encoder"), fsdp_axis=)``, the moments as their params, the step
+    replicated."""
+    specs = shd.param_specs(params, rules_mesh(mesh), stacked_prefixes=STACKED,
+                            fsdp_axis=fsdp_axis)
     p_shard = shd.named(specs, mesh)
     return p_shard, adamw.OptState(step=shd.MeshSharding(mesh, shd.P()),
                                    m=p_shard, v=p_shard)
@@ -157,14 +161,15 @@ def _mean_over(t: torch.Tensor, group: Any, size: int) -> torch.Tensor:
 
 
 def mesh_loss_and_grads(params: Any, cfg, batch: Dict[str, torch.Tensor],
-                        group: Any, size: int):
+                        group: Any, size: int, grads_of=loss_and_grads):
     """(loss, grads) of the global batch from DTensor ``params`` and
-    this rank's rows: the params gathered whole, ``loss_and_grads`` with
-    MoE's batch statistics over ``group``, then loss and every grad
-    mean-reduced over it (whole tensors, equal on the group's ranks)."""
-    full = _tree.map(lambda p: p.full_tensor(), params)
+    this rank's rows: the params gathered whole (``sharding.full_tensor``,
+    packed words too), ``grads_of`` (``loss_and_grads``) with MoE's batch
+    statistics over ``group``, then loss and every grad mean-reduced over
+    it (whole tensors, equal on the group's ranks)."""
+    full = _tree.map(shd.full_tensor, params)
     with shd.global_batch(group, size):
-        loss, grads = loss_and_grads(full, cfg, batch)
+        loss, grads = grads_of(full, cfg, batch)
     del full
     return (_mean_over(loss, group, size),
             _tree.map(lambda g: _mean_over(g, group, size), grads))
@@ -204,27 +209,40 @@ def make_mesh_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh):
 
     def step(params, opt_state, batch):
         loss, grads = mesh_loss_and_grads(params, cfg, batch, group, size)
-        flat_p, tdef = _tree.flatten(params)
-        blocks = [shd.local_block(g, p)
-                  for g, p in zip(_tree.leaves(grads), flat_p)]
+        blocks = [shd.local_block(g, p) for g, p in
+                  zip(_tree.leaves(grads), _tree.leaves(params))]
         del grads
-        with torch.no_grad():
-            gn = _global_norm(blocks, flat_p)
-            local = [_tree.unflatten(tdef, [x.to_local() for x in
-                                            _tree.leaves(t)])
-                     for t in (opt_state.m, opt_state.v)]
-            new_p, new_o, metrics = adamw.apply_updates(
-                _tree.unflatten(tdef, [p.to_local() for p in flat_p]),
-                adamw.OptState(opt_state.step.to_local(), *local),
-                _tree.unflatten(tdef, blocks), opt_cfg, grad_norm=gn)
-
-        def place(t):
-            return _tree.unflatten(tdef, [_from_local(x, p) for x, p in
-                                          zip(_tree.leaves(t), flat_p)])
-        opt_state = adamw.OptState(_from_local(new_o.step, opt_state.step),
-                                   place(new_o.m), place(new_o.v))
-        return place(new_p), opt_state, dict(metrics, loss=loss)
+        params, opt_state, metrics = mesh_apply_updates(
+            params, opt_state, blocks, opt_cfg)
+        return params, opt_state, dict(metrics, loss=loss)
     return step
+
+
+def mesh_apply_updates(params: Any, opt_state: adamw.OptState,
+                       blocks: List[torch.Tensor], opt_cfg: adamw.AdamWConfig):
+    """AdamW on this rank's blocks: ``blocks`` holds each leaf's
+    gradient cut to the block its DTensor param holds here
+    (``local_block``), in leaf order; the global norm
+    (``_global_norm``), AdamW on the blocks of ``params`` and
+    ``opt_state``, and the results placed as the params.  Returns
+    ``(params, opt_state, metrics)``."""
+    flat_p, tdef = _tree.flatten(params)
+    with torch.no_grad():
+        gn = _global_norm(blocks, flat_p)
+        local = [_tree.unflatten(tdef, [x.to_local() for x in
+                                        _tree.leaves(t)])
+                 for t in (opt_state.m, opt_state.v)]
+        new_p, new_o, metrics = adamw.apply_updates(
+            _tree.unflatten(tdef, [p.to_local() for p in flat_p]),
+            adamw.OptState(opt_state.step.to_local(), *local),
+            _tree.unflatten(tdef, blocks), opt_cfg, grad_norm=gn)
+
+    def place(t):
+        return _tree.unflatten(tdef, [_from_local(x, p) for x, p in
+                                      zip(_tree.leaves(t), flat_p)])
+    opt_state = adamw.OptState(_from_local(new_o.step, opt_state.step),
+                               place(new_o.m), place(new_o.v))
+    return place(new_p), opt_state, metrics
 
 
 def _mesh_device(mesh: Any, device: Any) -> torch.device:

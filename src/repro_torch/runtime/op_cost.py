@@ -123,9 +123,13 @@ _REDUCE_EXTRA = {"mean": 1}
 # (views are free through ``OpOverload.is_view``; ``_unsafe_view`` is
 # a reshape that torch does not mark as one)
 FREE = {"empty", "empty_like", "empty_strided", "new_empty",
-        "new_empty_strided", "arange", "lift_fresh_copy", "scalar_tensor",
-        "_local_scalar_dense", "set", "resize", "_unsafe_view",
-        "record_stream"}
+        "new_empty_strided", "arange", "lift_fresh", "lift_fresh_copy",
+        "scalar_tensor", "_local_scalar_dense", "set", "resize",
+        "_unsafe_view", "record_stream",
+        # a functional collective's result handed on: no bytes move
+        "wait_tensor", "_wrap_tensor_autograd"}
+# ops whose result aliases their input's storage on a real device
+_ALIASES = {"_wrap_tensor_autograd"}
 # c10d op name fragment -> collective kind
 _COLLECTIVE = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                ("reduce_scatter", "reduce-scatter"),
@@ -268,8 +272,11 @@ class Counter(TorchDispatchMode):
         self.peak_bytes = 0.0
         self._mult = 1.0
         self._lock = threading.Lock()
-        self._trip_new: Optional[List[Tuple[Any, int]]] = None
+        # storages created in the open trips: key -> bytes (a key freed
+        # and reused by a later storage keeps the later one's bytes)
+        self._trip_new: Optional[Dict[int, int]] = None
         self._weights: Dict[int, float] = {}
+        self._held: Dict[int, Any] = {}
 
     def __enter__(self):
         _ACTIVE.stack = getattr(_ACTIVE, "stack", []) + [self]
@@ -288,12 +295,19 @@ class Counter(TorchDispatchMode):
     def _track(self, func, args, kwargs, out) -> None:
         if func.is_view:
             return
-        seen = {t.untyped_storage()._cdata
-                for t in _tensors((args, kwargs))}
+        ins = _tensors((args, kwargs))
+        seen = {t.untyped_storage()._cdata for t in ins}
         for t in _tensors(out):
             st = t.untyped_storage()
             key = st._cdata
             if key in seen or key in self._weights:
+                continue
+            if func.overloadpacket.__name__ in _ALIASES and ins:
+                # an alias of its input where it runs (a wrapper around
+                # the input's storage), a fresh storage on meta: the
+                # input's bytes stay live while the result lives
+                self._held[key] = ins[0].untyped_storage()
+                weakref.finalize(st, self._held.pop, key, None)
                 continue
             seen.add(key)
             nb = st.nbytes()
@@ -303,7 +317,7 @@ class Counter(TorchDispatchMode):
                 self.peak_bytes = max(self.peak_bytes, self.live_bytes)
             weakref.finalize(st, self._free, key, nb)
             if self._trip_new is not None:
-                self._trip_new.append((key, nb))
+                self._trip_new[key] = nb
 
     # -- dispatch --------------------------------------------------- #
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -336,7 +350,7 @@ class Counter(TorchDispatchMode):
         the last."""
         outer_mult, outer_new = self._mult, self._trip_new
         self._mult = outer_mult * n
-        self._trip_new = []
+        self._trip_new = {}
         start_peak = self.peak_bytes
         self.peak_bytes = self.live_bytes
         box: Dict[str, Any] = {}
@@ -349,14 +363,14 @@ class Counter(TorchDispatchMode):
                     for t in _tensors(box.get("keep"))}
             extra = 0.0
             with self._lock:
-                for key, nb in created:
+                for key, nb in created.items():
                     if key in kept and key in self._weights:
                         self._weights[key] = float(n)
                         extra += (n - 1) * nb
                 self.live_bytes += extra
                 self.peak_bytes = max(start_peak, self.peak_bytes + extra)
             if outer_new is not None:
-                outer_new.extend(created)
+                outer_new.update(created)
 
 
 def scan(body: Callable[[Any, Any], Tuple[Any, Any]], carry: Any,

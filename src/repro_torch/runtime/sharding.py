@@ -21,7 +21,10 @@ Policy (DESIGN.md §4):
 (None, an axis name, or a tuple of names) equal to the reference's.
 :class:`NamedSharding` places a tensor by its spec: ``shard`` cuts it
 into one piece per mesh slot (on the slot's device), ``gather`` puts
-the pieces back together.  ``shard_act`` is the reference's activation
+the pieces back together; on a ``torch.distributed`` ``DeviceMesh``,
+:class:`MeshSharding` places it as a DTensor (``distribute``,
+``local_block``, ``full_tensor``; a PackedArray by its words).
+``shard_act`` is the reference's activation
 constraint: it never changes a value; inside a mesh context it computes
 the spec and keeps it on the mesh (``mesh.constraints``).
 """
@@ -41,9 +44,9 @@ from repro_torch.launch.mesh import Mesh, current_mesh
 
 __all__ = ["BATCH_AXES", "MeshSharding", "NamedSharding", "P", "axis_size",
            "batch_group", "batch_mean", "batch_shard", "batch_specs",
-           "distribute", "fit_spec", "global_batch", "holds_first_copy",
-           "local_block", "named", "param_specs", "placements", "shard_act",
-           "spec_for_param"]
+           "distribute", "fit_spec", "full_tensor", "global_batch",
+           "holds_first_copy", "local_block", "named", "param_specs",
+           "placements", "shard_act", "spec_for_param"]
 
 
 class P(tuple):
@@ -350,11 +353,15 @@ class MeshSharding:
     def __repr__(self) -> str:
         return f"MeshSharding({self.mesh!r}, {self.spec!r})"
 
-    def distribute(self, t: torch.Tensor) -> Any:
+    def distribute(self, t: Any) -> Any:
         """``t``, which every rank holds whole and equal, as a DTensor on
         the mesh's device: each rank keeps its own block, and nothing
-        is sent (a PackedArray is not a training leaf: raises)."""
+        is sent.  A PackedArray keeps its length, axis and values, its
+        words a DTensor placed by the spec (the words' spec: they are
+        split as words, never as bits)."""
         from torch.distributed.tensor import distribute_tensor
+        if isinstance(t, PackedArray):
+            return t.with_words(self.distribute(t.words))
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"cannot distribute a {type(t).__name__}")
         return distribute_tensor(t, self.mesh, self.placements,
@@ -367,12 +374,24 @@ def distribute(tree: Any, shardings: Any) -> Any:
     return _tree.map(lambda t, s: s.distribute(t), tree, shardings)
 
 
-def local_block(t: torch.Tensor, like: Any) -> torch.Tensor:
+def local_block(t: Any, like: Any) -> Any:
     """The block of ``t`` (whole, equal on every rank) that the DTensor
-    ``like`` holds on this rank, as a plain tensor."""
+    ``like`` holds on this rank, as a plain tensor (a PackedArray and a
+    PackedArray of DTensor words: the block of the words)."""
     from torch.distributed.tensor import distribute_tensor
+    if isinstance(t, PackedArray):
+        return t.with_words(local_block(t.words, like.words))
     return distribute_tensor(t, like.device_mesh, like.placements,
                              src_data_rank=None).to_local()
+
+
+def full_tensor(d: Any) -> Any:
+    """The DTensor ``d`` gathered whole on every rank (every rank of its
+    mesh calls this); a PackedArray of DTensor words as the PackedArray
+    of the gathered words."""
+    if isinstance(d, PackedArray):
+        return d.with_words(d.words.full_tensor())
+    return d.full_tensor()
 
 
 def holds_first_copy(d: Any) -> bool:

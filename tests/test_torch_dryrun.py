@@ -219,7 +219,7 @@ def test_run_cell_record_and_skip_reason():
     assert mem["output_size_in_bytes"] >= caches
     assert rec["cost2"]["flops"] >= rec["cost"]["flops"] > 0
     with pytest.raises(ValueError, match="one card"):
-        dryrun.run_cell("qwen1.5-0.5b", "decode_32k", "multi")
+        dryrun.run_cell("qwen1.5-0.5b", "decode_32k", "pod64")
 
 
 def test_cut_depth_keeps_the_cycle():

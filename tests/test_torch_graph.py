@@ -335,7 +335,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "kernels/autotune.py", "graph/tuning.py",
                    "analysis/lint.py", "analysis/audit.py",
                    "analysis/rules/layering.py", "runtime/op_cost.py",
-                   "launch/dryrun.py"):
+                   "launch/dryrun.py", "launch/mesh.py",
+                   "runtime/sharding.py", "launch/train.py",
+                   "runtime/compression.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for twin in ("quickstart", "serve_bnn", "train_bnn_lm",
                  "tulip_asic_sim"):
@@ -343,3 +345,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+    # torch's fake process group is a test utility: only the mesh module
+    # (``fake_world``) imports it
+    fake = sorted(f.relative_to(ROOT).as_posix() for f in files
+                  if any("fake_pg" in m for m in _imports(f)))
+    assert fake == ["src/repro_torch/launch/mesh.py"], fake
