@@ -255,15 +255,27 @@
    directory, destroyed at the end of the phase) and
    ``launch.mesh.make_process_mesh()`` on it; (a) ``train(mesh=...)``
    at 12b's config and run (qwen1.5-0.5b, bf16, logits_chunk 8192,
-   remat "full", batch 8 x seq 512, 4 steps): its losses, params and
-   opt state (DTensors placed by ``param_specs``) must equal 12b's
-   uninterrupted run bit for bit (12b's result is kept on the host, not
-   rerun); then the mesh step's median wall ms of 5 on 12b's timed
-   batch, printed beside 12b's; (b) at 2 layers (published widths), a
-   mesh run cut at 2 whose checkpoint the plain ``train`` resumes to 4,
-   and a plain run cut at 2 that the mesh resumes, each equal to the
-   plain uninterrupted run bit for bit.  The multi-rank path runs only
-   on the CPU (``tests/test_torch_spmd.py``: 4 gloo ranks);
+   remat "full", batch 8 x seq 512, 4 steps) through the
+   tensor-parallel step (the params' local blocks, the per-cycle FSDP
+   gathers, the grads' reductions in the backward: each the identity
+   with one rank on every axis): its losses, params and opt state
+   (DTensors placed by ``param_specs``) must equal 12b's uninterrupted
+   run bit for bit (12b's result is kept on the host, not rerun); then
+   the mesh step's median wall ms of 5 on 12b's timed batch, printed
+   beside 12b's; (b) at 2 layers (published widths), a mesh run cut at
+   2 whose checkpoint the plain ``train`` resumes to 4, and a plain run
+   cut at 2 that the mesh resumes, each equal to the plain
+   uninterrupted run bit for bit; (c) two processes, each a gloo rank
+   on the one card (CUDA tensors; ``python3 chip_smoke.py --tp-rank R
+   DIR``), on a (data, model) = (1, 2) mesh: the tensor-parallel loss
+   and grads of qwen1.5-0.5b at its published widths (2 layers,
+   float32, batch 4 x seq 256, its first row's tokens and targets on
+   each rank's first and last vocab rows) finite and within 1e-4 (the
+   loss, relative; each rank's grad block x its max|g|) of the
+   one-process step's on the card.  The
+   multi-rank path at larger worlds (tensor parallelism over "model",
+   FSDP over "data") runs on the CPU (``tests/test_torch_spmd.py``,
+   ``tests/test_torch_tp.py``: 4 gloo ranks);
 17. runs the dry-run on the production meshes (after phase 16's
    process group is destroyed): (a) on the host, the dry-run CLI with
    ``--mesh both`` (torch's fake process group of 256 and 512 ranks,
@@ -272,14 +284,18 @@
    prefill_32k and decode_32k baseline, and qwen1.5-0.5b decode_32k
    packed, on (16, 16) and (2, 16, 16): every cell ok, each baseline
    record's parameter bytes equal to phase 15d's ``param_specs`` bytes
-   a device, each cell's flops, bytes, collectives by kind and argument
-   + temp bytes printed with their ratio to the card's memory (over 1.0
-   printed, not failed); (b) while (a) runs, at 12b's config the mesh
-   step (``make_mesh_train_step`` through ``dryrun.place_cell``)
-   counted on meta tensors over a fake world of one and run on a
-   world-1 NCCL mesh on the card under the same counter: flops and
-   bytes equal exactly, argument + temp within 20% of
-   ``max_memory_allocated``.
+   a device, each cell's flops, bytes, collectives by kind (the FSDP
+   all-gathers, the grads' reduce-scatters, the tensor-parallel and
+   batch all-reduces) and argument + temp bytes printed with their
+   ratio to the card's memory (over 1.0 printed, not failed): the
+   tensor-parallel steps (each layer on its "model" blocks, a cycle's
+   weights gathered over "data" when it runs, the caches in their
+   ``batch_specs`` blocks); (b) while (a) runs, at 12b's config the
+   tensor-parallel mesh step (``make_mesh_train_step`` through
+   ``dryrun.place_cell``) counted on meta tensors over a fake world of
+   one and run on a world-1 NCCL mesh on the card under the same
+   counter: flops and bytes equal exactly, argument + temp within 20%
+   of ``max_memory_allocated``.
 
 Steps 3-4 print images/s, ms per forward and peak device memory, step
 8 ms per call; the launch counts of the ``kernels`` line are those of
@@ -300,6 +316,7 @@ limit; before that the ``kernels`` JSON.  Results also go to
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4246,13 +4263,155 @@ def spmd_resume(mesh):
     return dict(out, num_layers=SPMD_LAYERS, seconds=secs)
 
 
+# 16c: the tensor-parallel step on two gloo ranks of the one card
+TP_LAYERS = 2          # the published widths, depth cut
+TP_BATCH, TP_SEQ = 4, 256
+TP_TOL = 1e-4          # loss (relative) and each grad leaf (x its max|g|)
+TP_DEADLINE = 300      # seconds the two rank processes may take
+
+
+def tp_boundary_rows(v, m):
+    """The first and last vocab rows of each of ``m`` model ranks'
+    blocks of a ``v``-row vocab (a rank's last chunk is padded: a token
+    just past it is the next rank's), and the vocab's last."""
+    n = v // m
+    return sorted({r for k in range(m)
+                   for r in (k * n, k * n + 1, (k + 1) * n - 1)} | {v - 1})
+
+
+def tp_rank_main(rank, where):
+    """16c's rank program, ``python3 chip_smoke.py --tp-rank RANK DIR``:
+    one of two gloo ranks (CUDA tensors on cuda:0; a store file in DIR)
+    on a (data, model) = (1, 2) mesh.  qwen1.5-0.5b at its published
+    widths, TP_LAYERS layers, float32, logits_chunk 8192, remat "full",
+    a TP_BATCH x TP_SEQ batch of the token stream: the tensor-parallel
+    ``mesh_loss_and_grads`` (the rank's grad blocks), then the
+    one-process ``loss_and_grads`` on the same params and batch (its
+    first row's tokens and targets set to ``tp_boundary_rows``), its
+    grads cut to the rank's blocks (``distribute_tensor`` with no
+    source rank sends nothing: DTensor's own collectives over gloo
+    crash on CUDA tensors, PERF.md §6); the errors and the wall times
+    go to DIR/tp{RANK}.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import init_params
+    from repro_torch.runtime import sharding as shd
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{where}/store",
+                            world_size=2, rank=rank)
+    try:
+        mesh = make_process_mesh(2, device="cuda")
+        cfg = get_arch(LLM_ARCH).replace(dtype="float32",
+                                         num_layers=TP_LAYERS,
+                                         logits_chunk=FULL_CHUNK,
+                                         remat="full")
+        params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TP_SEQ,
+                          global_batch=TP_BATCH)
+        batch = {k: torch.from_numpy(v).to("cuda").long()
+                 for k, v in global_batch_at(dcfg, 0).items()}
+        rows = tp_boundary_rows(cfg.padded_vocab(), 2)
+        for k in ("tokens", "targets"):
+            batch[k][0, :len(rows)] = torch.tensor(rows, device="cuda")
+        placed = shd.distribute(params, T.shardings(params, mesh)[0])
+        groups = shd.tp_groups(mesh)
+
+        def timed(fn, *args):
+            fn(*args)                                       # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+        (loss, grads), tp_ms = timed(T.mesh_loss_and_grads, placed, cfg,
+                                     batch, groups)
+        (want, want_grads), one_ms = timed(T.loss_and_grads, params, cfg,
+                                           batch)
+        errs = []
+        for g, w, p in zip(tree.leaves(grads), tree.leaves(want_grads),
+                           tree.leaves(placed)):
+            w = distribute_tensor(w, p.device_mesh, p.placements,
+                                  src_data_rank=None).to_local()
+            errs.append(float((g - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+        # NaN counts as the worst (a comparison with NaN is False)
+        worst = max(range(len(errs)), key=lambda i: (
+            math.inf if math.isnan(errs[i]) else errs[i]))
+        Path(where, f"tp{rank}.json").write_text(json.dumps(dict(
+            loss=float(loss), loss_one=float(want),
+            loss_err=abs(float(loss) - float(want)) / abs(float(want)),
+            grad_err=errs[worst], worst_leaf=worst, leaves=len(errs),
+            leaves_over=sum(not e <= TP_TOL for e in errs),
+            boundary_rows=rows, tp_ms=tp_ms, one_ms=one_ms)))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spmd_tensor_parallel():
+    """16c: ``tp_rank_main`` in two processes (the card's one rank per
+    process, gloo: it runs the step's all-reduce (sum, max), all-gather
+    and reduce-scatter on CUDA tensors), killed at TP_DEADLINE; on each
+    rank the loss finite and within TP_TOL of the one-process loss
+    (relative) and every grad block within TP_TOL x the max|g| of the
+    one-process grad's block (a NaN fails).  No port kernel runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+             str(r), d], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                left = TP_DEADLINE - (time.perf_counter() - t0)
+                outs.append(p.communicate(timeout=max(left, 1)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"16c rank {r} exited {p.returncode}: "
+                                     f"{err[-3000:]}")
+        ranks = [json.loads(Path(d, f"tp{r}.json").read_text())
+                 for r in range(2)]
+    for r, got in enumerate(ranks):
+        if not (math.isfinite(got["loss"]) and got["loss_err"] <= TP_TOL
+                and got["grad_err"] <= TP_TOL and got["leaves_over"] == 0):
+            raise AssertionError(f"16c rank {r}: the tensor-parallel step "
+                                 f"vs one process: {got}")
+    res = dict(max(ranks, key=lambda g: g["grad_err"]), ranks=ranks,
+               seconds=time.perf_counter() - t0)
+    print(f"{LLM_ARCH} at {TP_LAYERS} layers (published widths, float32, "
+          f"batch {TP_BATCH} x seq {TP_SEQ}): the tensor-parallel step on "
+          f"a (1, 2) mesh of two gloo ranks on the card (CUDA tensors) "
+          f"against the one-process step: loss {res['loss']:.6f} vs "
+          f"{res['loss_one']:.6f} (relative {res['loss_err']:.3g}), grad "
+          f"blocks within {res['grad_err']:.3g} x max|g| (leaf "
+          f"{res['worst_leaf']} of {res['leaves']}); loss and grads "
+          f"{res['tp_ms']:.1f} ms (gloo through the host) vs "
+          f"{res['one_ms']:.1f} ms; {res['seconds']:.1f} s")
+    return res
+
+
 def spmd_path(kept):
     """Phase 16, SPMD training over a ``torch.distributed`` mesh: a
     world-1 process group (NCCL on the card; a store file in a temporary
     directory, destroyed at the end of the phase), ``make_process_mesh()``
     on it, then (a) ``spmd_full`` against phase 12b's run ``kept`` and
-    (b) ``spmd_resume``.  No port kernel runs on this path: the
-    ``kernels`` line's launches are not added to."""
+    (b) ``spmd_resume``; then (c) ``spmd_tensor_parallel`` (on the
+    card).  No port kernel runs on this path: the ``kernels`` line's
+    launches are not added to."""
     import tempfile
 
     import torch.distributed as dist
@@ -4271,6 +4430,8 @@ def spmd_path(kept):
                        full=spmd_full(mesh, kept), resume=spmd_resume(mesh))
         finally:
             dist.destroy_process_group()
+    if DEVICE == "cuda":
+        out["tensor_parallel"] = spmd_tensor_parallel()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"the SPMD training phase took {out['phase_s']:.1f} s")
     return out
@@ -4591,6 +4752,8 @@ def xnor_sass():
 
 
 def main():
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank_main(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)

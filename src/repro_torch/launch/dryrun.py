@@ -51,47 +51,59 @@ ranks (``launch.mesh.fake_world``), builds the ``DeviceMesh`` with
 own SPMD step on meta tensors.  Params are DTensors placed by
 ``param_specs(..., stacked_prefixes=("decoder", "encoder"))`` (FSDP
 off, ``fsdp_axis="__off__"``, for the ``tp_only*`` variants, as the
-reference), packed words split as words; the AdamW moments as their
-params, the step replicated; the inputs are the rank's blocks by
-``batch_specs``.  The steps:
+reference: their weights stay where they are placed), packed words
+split as words; the AdamW moments as their params, the step
+replicated; the inputs are the rank's blocks by ``batch_specs``.  The
+steps run on the params' local blocks (``sharding.tp_blocks``) under
+``sharding.tensor_parallel``, as the reference's pjit program does:
 
   * train — ``launch.train.make_mesh_train_step`` (a packed tree: its
-    twin ``_mesh_frozen_words_step``): every param gathered whole,
-    ``loss_fn`` and its grads on the rank's rows (MoE's batch
-    statistics over the batch group), loss and whole grads mean-reduced
-    over the batch group in float32, the global norm, AdamW on the
+    twin ``_mesh_frozen_words_step``, the words gathered with their
+    cycle and never differentiated): every tensor-parallel layer on the
+    rank's "model" blocks (heads, d_ff, vocab; the rest whole, gathered
+    over "model"), a cycle's FSDP blocks all-gathered over "data" when
+    it runs (again in the backward under remat) and freed after, the
+    leaves outside the stacks once a step, the grads reduce-scattered
+    over "data" to the rank's blocks in the backward, summed over "pod"
+    and divided by the batch group's size in float32, MoE's batch
+    statistics over the batch group, the global norm, AdamW on the
     rank's blocks;
   * prefill / decode — neither package has a mesh serving path; the
     reference's is the jit inside its dry-run, so the port's is here:
-    the params gathered whole, the rank's inputs gathered over "model"
-    where ``batch_specs`` splits them there (KV caches' heads or seq,
-    ``conv``, ``h``, ``frames`` / ``image_embeds``' last dim; train
-    gathers its frontend inputs so too), ``prefill`` / ``decode_step``
-    on the rank's rows, and decode's new caches cut back to their
-    ``batch_specs`` blocks (the reference's ``out_shardings``).
+    ``prefill`` / ``decode_step`` on the blocks as train's forward, on
+    the rank's rows; the frontend inputs (``frames`` /
+    ``image_embeds``, whose d_model ``batch_specs`` splits over
+    "model") gathered over "model"; the caches stay in their
+    ``batch_specs`` blocks (a rank's kv heads, or its block of slots
+    where the kv heads do not divide: split-KV decode combines the
+    ranks' partial softmaxes over "model"; the recurrent states'
+    channels, gathered for the Mamba / RG-LRU blocks, which compute
+    whole, and cut back); the logits gathered over "model" (the
+    reference's ``out_shardings`` None).
 
-So the per-device numbers are the port's own step, in which "model"
-shards storage only: ranks that differ only on "model" compute the same
-rows.  A batch the batch axes do not divide is replicated over them by
+A batch the batch axes do not divide is replicated over them by
 ``fit_spec`` (long_500k's batch of 1: every rank computes the same row,
 as in the reference).  How the numbers differ from XLA's compiled
 program of the reference:
 
-  * flops — a device's dot flops are the global step's over pod x data,
-    not over pod x data x model (XLA propagates the tensor-parallel
-    split through the forward);
-  * temp — holds every param gathered whole (XLA gathers a layer's
-    FSDP blocks inside the loop), whole grads and their float32 copies
-    (XLA reduce-scatters them to the blocks), eager activations of the
-    rank's rows;
-  * collectives — operand bytes of each c10d op a rank calls: a
-    gather over two mesh dims is two all-gathers (the second's operand
-    the first's result), the grads an all-reduce each in float32, the
-    norm and MoE's two means an all-reduce each; XLA's are its
-    reduce-scatters and per-layer gathers;
+  * flops — a device's dot flops are the global step's over pod x
+    data x model where every tensor-parallel dim divides; a layer
+    computed whole (heads that do not split, the Mamba and RG-LRU
+    channels) and a rank's kv heads read whole cost their share more;
+  * temp — one cycle's gathered weights at a time (two under remat's
+    recompute in the backward), the grads' float32 copies for the
+    reduction, eager activations of the rank's rows;
+  * collectives — operand bytes of each c10d op a rank calls: the FSDP
+    all-gathers (the rank's block), the grads' reduce-scatters (the
+    rank's "model" block of the float32 grad, whole over "data") and
+    the all-reduces over "pod" or the batch group of the leaves not
+    split over "data", the tensor-parallel all-reduces of the
+    row-parallel outputs and of the column-parallel inputs' gradients,
+    the vocab-parallel loss's max and sums, the norm and MoE's two
+    means; a gather over two mesh dims is two all-gathers;
   * bytes — eager: every op a materialisation boundary, an upper bound
-    of a fused program's; decode's cache cut is a copy where XLA writes
-    the blocks in place.
+    of a fused program's; a cache insert clones the leaf where XLA
+    writes in place.
 
 A fake group's collectives leave their outputs as they were: the
 counts are right, the values are not (meta tensors have none).
@@ -138,6 +150,7 @@ VARIANTS = ("baseline", "remat_none", "remat_dots", "packed",
 MESHES = ("one_card", "single", "multi")
 WORLDS = {"single": 256, "multi": 512}     # ranks of the production meshes
 BASE_CYCLES = 2        # the deepest base cut (k cycles, then k + 1)
+FIT_BYTES = 80e9       # a card's memory: the CLI counts the cells over it
 
 
 def cell_config(arch: str, shape_name: str, variant: str = "baseline"):
@@ -174,6 +187,8 @@ def _packs(variant: str) -> bool:
 
 
 def _is_float(t: Any) -> bool:
+    """A floating leaf (a ``sharding.Block``'s by its local block)."""
+    t = getattr(t, "local", t)
     return isinstance(t, torch.Tensor) and t.is_floating_point()
 
 
@@ -186,9 +201,10 @@ def _frozen_loss_and_grads(params, cfg, batch):
     full = list(flat)
     for i, t in zip(idx, train):
         full[i] = t
-    with T.deterministic(train[0].device):
+    local = [getattr(t, "local", t) for t in train]
+    with T.deterministic(local[0].device):
         loss = M.loss_fn(_tree.unflatten(tdef, full), cfg, batch)
-        grads = torch.autograd.grad(loss, train, allow_unused=True,
+        grads = torch.autograd.grad(loss, local, allow_unused=True,
                                     materialize_grads=True)
     out: List[Any] = [None] * len(flat)
     for i, g in zip(idx, grads):
@@ -218,25 +234,22 @@ def _frozen_words_step(cfg, opt_cfg: adamw.AdamWConfig) -> Callable:
 def _mesh_frozen_words_step(cfg, opt_cfg: adamw.AdamWConfig,
                             mesh) -> Callable:
     """``_frozen_words_step`` on ``mesh``, the twin of
-    ``make_mesh_train_step``: every param gathered whole (words too),
-    the floating leaves' grads mean-reduced as ``mesh_loss_and_grads``
-    does, cut to their blocks, AdamW on them; the words DTensors stay as
-    they are.  Every rank of the mesh calls it (it makes the batch
-    group)."""
-    group, size = shd.batch_group(mesh)
+    ``make_mesh_train_step``: ``mesh_loss_and_grads`` on the rank's
+    blocks (words too: gathered over "data" with their cycle, never
+    differentiated), the floating leaves' grads as their blocks, AdamW
+    on them; the words DTensors stay as they are.  Every rank of the
+    mesh calls it (it makes the batch group)."""
+    groups = shd.tp_groups(mesh)
 
     def step(params, opt_state, batch):
         loss, grads = T.mesh_loss_and_grads(
-            params, cfg, batch, group, size,
-            grads_of=_frozen_loss_and_grads)
+            params, cfg, batch, groups, grads_of=_frozen_loss_and_grads)
         flat, tdef = _tree.flatten(params)
         idx = [i for i, t in enumerate(flat) if _is_float(t)]
-        trained = [flat[i] for i in idx]
-        blocks = [shd.local_block(g, p)
-                  for g, p in zip(_tree.leaves(grads), trained)]
+        blocks = _tree.leaves(grads)
         del grads
         new, opt_state, metrics = T.mesh_apply_updates(
-            trained, opt_state, blocks, opt_cfg)
+            [flat[i] for i in idx], opt_state, blocks, opt_cfg)
         for i, t in zip(idx, new):
             flat[i] = t
         return _tree.unflatten(tdef, flat), opt_state, \
@@ -264,9 +277,10 @@ def _model_dim(spec: shd.P) -> Optional[int]:
 
 
 def _gather_model(batch: Any, specs: Any, mesh) -> Any:
-    """The rank's input blocks gathered over "model" wherever their
-    ``batch_specs`` split them there (an all-gather over the mesh's
-    "model" dim); the batch-axis splits stay."""
+    """The rank's frontend inputs (``frames`` / ``image_embeds``, whose
+    d_model ``batch_specs`` splits over "model") gathered over "model"
+    (an all-gather over the mesh's "model" dim); the batch-axis splits
+    stay, and the caches stay in their blocks."""
     from torch.distributed.tensor import DTensor, Replicate
     m = tuple(mesh.mesh_dim_names).index("model")
 
@@ -279,22 +293,9 @@ def _gather_model(batch: Any, specs: Any, mesh) -> Any:
         keep[m] = Replicate()
         return DTensor.from_local(x, mesh, pl, run_check=False) \
             .redistribute(mesh, keep).to_local()
-    return _tree.map(one, batch, specs, is_leaf=_is_spec)
-
-
-def _cut_model(out: Any, specs: Any, mesh) -> Any:
-    """Each leaf of ``out`` (whole over "model") cut to this rank's
-    block on the dim its spec splits over "model"."""
-    n = mesh.size(tuple(mesh.mesh_dim_names).index("model"))
-    at = mesh.get_local_rank("model")
-
-    def one(x, spec):
-        d = _model_dim(spec)
-        if d is None:
-            return x
-        blk = x.shape[d] // n
-        return x.narrow(d, at * blk, blk).clone()
-    return _tree.map(one, out, specs, is_leaf=_is_spec)
+    return {k: v if k == "caches" else
+            _tree.map(one, v, specs[k], is_leaf=_is_spec)
+            for k, v in batch.items()}
 
 
 def place_cell(cfg, shape, variant: str, mesh, params: Any,
@@ -329,16 +330,16 @@ def place_cell(cfg, shape, variant: str, mesh, params: Any,
             return step(params, opt_state,
                         _gather_model(batch, b_specs, mesh))
         return fn, (placed, opt, rows)
+    groups = shd.tp_groups(mesh)
 
     def fn(params, batch):
-        with torch.no_grad():
-            full = _tree.map(shd.full_tensor, params)
+        with torch.no_grad(), shd.tensor_parallel(groups):
+            blocks = shd.tp_blocks(params, cfg)
             batch = _gather_model(batch, b_specs, mesh)
             if shape.kind == "prefill":
-                return M.prefill(full, cfg, batch,
+                return M.prefill(blocks, cfg, batch,
                                  cache_capacity=shape.seq_len)
-            logits, caches = M.decode_step(full, cfg, batch)
-            return logits, _cut_model(caches, b_specs["caches"], mesh)
+            return M.decode_step(blocks, cfg, batch)
     return fn, (placed, rows)
 
 
@@ -601,7 +602,8 @@ def main(argv=None) -> int:
             ap.error("--arch and --shape, or --all")
         cells = [(args.arch, args.shape)]
     os.makedirs(args.out, exist_ok=True)
-    failures = 0
+    seen = {"OK": 0, "SKIP": 0, "FAIL": 0}
+    over = []
     for a, s in cells:
         for mk in meshes:
             rec = run_cell(a, s, mk, args.variant)
@@ -610,12 +612,23 @@ def main(argv=None) -> int:
                 json.dump(rec, f, indent=1)
             status = ("SKIP" if not rec.get("applicable")
                       else "OK" if rec.get("ok") else "FAIL")
+            held = ""
+            if status == "OK":
+                mem = rec["memory"]
+                nb = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                held = f", argument + temp {nb / 1e9:.2f} GB"
+                if nb > FIT_BYTES:
+                    over.append(f"{a} x {s} x {mk}")
             print(f"[{status}] {a} x {s} x {mk} "
-                  f"({rec.get('wall_s', 0):.1f}s)"
+                  f"({rec.get('wall_s', 0):.1f}s{held})"
                   + (f" :: {rec.get('error', '')}" if status == "FAIL"
                      else ""), flush=True)
-            failures += status == "FAIL"
-    return 1 if failures else 0
+            seen[status] += 1
+    print(f"{seen['OK']} ok, {seen['SKIP']} skipped, {seen['FAIL']} failed; "
+          f"argument + temp over {FIT_BYTES / 1e9:g} GB a device: "
+          f"{len(over)} of {seen['OK']}" + (f" ({'; '.join(over)})"
+                                            if over else ""), flush=True)
+    return 1 if seen["FAIL"] else 0
 
 
 if __name__ == "__main__":

@@ -23,14 +23,24 @@ param_specs(..., stacked_prefixes=("decoder", "encoder"))``, as the
 reference places them; the step counter is replicated.  Each rank reads
 its share of the token stream (its coordinate on ("pod", "data"); ranks
 that differ only on "model" read the same rows).  A step
-(``make_mesh_train_step``) gathers the full params (FSDP's contract:
-the forward's Python loops and in-place writes never see a DTensor),
-takes ``loss_fn`` and its grads on the rank's rows with MoE's batch
-statistics global (``sharding.global_batch``), mean-reduces loss and
-grads over the batch group in float32, computes the global grad norm
-with each element counted once, and runs AdamW on the rank's own
-blocks.  "model" shards storage only: the model-axis ranks compute the
-same rows.  ``mesh=None`` is the one-process path.
+(``make_mesh_train_step``) is the reference's pjit step written out
+(Megatron-style tensor parallelism on plain local tensors, no DTensor
+propagation through the forward): each rank computes every
+tensor-parallel layer on its "model" block of the weights (attention
+heads, the FFN's and the experts' d_ff, the vocab of the embedding and
+the logits), a layer cycle's FSDP blocks are all-gathered over "data"
+when the cycle runs (again in the backward under remat) and freed
+after, the leaves outside the stacks once a step, and the gradients
+leave the backward reduce-scattered over "data" to the rank's blocks,
+summed over "pod" and divided by the batch group's size in float32.
+A leaf a layer cannot use as a block (heads that do not split over
+"model", the Mamba / RG-LRU in_proj and gate_proj, whose two halves
+each rank reads its channels of) is gathered over "model".  MoE's batch statistics are global
+(``sharding.global_batch``), the loss is mean-reduced over the batch
+group, the global grad norm counts each element once, and AdamW runs
+on the rank's own blocks.  With one rank on each axis every helper is
+the identity: a world-1 mesh runs the one-process step's ops.
+``mesh=None`` is the one-process path.
 
 ``train`` runs on the card unless the caller passes ``device="cpu"``
 (a mesh's device type must be the same); it never falls back to the
@@ -47,7 +57,9 @@ raise when it holds another value, on every rank (ROADMAP hazard 12).
         --steps 20 --batch 8 --seq 64 [--device cpu]
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \\
-        --steps 20 --batch 8 --seq 64 --device cpu     # gloo, world 4
+        --steps 20 --batch 8 --seq 64 --device cpu
+        # gloo, world 4: (data, model) = (4, 1), as the reference's CLI;
+        # tensor parallelism: train(..., mesh=make_process_mesh(model=2))
 """
 from __future__ import annotations
 
@@ -109,12 +121,14 @@ def deterministic(device: torch.device):
 def loss_and_grads(params: Any, cfg, batch: Dict[str, torch.Tensor]):
     """(loss, grads): ``loss_fn`` and one autograd pass over every
     param leaf, deterministic; a leaf the loss does not reach gets a
-    zero gradient, as ``jax.grad`` gives."""
+    zero gradient, as ``jax.grad`` gives.  A ``sharding.Block`` leaf (an
+    SPMD step's) is differentiated at its local block."""
     flat, treedef = _tree.flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
-    with deterministic(leaves[0].device):
+    local = [getattr(p, "local", p) for p in leaves]
+    with deterministic(local[0].device):
         loss = M.loss_fn(_tree.unflatten(treedef, leaves), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+        grads = torch.autograd.grad(loss, local, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), _tree.unflatten(treedef, list(grads))
 
@@ -161,18 +175,22 @@ def _mean_over(t: torch.Tensor, group: Any, size: int) -> torch.Tensor:
 
 
 def mesh_loss_and_grads(params: Any, cfg, batch: Dict[str, torch.Tensor],
-                        group: Any, size: int, grads_of=loss_and_grads):
+                        groups: shd.TPGroups, grads_of=loss_and_grads):
     """(loss, grads) of the global batch from DTensor ``params`` and
-    this rank's rows: the params gathered whole (``sharding.full_tensor``,
-    packed words too), ``grads_of`` (``loss_and_grads``) with MoE's batch
-    statistics over ``group``, then loss and every grad mean-reduced over
-    it (whole tensors, equal on the group's ranks)."""
-    full = _tree.map(shd.full_tensor, params)
-    with shd.global_batch(group, size):
-        loss, grads = grads_of(full, cfg, batch)
-    del full
-    return (_mean_over(loss, group, size),
-            _tree.map(lambda g: _mean_over(g, group, size), grads))
+    this rank's rows, the grads as this rank's blocks (in leaf order, a
+    plain tensor each).  ``grads_of`` (``loss_and_grads``) runs on the
+    params' local blocks (``sharding.tp_blocks``) under
+    ``sharding.tensor_parallel(groups)``, with MoE's batch statistics
+    over the batch group: each layer computes on its "model" blocks, a
+    cycle's leaves are gathered over "data" when it runs, and each
+    leaf's gradient leaves the backward summed over the batch group
+    (reduce-scattered over "data", then over "pod") and divided by its
+    size, in float32.  The loss is mean-reduced over the batch group."""
+    blocks = shd.tp_blocks(params, cfg)
+    with shd.tensor_parallel(groups), \
+            shd.global_batch(groups.batch, groups.batch_size):
+        loss, grads = grads_of(blocks, cfg, batch)
+    return _mean_over(loss, groups.batch, groups.batch_size), grads
 
 
 def _global_norm(blocks, like) -> torch.Tensor:
@@ -201,16 +219,15 @@ def _from_local(x: torch.Tensor, like: Any) -> Any:
 def make_mesh_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh):
     """The SPMD step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``mesh``: DTensor params and opt state (``shardings``),
-    ``batch`` this rank's rows.  ``mesh_loss_and_grads``, each grad cut
-    to its param's block, the global norm (``_global_norm``), then AdamW
-    on the rank's blocks; metrics as ``make_train_step``'s.  Every rank
-    of the mesh calls it (it makes the batch group)."""
-    group, size = shd.batch_group(mesh)
+    ``batch`` this rank's rows.  ``mesh_loss_and_grads`` (the grads
+    arrive as the rank's blocks), the global norm (``_global_norm``),
+    then AdamW on the rank's blocks; metrics as ``make_train_step``'s.
+    Every rank of the mesh calls it (it makes the batch group)."""
+    groups = shd.tp_groups(mesh)
 
     def step(params, opt_state, batch):
-        loss, grads = mesh_loss_and_grads(params, cfg, batch, group, size)
-        blocks = [shd.local_block(g, p) for g, p in
-                  zip(_tree.leaves(grads), _tree.leaves(params))]
+        loss, grads = mesh_loss_and_grads(params, cfg, batch, groups)
+        blocks = _tree.leaves(grads)
         del grads
         params, opt_state, metrics = mesh_apply_updates(
             params, opt_state, blocks, opt_cfg)
@@ -221,8 +238,8 @@ def make_mesh_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh):
 def mesh_apply_updates(params: Any, opt_state: adamw.OptState,
                        blocks: List[torch.Tensor], opt_cfg: adamw.AdamWConfig):
     """AdamW on this rank's blocks: ``blocks`` holds each leaf's
-    gradient cut to the block its DTensor param holds here
-    (``local_block``), in leaf order; the global norm
+    gradient as the block its DTensor param holds here
+    (``mesh_loss_and_grads``'), in leaf order; the global norm
     (``_global_norm``), AdamW on the blocks of ``params`` and
     ``opt_state``, and the results placed as the params.  Returns
     ``(params, opt_state, metrics)``."""

@@ -16,6 +16,13 @@ backward pass, as the reference's ``jax.checkpoint``.  Scores
 and the value sums are float32, as the reference's
 ``preferred_element_type``.  Caches are updated functionally (the
 input cache is not written), as the reference's ``.at[].set``.
+
+Tensor-parallel where a rank holds head blocks of the projections
+(``sharding.heads_split``): its q heads, its kv heads where they divide
+"model", else the one kv head its q heads read, taken from the whole kv
+projections; wo row-parallel.  A decode cache is the rank's
+``batch_specs`` block: its kv heads, or its block of slots (split-KV),
+whose partial softmaxes are combined over "model".
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
-                                       dtype_of, wparams)
+                                       dtype_of, out_width, wparams)
 from repro_torch.runtime import op_cost
-from repro_torch.runtime.sharding import shard_act
+from repro_torch.runtime.sharding import (copy_to_model, gather_from_model,
+                                          max_over_model, reduce_from_model,
+                                          shard_act, tp_rank, tp_size)
 
 NEG_INF = -1e30
 _Q_CHUNK = threading.local()
@@ -64,8 +73,10 @@ def attn_init(gen, cfg, device, cross: bool = False) -> Dict[str, Any]:
 
 
 def make_cache(cfg, batch: int, capacity: int, device,
-               dtype=None) -> Dict[str, torch.Tensor]:
-    hkv, hd = max(cfg.num_kv_heads, 1), cfg.head_dim_()
+               dtype=None, heads: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """An empty cache of ``heads`` kv heads (default: the config's)."""
+    hkv, hd = heads or max(cfg.num_kv_heads, 1), cfg.head_dim_()
     pos = torch.full((batch, capacity), -1, dtype=torch.int32, device=device)
     shape = (batch, capacity, hkv, hd)
     if cfg.kv_cache_dtype == "int8":
@@ -106,15 +117,62 @@ def _pick_chunk(s: int, target: int) -> int:
 
 
 def _proj_qkv(p, x, cfg, mode):
+    """q, k, v [B,S,H,D]: a rank's block of heads where it holds blocks
+    of the projections (their input through ``copy_to_model``), all
+    heads where it holds them whole."""
     hd = cfg.head_dim_()
-    q = dense(wparams(p, "wq", "bq"), x, mode)
-    k = dense(wparams(p, "wk", "bk"), x, mode)
-    v = dense(wparams(p, "wv", "bv"), x, mode)
+    q_split = out_width(p, "wq") < cfg.num_heads * hd
+    kv_split = out_width(p, "wk") < cfg.num_kv_heads * hd
+    xq = copy_to_model(x) if q_split else x
+    q = dense(wparams(p, "wq", "bq"), xq, mode)
+    xkv = xq if kv_split else x
+    k = dense(wparams(p, "wk", "bk"), xkv, mode)
+    v = dense(wparams(p, "wv", "bv"), xkv, mode)
     B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     return q, k, v
+
+
+def _kv_head(cfg, q_heads: int) -> int:
+    """The kv head this rank's ``q_heads`` q heads read, where the q
+    heads are a "model" block and the kv heads whole
+    (``sharding.heads_split``: one kv head serves the block)."""
+    return tp_rank() * q_heads // (cfg.num_heads // cfg.num_kv_heads)
+
+
+def _read_kv(cfg, q_heads: int, t: torch.Tensor) -> torch.Tensor:
+    """Whole-head ``t`` [B,S,Hkv,D] as the kv heads this rank's q heads
+    read: the gradient of the whole ``t`` is summed over "model"
+    (each rank gives back its heads' part)."""
+    if q_heads == cfg.num_heads or t.shape[2] < cfg.num_kv_heads:
+        return t
+    return copy_to_model(t).narrow(2, _kv_head(cfg, q_heads), 1)
+
+
+def _seq_block(cache: Dict[str, torch.Tensor]) -> Optional[int]:
+    """The first slot of this rank's block of a cache whose sequence is
+    split over "model" (split-KV: its k holds fewer slots than its pos),
+    else None."""
+    wl, w = cache["k"].shape[1], cache["pos"].shape[1]
+    return None if wl == w else tp_rank() * wl
+
+
+def cut_cache(cache: Dict[str, torch.Tensor], kv_split: bool
+              ) -> Dict[str, torch.Tensor]:
+    """A whole-sequence cache as ``batch_specs`` splits it over "model":
+    where the kv heads are not split, k and v (and nothing else) cut to
+    this rank's block of slots when the capacity divides (split-KV)."""
+    m = tp_size()
+    w = cache["k"].shape[1]
+    if m == 1 or kv_split or w % m:
+        return cache
+    out = dict(cache)
+    for name in ("k", "v"):
+        out[name] = cache[name].narrow(1, tp_rank() * (w // m),
+                                       w // m).clone()
+    return out
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -190,43 +248,77 @@ def decode_attention(q, cache, step) -> torch.Tensor:
     """Single-token attention over the cache.
 
     q: [B,1,Hkv,G,D]; returns [B,1,Hkv,G,D].  Works for full caches and
-    ring buffers alike — slot validity comes from cache["pos"].
+    ring buffers alike — slot validity comes from cache["pos"].  A
+    split-KV cache (this rank's block of slots, ``_seq_block``) gives a
+    partial softmax over the block whose max, sum of exp and weighted
+    values are combined over "model".
     """
+    lo = _seq_block(cache)
     k, v, pos = cache["k"], cache["v"], cache["pos"]
+    wl = k.shape[1]
+    if lo is not None:
+        pos = pos[:, lo:lo + wl]
     if k.dtype == torch.int8:
-        k = _kv_dequant(k, cache["k_scale"], q.dtype)
-        v = _kv_dequant(v, cache["v_scale"], q.dtype)
+        ks, vs = cache["k_scale"], cache["v_scale"]
+        if lo is not None:
+            ks, vs = ks[:, lo:lo + wl], vs[:, lo:lo + wl]
+        k = _kv_dequant(k, ks, q.dtype)
+        v = _kv_dequant(v, vs, q.dtype)
     f32 = torch.float32
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhgd,bkhd->bqhgk", q.to(f32), k.to(f32)) * scale
     valid = (pos >= 0) & (pos <= step[:, None])
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    if lo is not None:
+        m = max_over_model(s.amax(dim=-1))
+        p = torch.exp(s - m[..., None])
+        den = reduce_from_model(p.sum(dim=-1))
+        acc = reduce_from_model(torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(v.dtype).to(f32), v.to(f32)))
+        return (acc / den[..., None]).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).to(f32), v.to(f32))
     return out.to(q.dtype)
 
 
 def cache_insert(cache, k_new, v_new, step):
-    """Insert one token's K/V at ring position step % W."""
-    W = cache["k"].shape[1]
+    """Insert one token's K/V at ring position step % W.  A cache split
+    over "model" by heads takes the rank's heads (the int8 scales,
+    held whole, take every rank's, gathered); one split by slots
+    (split-KV) is written by the rank whose block holds the slot (pos
+    and the scales, held whole, by every rank)."""
+    W = cache["pos"].shape[1]
     idx = (step % W).long()                              # [B]
     b = torch.arange(k_new.shape[0], device=k_new.device)
+    lo = _seq_block(cache)
     cache = dict(cache)
 
-    def put(name, val):
+    def put(name, val, slot=idx, keep=None):
         t = cache[name].clone()
-        t[b, idx] = val.to(t.dtype)
+        val = val.to(t.dtype)
+        if keep is not None:
+            val = torch.where(keep.view(-1, *[1] * (val.ndim - 1)), val,
+                              t[b, slot])
+        t[b, slot] = val
         cache[name] = t
+    mine = None
+    slot = idx
+    if lo is not None:
+        wl = cache["k"].shape[1]
+        mine = (idx >= lo) & (idx < lo + wl)
+        slot = (idx - lo).clamp(0, wl - 1)
     if cache["k"].dtype == torch.int8:
         kq, ks = _kv_quant(k_new[:, 0])
         vq, vs = _kv_quant(v_new[:, 0])
-        put("k", kq)
-        put("v", vq)
-        put("k_scale", ks)
-        put("v_scale", vs)
+        put("k", kq, slot, mine)
+        put("v", vq, slot, mine)
+        put("k_scale", gather_from_model(ks, -1)
+            if ks.shape[-1] < cache["k_scale"].shape[-1] else ks)
+        put("v_scale", gather_from_model(vs, -1)
+            if vs.shape[-1] < cache["v_scale"].shape[-1] else vs)
     else:
-        put("k", k_new[:, 0])
-        put("v", v_new[:, 0])
+        put("k", k_new[:, 0], slot, mine)
+        put("v", v_new[:, 0], slot, mine)
     put("pos", step)
     return cache
 
@@ -236,7 +328,8 @@ def fill_cache_from_prefill(cfg, k, v, positions, capacity: int):
 
     Ring invariant: the entry for position p sits at slot p % capacity."""
     B, S = k.shape[:2]
-    cache = make_cache(cfg, B, capacity, k.device, k.dtype)
+    cache = make_cache(cfg, B, capacity, k.device, k.dtype,
+                       heads=k.shape[2])
     quant = cache["k"].dtype == torch.int8
     if quant:
         k, ks = _kv_quant(k)
@@ -258,7 +351,11 @@ def fill_cache_from_prefill(cfg, k, v, positions, capacity: int):
             cache["k_scale"][:, :S] = ks
             cache["v_scale"][:, :S] = vs
         cache["pos"][:, :S] = positions.to(torch.int32)
-    return cache
+    if quant and k.shape[2] < cfg.num_kv_heads:
+        # a rank's heads: the scales are held whole over "model"
+        for name in ("k_scale", "v_scale"):
+            cache[name] = gather_from_model(cache[name], -1)
+    return cut_cache(cache, k.shape[2] < cfg.num_kv_heads)
 
 
 def attn_apply(p, x, cfg, *, kind: str = "causal",
@@ -284,24 +381,35 @@ def attn_apply(p, x, cfg, *, kind: str = "causal",
         return torch.arange(n, dtype=torch.int32, device=x.device)
 
     if kind == "cross":
-        q = dense(wparams(p, "wq", "bq"), x, mode).reshape(
-            B, S, cfg.num_heads, hd)
+        q_split = out_width(p, "wq") < cfg.num_heads * hd
+        kv_split = out_width(p, "wk") < cfg.num_kv_heads * hd
+        q = dense(wparams(p, "wq", "bq"), copy_to_model(x) if q_split
+                  else x, mode).reshape(B, S, -1, hd)
         if kv_ext is not None:
             ctx_k, ctx_v = kv_ext
+            if kv_split:
+                same = ctx_v is ctx_k
+                ctx_k = copy_to_model(ctx_k)
+                ctx_v = ctx_k if same else copy_to_model(ctx_v)
             k = dense(wparams(p, "wk", "bk"), ctx_k, mode).reshape(
-                B, -1, cfg.num_kv_heads, hd)
+                B, -1, out_width(p, "wk") // hd, hd)
             v = dense(wparams(p, "wv", "bv"), ctx_v, mode).reshape(
-                B, -1, cfg.num_kv_heads, hd)
+                B, -1, out_width(p, "wv") // hd, hd)
         else:  # decode: static cross cache
             k, v = cache["k"], cache["v"]
-        qg = _group(q, cfg.num_kv_heads)
+            if _seq_block(cache) is not None:
+                # a split-KV cross cache is read whole
+                k, v = gather_from_model(k, 1), gather_from_model(v, 1)
+        kr, vr = _read_kv(cfg, q.shape[2], k), _read_kv(cfg, q.shape[2], v)
+        qg = _group(q, kr.shape[2])
         kvp = arange(k.shape[1])
         qp = positions if positions is not None else arange(S)
-        out = chunked_attention(qg, k, v, q_positions=qp, kv_positions=kvp,
-                                causal=False, window=0)
+        out = chunked_attention(qg, kr, vr, q_positions=qp,
+                                kv_positions=kvp, causal=False, window=0)
         if kv_ext is not None and cache is None and build_cache_capacity:
-            new_cache = {"k": k, "v": v,
-                         "pos": kvp[None].expand(B, k.shape[1]).clone()}
+            new_cache = cut_cache(
+                {"k": k, "v": v,
+                 "pos": kvp[None].expand(B, k.shape[1]).clone()}, kv_split)
     else:
         q, k, v = _proj_qkv(p, x, cfg, mode)
         if decode:
@@ -315,14 +423,16 @@ def attn_apply(p, x, cfg, *, kind: str = "causal",
             else:
                 q = apply_rope(q, qp, cfg.rope_theta)
                 k = apply_rope(k, qp, cfg.rope_theta)
-        qg = _group(q, cfg.num_kv_heads)
-        qg = shard_act(qg, (("pod", "data"), None, "model", None, None))
         if decode:
             cache = cache_insert(cache, k, v, step)
-            out = decode_attention(qg, cache, step)
             new_cache = cache
+            out = _decode_heads(cfg, q, cache, step)
         else:
-            out = chunked_attention(qg, k, v, q_positions=qp,
+            kr, vr = _read_kv(cfg, q.shape[2], k), _read_kv(cfg, q.shape[2],
+                                                           v)
+            qg = _group(q, kr.shape[2])
+            qg = shard_act(qg, (("pod", "data"), None, "model", None, None))
+            out = chunked_attention(qg, kr, vr, q_positions=qp,
                                     kv_positions=qp,
                                     causal=(kind != "full"),
                                     window=window,
@@ -332,6 +442,35 @@ def attn_apply(p, x, cfg, *, kind: str = "causal",
                 new_cache = fill_cache_from_prefill(
                     cfg, k, v, qp, build_cache_capacity)
 
-    out = out.reshape(B, S, cfg.num_heads * hd)
-    y = dense(wparams(p, "wo", "bo"), out, mode)
+    out = out.reshape(B, S, -1)
+    y = dense(wparams(p, "wo", "bo"), out, mode,
+              row_parallel=out.shape[-1] < cfg.num_heads * hd)
     return y, new_cache
+
+
+def _decode_heads(cfg, q, cache, step) -> torch.Tensor:
+    """Decode attention of the rank's q heads [B,1,Hq',D] over ``cache``
+    (after the insert): on a split-KV cache every q head (gathered over
+    "model") over the rank's slots, combined over "model", then the
+    rank's heads; else the rank's heads over the kv heads they read."""
+    hq = q.shape[2]
+    if _seq_block(cache) is not None:
+        qa = gather_from_model(q, 2) if hq < cfg.num_heads else q
+        out = decode_attention(_group(qa, cache["k"].shape[2]), cache, step)
+        out = out.reshape(*q.shape[:2], cfg.num_heads, q.shape[-1])
+        return out.narrow(2, tp_rank() * hq, hq) if hq < cfg.num_heads \
+            else out
+    view = dict(cache)
+    hkv = cache["k"].shape[2]
+    if hkv < cfg.num_kv_heads:
+        # the rank's kv heads: the int8 scales, held whole, cut to them
+        for name in ("k_scale", "v_scale"):
+            if name in view:
+                view[name] = view[name].narrow(2, tp_rank() * hkv, hkv)
+    elif hq < cfg.num_heads:
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in view:
+                view[name] = view[name].narrow(2, _kv_head(cfg, hq), 1)
+    qg = _group(q, view["k"].shape[2])
+    qg = shard_act(qg, (("pod", "data"), None, "model", None, None))
+    return decode_attention(qg, view, step)

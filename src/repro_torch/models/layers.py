@@ -44,7 +44,9 @@ from repro_torch.graph.compile import compile as graph_compile
 from repro_torch.graph.compile import compile_dense_stack
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.packed import PackedArray
-from repro_torch.runtime.sharding import shard_act
+from repro_torch.runtime.sharding import (copy_to_model, gather_from_model,
+                                          max_over_model, reduce_from_model,
+                                          shard_act, tp_rank, tp_size)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -112,14 +114,74 @@ def wparams(p: Dict[str, Any], name: str,
     return d
 
 
+def out_width(p: Dict[str, Any], name: str) -> int:
+    """The output columns of weight `name` in p as this rank holds it
+    (a column-parallel block has fewer than the config's width)."""
+    if name + "_p" in p:
+        return p[name + "_p"].words.shape[-1]
+    return p[name].shape[-1]
+
+
+def own_cols(t: torch.Tensor, n: int) -> torch.Tensor:
+    """This "model" rank's block of ``n`` columns (the last dim) of a
+    per-column tensor held whole (a packed weight's alpha); ``t`` itself
+    where it has ``n``."""
+    if t.shape[-1] == n:
+        return t
+    return t.narrow(-1, tp_rank() * n, n)
+
+
+def own_halves(p: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """A weight (``wparams``' dict) whose output columns are two
+    concatenated halves of ``n`` channels each, held whole over "model",
+    as this rank's channel block of each half, packed words and their
+    alpha by column.  Each rank's gradient of the whole float weight
+    covers its columns only: the SPMD step's ``sharding.Block`` of such a
+    leaf (``part``) sums it over "model" to the rank's block."""
+    c = n // tp_size()
+    lo = tp_rank() * c
+
+    def cols(t):
+        return torch.cat([t.narrow(-1, lo, c), t.narrow(-1, n + lo, c)],
+                         dim=-1)
+    if "wp" in p:
+        return {"wp": p["wp"].with_words(cols(p["wp"].words)),
+                "alpha": cols(p["alpha"])}
+    return {"w": cols(p["w"])}
+
+
+def own_rows(wp: PackedArray, k: int, dtype: torch.dtype) -> torch.Tensor:
+    """A [.., K, N] PackedArray (pack axis -2) unpacked to ``dtype``, as
+    this "model" rank's block of ``k`` rows where the words are held
+    whole over "model" (row-parallel from a weight whose K/32 words do
+    not split): only the words that cover the block are unpacked."""
+    if wp.length == k:
+        return wp.unpack(dtype)
+    lo = tp_rank() * k
+    first, last = lo // 32, -(-(lo + k) // 32)
+    cover = PackedArray(wp.words.narrow(-2, first, last - first),
+                        length=min(wp.length, last * 32) - first * 32,
+                        axis=-2, values=wp.values)
+    return cover.unpack(dtype).narrow(-2, lo - first * 32, k)
+
+
 def dense(p: Dict[str, Any], x, mode: str = "none",
-          binarized: bool = True) -> torch.Tensor:
+          binarized: bool = True, row_parallel: bool = False
+          ) -> torch.Tensor:
     """Apply a (possibly binarized, possibly packed) linear layer.
 
     x may itself be a PackedArray (fully-binary path): the GEMM then
     runs packed x packed -> int32 through ``popcount_gemm`` and is
     scaled by alpha.  Use packed_dense() for hidden layers that should
-    *stay* packed."""
+    *stay* packed.
+
+    Tensor-parallel: a column-parallel weight is the rank's block of
+    columns (a packed one's alpha, held whole, is cut to it); the caller
+    passes x through ``copy_to_model``.  ``row_parallel``: x is the
+    rank's block of K, the weight its block of rows (or packed words
+    held whole, of which the block's rows are unpacked), a binarized
+    weight's scale the mean over the whole K, and the partial products
+    are summed over "model" before the bias."""
     wp = p.get("wp")
     if isinstance(x, PackedArray):
         if not isinstance(wp, PackedArray):
@@ -128,7 +190,8 @@ def dense(p: Dict[str, Any], x, mode: str = "none",
         s = kops.binary_binary_dense(x, wp.move_pack_axis_last())
         y = s.to(p["alpha"].dtype) * p["alpha"]
     elif isinstance(wp, PackedArray):  # packed serving layout (TULIP)
-        w = wp.unpack(x.dtype) * p["alpha"]
+        w = own_rows(wp, x.shape[-1], x.dtype) \
+            * own_cols(p["alpha"], wp.words.shape[-1])
         y = x @ w
     elif wp is not None:
         raise TypeError("packed weights must be a PackedArray "
@@ -137,12 +200,19 @@ def dense(p: Dict[str, Any], x, mode: str = "none",
         y = x @ p["w"]
     else:
         w = p["w"]
-        alpha = torch.mean(torch.abs(w.detach().to(torch.float32)),
-                           dim=0).to(x.dtype)
+        wa = torch.abs(w.detach().to(torch.float32))
+        if row_parallel:
+            alpha = reduce_from_model(torch.sum(wa, dim=0)) \
+                / (w.shape[0] * tp_size())
+        else:
+            alpha = torch.mean(wa, dim=0)
+        alpha = alpha.to(x.dtype)
         wb = ste_sign(w)
         if mode == "weights+acts":
             x = ste_sign(x)
         y = (x @ wb) * alpha
+    if row_parallel:
+        y = reduce_from_model(y)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -299,8 +369,13 @@ def mlp_init(gen, cfg, device, d_in: Optional[int] = None
 
 
 def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The FFN; tensor-parallel on d_ff (up / gate column-parallel, down
+    row-parallel) where the rank holds blocks of its weights."""
     mode = cfg.binarize if cfg.binarize_ffn else "none"
     f = act_fn(cfg.act)
+    split = out_width(p, "w_up") < cfg.d_ff
+    if split:
+        x = copy_to_model(x)
     if cfg.glu:
         g = dense(wparams(p, "w_gate"), x, mode)
         u = dense(wparams(p, "w_up"), x, mode)
@@ -308,7 +383,8 @@ def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         h = f(dense(wparams(p, "w_up", "b_up"), x, mode))
     h = shard_act(h, (("pod", "data"), None, "model"))
-    return dense(wparams(p, "w_down", "b_down"), h, mode)
+    return dense(wparams(p, "w_down", "b_down"), h, mode,
+                 row_parallel=split)
 
 
 # ------------------------------------------------------------------ #
@@ -319,19 +395,65 @@ def embed_init(gen, cfg, device) -> torch.Tensor:
     return normal(gen, (v, cfg.d_model), dtype_of(cfg), device) * 0.02
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+def _vocab_block(rows: int, vocab: Optional[int]) -> Optional[int]:
+    """The first vocab row of this rank's block where an embedding of
+    ``rows`` rows is a "model" block of a ``vocab``-row one, else
+    None."""
+    if vocab is None or rows == vocab:
+        return None
+    return tp_rank() * rows
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``tokens``.  Vocab-parallel where ``emb`` is a block
+    of a ``vocab``-row embedding: the rows outside the rank's block are
+    zero, and the ranks' rows are summed over "model" (one rank holds
+    each, so the sum is exact)."""
+    lo = _vocab_block(emb.shape[0], vocab)
+    if lo is None:
+        return emb[tokens]
+    idx = tokens - lo
+    inside = (idx >= 0) & (idx < emb.shape[0])
+    rows = emb[idx.clamp(0, emb.shape[0] - 1)]
+    return reduce_from_model(torch.where(inside[..., None], rows, 0.0))
 
 
 def logits_apply(emb_or_head: torch.Tensor, x: torch.Tensor,
-                 transpose: bool) -> torch.Tensor:
+                 transpose: bool, vocab: Optional[int] = None
+                 ) -> torch.Tensor:
+    """float32 logits; where the embedding is a vocab block (see
+    ``embed_lookup``), the ranks' blocks gathered over "model" (the
+    serving paths, no gradient)."""
     w = emb_or_head.T if transpose else emb_or_head
-    return (x @ w.to(x.dtype)).to(torch.float32)
+    y = (x @ w.to(x.dtype)).to(torch.float32)
+    if _vocab_block(w.shape[-1], vocab) is not None:
+        y = gather_from_model(y, -1)
+    return y
+
+
+def vocab_parallel_nll(x: torch.Tensor, emb: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """The per-token nll of the full logits where ``emb`` [V/m, D] is
+    this rank's vocab block: the max, the sum of exp and the target
+    logit of the rank's columns, combined over "model"."""
+    lo = tp_rank() * emb.shape[0]
+    logits = logits_apply(emb, copy_to_model(x), transpose=True)
+    m = max_over_model(logits.amax(dim=-1))
+    s = reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    idx = targets.long() - lo
+    inside = (idx >= 0) & (idx < emb.shape[0])
+    got = torch.gather(logits, -1,
+                       idx.clamp(0, emb.shape[0] - 1)[..., None])[..., 0]
+    tgt = reduce_from_model(torch.where(inside, got, 0.0))
+    return (m + torch.log(s)) - tgt
 
 
 def _xent_chunk(x, wi, targets, m, lse, tgt, base: int, V: int):
     """One vocab chunk of ``chunked_xent``: the running max, the running
-    sum of exp and the target logit where it falls in this chunk."""
+    sum of exp and the target logit where it falls in this chunk's rows
+    below ``V`` (a target past a padded last chunk is another vocab
+    block's)."""
     c = wi.shape[0]
     logits = (x @ wi.to(x.dtype).T).to(torch.float32)
     col = base + torch.arange(c, device=x.device)
@@ -340,13 +462,14 @@ def _xent_chunk(x, wi, targets, m, lse, tgt, base: int, V: int):
     p = torch.exp(logits - m_new[..., None])
     lse = torch.exp(m - m_new) * lse + p.sum(dim=-1)
     idx = targets - base
-    in_chunk = (idx >= 0) & (idx < c)
+    in_chunk = (idx >= 0) & (idx < min(c, V - base))
     got = torch.gather(logits, -1, idx.clamp(0, c - 1)[..., None])[..., 0]
     return m_new, lse, torch.where(in_chunk, got, tgt)
 
 
 def chunked_xent(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor,
-                 transpose: bool, chunk: int) -> torch.Tensor:
+                 transpose: bool, chunk: int,
+                 vocab: Optional[int] = None) -> torch.Tensor:
     """Cross-entropy over a huge vocab without materializing full logits.
 
     The logsumexp runs over vocab chunks (equal chunks of ceil(V /
@@ -354,9 +477,19 @@ def chunked_xent(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor,
     the target logit; x: [B,S,D], emb: [V,D] (transpose=True) or [D,V].
     With grad enabled each chunk is recomputed in the backward pass, so
     the full [B,S,V] logits never live there.  Returns the per-token
-    nll [B,S]."""
+    nll [B,S].
+
+    Vocab-parallel where ``emb`` is a "model" block of a ``vocab``-row
+    embedding: the chunks run over the rank's rows (their columns at
+    the block's offset), then the running max is combined by a max over
+    "model", the sums of exp (rescaled to it) and the target logit
+    (held by one rank) by sums over "model"."""
     w = emb if transpose else emb.T            # [V, D]
     V = w.shape[0]
+    lo = _vocab_block(V, vocab)
+    start = 0 if lo is None else lo
+    if lo is not None:
+        x = copy_to_model(x)
     n_chunks = max(1, -(-V // chunk))
     c = -(-V // n_chunks)
     B, S = targets.shape
@@ -369,7 +502,12 @@ def chunked_xent(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor,
         wi = w[i * c:(i + 1) * c]
         if wi.shape[0] < c:                    # only the last chunk pads
             wi = F.pad(wi, (0, 0, 0, c - wi.shape[0]))
-        args = (x, wi, targets, m, lse, tgt, i * c, V)
+        args = (x, wi, targets, m, lse, tgt, start + i * c, start + V)
         m, lse, tgt = checkpoint(_xent_chunk, *args, use_reentrant=False) \
             if torch.is_grad_enabled() else _xent_chunk(*args)
+    if lo is not None:
+        top = max_over_model(m)
+        lse = reduce_from_model(torch.exp(m - top) * lse)
+        tgt = reduce_from_model(tgt)
+        m = top
     return (m + torch.log(lse)) - tgt

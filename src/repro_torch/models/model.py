@@ -13,6 +13,14 @@ builds the tree on torch's ``meta`` device.  ``forward`` / ``prefill``
 / ``decode_step`` run on the device of the params they are given, with
 no autograd (serving); ``loss_fn`` runs the same forward core
 (``_forward``) with grad enabled.
+
+Inside an SPMD step (``runtime.sharding.tensor_parallel``) the params
+are :class:`~repro_torch.runtime.sharding.Block` leaves, this rank's
+blocks: the leaves outside the layer stacks (embeddings, ``lm_head``,
+``pos_emb``, the final norms) are gathered over "data" once a call
+(``_gathered``), each stack's cycle in the cycle; the embedding and the
+logits are vocab-parallel where the rank holds a vocab block, and the
+serving paths' logits are gathered over "model".
 """
 from __future__ import annotations
 
@@ -25,8 +33,9 @@ from repro_torch.kernels.packed import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_xent, dtype_of,
                                        embed_init, embed_lookup,
-                                       logits_apply, norm_init, normal)
-from repro_torch.runtime.sharding import shard_act
+                                       logits_apply, norm_init, normal,
+                                       vocab_parallel_nll)
+from repro_torch.runtime.sharding import materialize, shard_act
 
 
 def decoder_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -64,6 +73,19 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     return params
 
 
+def _gathered(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` with every Block leaf outside the layer stacks
+    materialised (once a call); the stacks' Blocks stay for their
+    cycles."""
+    out = {k: v if k == "decoder" else materialize(v)
+           for k, v in params.items() if k != "encoder"}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {k: v if k == "stack" else materialize(v)
+                          for k, v in enc.items()}
+    return out
+
+
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper encoder over precomputed frame embeddings (conv stub)."""
     x = frames.to(dtype_of(cfg))
@@ -88,7 +110,9 @@ def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
              cache_capacity: int = 0):
     """The forward core, under whatever grad mode the caller runs."""
     B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
+    params = _gathered(params)
+    x = embed_lookup(params["embed"], tokens,
+                     cfg.padded_vocab()).to(dtype_of(cfg))
     x = shard_act(x, (("pod", "data"), None, "model"))
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     if cfg.learned_pos:
@@ -114,12 +138,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
     """Next-token cross entropy (+ MoE aux), differentiable in params."""
     tokens, targets = batch["tokens"], batch["targets"]
+    params = _gathered(params)
     ctx = _ctx_from_inputs(params, cfg, batch)
     x, _, aux = _forward(params, cfg, tokens, ctx=ctx)
     emb = params.get("lm_head", params["embed"])
     if cfg.logits_chunk:
         nll = chunked_xent(x, emb, targets, transpose=True,
-                           chunk=cfg.logits_chunk)
+                           chunk=cfg.logits_chunk, vocab=cfg.padded_vocab())
+    elif emb.shape[0] < cfg.padded_vocab():      # a vocab block
+        nll = vocab_parallel_nll(x, emb, targets)
     else:
         logits = logits_apply(emb, x, transpose=True)
         lse = torch.logsumexp(logits, dim=-1)
@@ -141,6 +168,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logits are taken at position lengths-1 instead of the last padded
     position."""
     tokens = batch["tokens"]
+    params = _gathered(params)
     ctx = _ctx_from_inputs(params, cfg, batch)
     x, caches, _ = forward(params, cfg, tokens, ctx=ctx,
                            cache_capacity=cache_capacity)
@@ -150,7 +178,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         idx = (lengths.to(x.device) - 1).long()[:, None, None]
         x_last = torch.gather(x, 1, idx.expand(x.shape[0], 1, x.shape[-1]))
-    logits = logits_apply(emb, x_last, transpose=True)
+    logits = logits_apply(emb, x_last, transpose=True,
+                          vocab=cfg.padded_vocab())
     return logits, caches
 
 
@@ -159,7 +188,9 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """One token step.  batch: {"tokens": [B,1], "step": [B],
     "caches": tree}.  Returns (logits [B,1,V], new caches)."""
     tokens, step, caches = batch["tokens"], batch["step"], batch["caches"]
-    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
+    params = _gathered(params)
+    x = embed_lookup(params["embed"], tokens,
+                     cfg.padded_vocab()).to(dtype_of(cfg))
     if cfg.learned_pos:
         x = x + params["pos_emb"][step.long()][:, None]
     x, new_caches, _ = tfm.stack_apply(
@@ -167,7 +198,7 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, Any]):
         caches=caches, step=step)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     emb = params.get("lm_head", params["embed"])
-    logits = logits_apply(emb, x, transpose=True)
+    logits = logits_apply(emb, x, transpose=True, vocab=cfg.padded_vocab())
     return logits, new_caches
 
 

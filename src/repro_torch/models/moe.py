@@ -11,7 +11,11 @@ implementations:
     sliced off (the reference's ``.at[].set(mode="drop")``) and its
     output is zeroed.
 
-Expert weights are [E, d_model, d_ff].
+Expert weights are [E, d_model, d_ff].  Tensor-parallel on d_ff where
+a rank holds blocks of them: w_gate / w_up column-parallel, w_down
+row-parallel, the router replicated; the experts' input and the routing
+weights pass through ``copy_to_model`` and the combined output is summed
+over "model".
 
 The Switch aux loss is ``E * sum_e mean(probs)_e * mean(onehot)_e``
 over the whole batch.  Inside an SPMD step each rank holds a share of
@@ -28,8 +32,10 @@ import torch
 
 from repro_torch.core.binarize import ste_sign
 from repro_torch.kernels.packed import PackedArray
-from repro_torch.models.layers import act_fn, dtype_of, normal
-from repro_torch.runtime.sharding import batch_mean, shard_act
+from repro_torch.models.layers import act_fn, dtype_of, normal, own_cols
+from repro_torch.runtime.sharding import (batch_mean, copy_to_model,
+                                          reduce_from_model, shard_act,
+                                          tp_rank, tp_size)
 
 
 def moe_init(gen, cfg, device) -> Dict[str, Any]:
@@ -45,24 +51,34 @@ def moe_init(gen, cfg, device) -> Dict[str, Any]:
     }
 
 
-def _get_w(p, name, mode, dtype):
-    """Dense latent weights (train) or packed serving layout."""
+def _get_w(p, name, mode, dtype, rows: int = 0):
+    """Dense latent weights (train) or packed serving layout; ``rows``
+    (w_down under tensor parallelism) is the rank's block of d_ff: a
+    latent block's scale is the mean over the whole d_ff, packed words
+    held whole give the block's rows."""
     if name + "_p" in p:
         wp = p[name + "_p"]
         if not isinstance(wp, PackedArray):
             raise TypeError("packed weights must be a PackedArray "
                             "(adopt_packed converts raw words)")
         w = wp.unpack(dtype)                  # [E, K, F], pack axis -2
-        return w * p[name + "_alpha"].to(dtype)
-    return _maybe_bin(p[name], mode)
+        if rows and w.shape[-2] != rows:
+            w = w.narrow(-2, tp_rank() * rows, rows)
+        return w * own_cols(p[name + "_alpha"].to(dtype), w.shape[-1])
+    return _maybe_bin(p[name], mode,
+                      row_parallel=bool(rows) and tp_size() > 1)
 
 
-def _maybe_bin(w, mode):
+def _maybe_bin(w, mode, row_parallel: bool = False):
     if mode == "none":
         return w
-    alpha = torch.mean(torch.abs(w.detach().to(torch.float32)), dim=-2,
-                       keepdim=True).to(w.dtype)
-    return ste_sign(w) * alpha
+    wa = torch.abs(w.detach().to(torch.float32))
+    if row_parallel:
+        alpha = reduce_from_model(torch.sum(wa, dim=-2, keepdim=True)) \
+            / (w.shape[-2] * tp_size())
+    else:
+        alpha = torch.mean(wa, dim=-2, keepdim=True)
+    return ste_sign(w) * alpha.to(w.dtype)
 
 
 def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -94,8 +110,12 @@ def moe_apply(p, x, cfg, impl: str = "dense"
     f = act_fn(cfg.act)
     wg = _get_w(p, "w_gate", mode, x.dtype)
     wu = _get_w(p, "w_up", mode, x.dtype)
-    wd = _get_w(p, "w_down", mode, x.dtype)
+    split = wg.shape[-1] < cfg.d_ff
+    wd = _get_w(p, "w_down", mode, x.dtype,
+                rows=wg.shape[-1] if split else 0)
     E = cfg.num_experts
+    if split:
+        x, w = copy_to_model(x), copy_to_model(w)
 
     if impl == "dense":
         g = torch.einsum("bsd,edf->besf", x, wg)
@@ -106,7 +126,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
         comb = torch.sum(one_hot(idx, E, x.dtype) * w[..., None],
                          dim=2)
         y = torch.einsum("besd,bse->bsd", y_e, comb)
-        return y, aux
+        return (reduce_from_model(y) if split else y), aux
 
     # capacity-based dispatch: tokens -> [E, C] buffers.
     B, S, D = x.shape
@@ -130,7 +150,7 @@ def moe_apply(p, x, cfg, impl: str = "dense"
         h = shard_act(h, (("pod", "data"), None, None, "model"))
         ye = torch.einsum("becf,efd->becd", h, wd)
         y = torch.einsum("becd,bskec,bsk->bsd", ye, disp, w.to(x.dtype))
-        return y, aux
+        return (reduce_from_model(y) if split else y), aux
 
     # impl == "gather": scatter/gather dispatch
     bb = torch.arange(B, device=x.device)[:, None, None]
@@ -154,4 +174,4 @@ def moe_apply(p, x, cfg, impl: str = "dense"
     ).reshape(B, S, k, D)
     picked = picked * (pos < cap)[..., None].to(x.dtype)
     y = torch.einsum("bskd,bsk->bsd", picked, w.to(x.dtype))
-    return y, aux
+    return (reduce_from_model(y) if split else y), aux

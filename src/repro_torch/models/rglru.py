@@ -9,7 +9,13 @@ The port of ``repro.models.rglru``.  The diagonal recurrence runs as a
 prefix scan in float32 (``ssm.associative_scan``, the reference's
 ``jax.lax.associative_scan``); the surrounding projections and the
 conv1d are binarizable.  The gelu is the tanh approximation
-(``jax.nn.gelu``'s default).
+(``jax.nn.gelu``'s default).  Tensor-parallel on the width where a rank
+holds a block of the channels (``conv_w``'s rows): in_proj and
+gate_proj, held whole, give the rank's channels of their two halves
+(``layers.own_halves``; gate_proj reads every channel, gathered over
+"model"), the conv, the gates and the scan run on the block, out_proj
+is row-parallel; the state is the rank's channels (a block computed
+whole gathers and cuts it as ``ssm``'s does).
 """
 from __future__ import annotations
 
@@ -20,9 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense, dtype_of, gelu, normal,
-                                       uniform, wparams)
-from repro_torch.models.ssm import _conv_train, _pad_left, associative_scan
-from repro_torch.runtime.sharding import shard_act
+                                       own_halves, uniform, wparams)
+from repro_torch.models.ssm import (_conv_train, _pad_left, associative_scan,
+                                    own_channels, state_block, whole_state)
+from repro_torch.runtime.sharding import (copy_to_model, gather_from_model,
+                                          shard_act)
 
 _C = 8.0
 
@@ -56,8 +64,14 @@ def rglru_apply(p, x, cfg, state: Optional[Dict] = None):
     B, S, _ = x.shape
     w = cfg.lru_width or cfg.d_model
     K = cfg.conv1d_width
+    c = p["conv_w"].shape[0]                      # the rank's channels
+    split = c < w
+    state = whole_state(state, c)
+    w_in = wparams(p, "in_proj")
+    if split:
+        w_in, x = own_halves(w_in, w), copy_to_model(x)
 
-    xz = dense(wparams(p, "in_proj"), x, mode)
+    xz = dense(w_in, x, mode)
     u, gate_in = torch.chunk(xz, 2, dim=-1)       # [B,S,W]
     u = shard_act(u, (("pod", "data"), None, "model"))
 
@@ -72,9 +86,12 @@ def rglru_apply(p, x, cfg, state: Optional[Dict] = None):
         new_conv = u[:, -(K - 1):] if S >= K else _pad_left(u, K - 1 - S)
     uc = gelu(uc)
 
-    gates = dense(wparams(p, "gate_proj"), uc, "none").to(torch.float32)
+    w_gate, uc_all = wparams(p, "gate_proj"), uc
+    if split:
+        w_gate, uc_all = own_halves(w_gate, w), gather_from_model(uc, -1)
+    gates = dense(w_gate, uc_all, "none").to(torch.float32)
     r, i = torch.chunk(torch.sigmoid(gates), 2, dim=-1)
-    lam = F.softplus(p["a_param"])
+    lam = F.softplus(own_channels(p["a_param"], c))
     log_a = -_C * lam * r                          # [B,S,W]
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
@@ -87,10 +104,11 @@ def rglru_apply(p, x, cfg, state: Optional[Dict] = None):
     else:
         aa, bb = associative_scan(a, gated, dim=1)
         h0 = state["h"][:, None] if state is not None \
-            else torch.zeros((B, 1, w), dtype=torch.float32,
+            else torch.zeros((B, 1, c), dtype=torch.float32,
                              device=x.device)
         hs = aa * h0 + bb
         h_last = hs[:, -1]
 
-    y = dense(wparams(p, "out_proj"), hs.to(x.dtype), mode)
-    return y, {"conv": new_conv, "h": h_last}
+    y = dense(wparams(p, "out_proj"), hs.to(x.dtype), mode,
+              row_parallel=split)
+    return y, state_block({"conv": new_conv, "h": h_last}, split)

@@ -8,6 +8,17 @@ inner step is a parallel prefix scan over the chunk
 d_inner, d_state].  Decode is
 the O(1) single-step recurrence.  The selective scan stays in float32;
 the in/out projections are binarized.
+
+Tensor-parallel on the d_inner channels where a rank holds a block of
+them (``conv_w``'s rows): in_proj, held whole, gives the rank's
+channels of x and z (``layers.own_halves``), the conv, the scan, A, D
+and dt run on the block, x_proj is row-parallel (its dt / B / C summed
+over "model"), dt_proj column-parallel, out_proj row-parallel; the
+serving state is the rank's channels, as ``batch_specs`` splits it.  A
+block whose leaves the rules leave whole (the layer stacks' remainder
+blocks: ``param_specs`` reads their first dim as a cycle axis) computes
+every channel, its state gathered on the way in and cut back to the
+rank's block on the way out (``whole_state`` / ``state_block``).
 """
 from __future__ import annotations
 
@@ -17,10 +28,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (dense, dtype_of, normal, uniform,
-                                       wparams)
+from repro_torch.models.layers import (dense, dtype_of, normal, own_halves,
+                                       uniform, wparams)
 from repro_torch.runtime import op_cost
-from repro_torch.runtime.sharding import shard_act
+from repro_torch.runtime.sharding import (copy_to_model, gather_from_model,
+                                          shard_act, tp_rank, tp_size)
 
 
 def ssm_init(gen, cfg, device) -> Dict[str, Any]:
@@ -104,6 +116,38 @@ def _scan_chunked(a, bx, h0, chunk: int):
     return h, torch.cat(hs, dim=1)
 
 
+def whole_state(state: Optional[Dict], c: int) -> Optional[Dict]:
+    """A recurrent state {"conv": [B,K-1,C'], "h": [B,C',...]} with its
+    channels gathered over "model" where it holds fewer than the ``c``
+    the block computes."""
+    if state is None or state["conv"].shape[-1] == c:
+        return state
+    return {"conv": gather_from_model(state["conv"], -1),
+            "h": gather_from_model(state["h"], 1)}
+
+
+def state_block(state: Dict, split: bool) -> Dict:
+    """The state a block computed whole (not ``split``) cut to this
+    rank's channels where ``batch_specs`` splits them (serving: nothing
+    is cut with grad on)."""
+    m = tp_size()
+    width = state["conv"].shape[-1]
+    if split or m == 1 or width % m or torch.is_grad_enabled():
+        return state
+    n = width // m
+    return {"conv": state["conv"].narrow(-1, tp_rank() * n, n).clone(),
+            "h": state["h"].narrow(1, tp_rank() * n, n).clone()}
+
+
+def own_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """This rank's block of ``c`` channels (dim 0) of a per-channel
+    leaf: ``t`` itself where it holds ``c`` (a "model" block), else its
+    rows of the whole leaf (through ``copy_to_model``)."""
+    if t.shape[0] == c:
+        return t
+    return copy_to_model(t).narrow(0, tp_rank() * c, c)
+
+
 def ssm_apply(p, x, cfg, state: Optional[Dict] = None,
               scan_chunk: int = 16):
     """x: [B,S,D].  state (decode): {"conv": [B,K-1,din], "h": [B,din,N]}.
@@ -114,9 +158,15 @@ def ssm_apply(p, x, cfg, state: Optional[Dict] = None,
     n = cfg.ssm_state
     dtr = cfg.dt_rank_()
     K = cfg.conv1d_width
+    c = p["conv_w"].shape[0]                      # the rank's channels
+    split = c < din
+    state = whole_state(state, c)
+    w_in = wparams(p, "in_proj")
+    if split:
+        w_in, x = own_halves(w_in, din), copy_to_model(x)
 
-    xz = dense(wparams(p, "in_proj"), x, mode)
-    xs, z = torch.chunk(xz, 2, dim=-1)            # [B,S,din]
+    xz = dense(w_in, x, mode)
+    xs, z = torch.chunk(xz, 2, dim=-1)            # [B,S,c]
     xs = shard_act(xs, (("pod", "data"), None, "model"))
 
     decode = state is not None and S == 1
@@ -130,7 +180,10 @@ def ssm_apply(p, x, cfg, state: Optional[Dict] = None,
         new_conv = xs[:, -(K - 1):] if S >= K else _pad_left(xs, K - 1 - S)
     u = F.silu(y)                                 # [B,S,din]
 
-    proj = dense({"w": p["x_proj"]}, u, "none")   # dt/B/C path stays fp
+    proj = dense({"w": p["x_proj"]}, u, "none",   # dt/B/C path stays fp
+                 row_parallel=split)
+    if split:
+        proj = copy_to_model(proj)
     dt_r, Bc, Cc = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).to(torch.float32)
     A = -torch.exp(p["A_log"])                    # [din, N]
@@ -145,9 +198,9 @@ def ssm_apply(p, x, cfg, state: Optional[Dict] = None,
         ysc = torch.einsum("bcn,bn->bc", h, Cf[:, 0])[:, None, :]
         h_last = h
     else:
-        h0 = torch.zeros((B, din, n), dtype=torch.float32, device=x.device)
+        h0 = torch.zeros((B, c, n), dtype=torch.float32, device=x.device)
         h_last, hs = _scan_chunked(da, dbx, h0, scan_chunk)
         ysc = torch.einsum("bscn,bsn->bsc", hs, Cf)
-    out = (ysc + uf * p["D"]).to(x.dtype) * F.silu(z)
-    y = dense(wparams(p, "out_proj"), out, mode)
-    return y, {"conv": new_conv, "h": h_last}
+    out = (ysc + uf * own_channels(p["D"], c)).to(x.dtype) * F.silu(z)
+    y = dense(wparams(p, "out_proj"), out, mode, row_parallel=split)
+    return y, state_block({"conv": new_conv, "h": h_last}, split)

@@ -11,6 +11,11 @@ unbound once per call (so a backward pass stacks each leaf's gradient
 once, not one full-size zero tensor a cycle), and stacks the new
 caches back.  Cycle remainders run unstacked.
 
+In an SPMD step (``runtime.sharding.tensor_parallel``) the params are
+:class:`~repro_torch.runtime.sharding.Block` leaves: each cycle's
+blocks are gathered over "data" (FSDP) inside the cycle, the unstacked
+remainder blocks before their layer, and freed after.
+
 ``remat`` (with grad enabled only; serving runs without autograd) is
 the reference's ``jax.checkpoint`` of a cycle: "full" recomputes the
 whole cycle in the backward pass, "dots" keeps the matmul outputs and
@@ -43,7 +48,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dtype_of, mlp_apply,
                                        mlp_init, norm_init)
-from repro_torch.runtime.sharding import shard_act
+from repro_torch.runtime.sharding import materialize, shard_act
 
 
 # ------------------------------------------------------------------ #
@@ -300,6 +305,9 @@ def stack_apply(params, x, cfg, pattern, *, positions=None, caches=None,
     cycle, n_cycles, n_rem = find_cycle(pattern)
 
     def one_cycle(x_in, cyc_params, cyc_caches):
+        # an SPMD step's Block leaves, gathered here: remat recomputes
+        # (gathers again) with the rest of the cycle
+        cyc_params = materialize(cyc_params)
         new_caches, aux_sum = [], 0.0
         for pos, kind in enumerate(cycle):
             c_in = cyc_caches[pos] if cyc_caches is not None else None
@@ -329,7 +337,7 @@ def stack_apply(params, x, cfg, pattern, *, positions=None, caches=None,
         kind = pattern[n_cycles * len(cycle) + r]
         c_in = caches["rem"][r] if caches is not None else None
         x, nc, aux = block_apply(
-            params["rem"][r], x, cfg, kind, positions=positions,
+            materialize(params["rem"][r]), x, cfg, kind, positions=positions,
             cache=c_in, step=step, ctx=ctx, cache_capacity=cache_capacity)
         new_rem.append(nc)
         aux_total = aux_total + aux

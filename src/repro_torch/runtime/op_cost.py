@@ -22,7 +22,9 @@ recompute and the optimizer alike), with the reference's rules:
     (``Computation.slice_overrides``); an in-place update of a region
     (``index_put_``, ``copy_`` into a slice) costs twice the region, as
     hlo_cost charges ``dynamic-update-slice``;
-  * collectives — operand bytes of every c10d op, by kind.  On one card
+  * collectives — operand bytes of every c10d op, by kind (an
+    all-gather's operand is the rank's block, a reduce-scatter's the
+    whole input, an all-reduce's its tensor).  On one card
     there is none: ``compressed_psum`` only sums under a
     ``torch.distributed`` group.
 
@@ -138,6 +140,13 @@ _COLLECTIVE = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                ("broadcast", "collective-permute"),
                ("send", "collective-permute"),
                ("recv", "collective-permute"))
+# c10d ops whose first argument is the output buffer: their operand is
+# the rest (an all-gather's is the rank's block, a reduce-scatter's the
+# whole input), as XLA counts a collective by its operand
+_OUT_FIRST = {"_allgather_base_", "_reduce_scatter_base_", "allgather_",
+              "reduce_scatter_", "allgather_coalesced_",
+              "allgather_into_tensor_coalesced_",
+              "reduce_scatter_tensor_coalesced_"}
 
 
 @dataclass
@@ -205,7 +214,9 @@ def _op_cost(func, args, kwargs, out) -> Tuple[float, float,
     if func.namespace in ("c10d", "_c10d_functional", "c10d_functional"):
         kind = _collective_kind(name)
         if kind is not None:
-            nb = float(sum(_nbytes(t) for t in ins))
+            operands = _tensors(args[1:]) if func.namespace == "c10d" \
+                and name in _OUT_FIRST else ins
+            nb = float(sum(_nbytes(t) for t in operands))
             return 0.0, nb + sum(_nbytes(t) for t in outs), kind, nb
     if func.is_view or base in FREE:
         return 0.0, 0.0, None, 0.0
@@ -323,6 +334,8 @@ class Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if getattr(_ACTIVE, "backend", False):
+            return out
         flops, nb, kind, cb = _op_cost(func, args, kwargs, out)
         m = self._mult
         self.ops += 1
@@ -371,6 +384,20 @@ class Counter(TorchDispatchMode):
                 self.peak_bytes = max(start_peak, self.peak_bytes + extra)
             if outer_new is not None:
                 outer_new.update(created)
+
+
+@contextlib.contextmanager
+def backend_work():
+    """Ops dispatched in the block are a collective's own work inside
+    its backend (gloo copies a reduce-scatter's result into the output
+    when it completes; NCCL and the fake backend do not), not the
+    program's: no counter counts them."""
+    was = getattr(_ACTIVE, "backend", False)
+    _ACTIVE.backend = True
+    try:
+        yield
+    finally:
+        _ACTIVE.backend = was
 
 
 def scan(body: Callable[[Any, Any], Tuple[Any, Any]], carry: Any,

@@ -22,18 +22,34 @@ Policy (DESIGN.md §4):
 :class:`NamedSharding` places a tensor by its spec: ``shard`` cuts it
 into one piece per mesh slot (on the slot's device), ``gather`` puts
 the pieces back together; on a ``torch.distributed`` ``DeviceMesh``,
-:class:`MeshSharding` places it as a DTensor (``distribute``,
-``local_block``, ``full_tensor``; a PackedArray by its words).
+:class:`MeshSharding` places it as a DTensor (``distribute``; a
+PackedArray by its words).
 ``shard_act`` is the reference's activation
 constraint: it never changes a value; inside a mesh context it computes
 the spec and keeps it on the mesh (``mesh.constraints``).
+
+Tensor parallelism (an SPMD step, Megatron-style on plain local
+tensors): ``tp_blocks`` turns the DTensor params into :class:`Block`
+leaves (the local block, its "model" and "data" dims, and whether the
+layer computes on it whole over "model": ``computes_on_block``, which
+keeps heads whole where ``fit_spec`` would only ask a width to divide);
+inside ``tensor_parallel(tp_groups(mesh))`` the models ``materialize``
+a cycle's Blocks (all-gather over "data", and over "model" for a whole
+leaf; the backward reduce-scatters the float32 grad to the block, over
+"model" too where each rank reads its own part of a whole leaf, sums
+it over "pod", divides by the batch group's size), pass a
+column-parallel layer's input through ``copy_to_model`` (its gradient
+summed over "model") and sum a row-parallel layer's partial output with
+``reduce_from_model``.  With one rank on an axis each helper is the
+identity and runs no op.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import re
-from typing import Any, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -41,12 +57,18 @@ import torch
 from repro_torch import tree as _tree
 from repro_torch.kernels.packed import PackedArray
 from repro_torch.launch.mesh import Mesh, current_mesh
+from repro_torch.runtime.op_cost import backend_work
 
-__all__ = ["BATCH_AXES", "MeshSharding", "NamedSharding", "P", "axis_size",
-           "batch_group", "batch_mean", "batch_shard", "batch_specs",
-           "distribute", "fit_spec", "full_tensor", "global_batch",
-           "holds_first_copy", "local_block", "named", "param_specs",
-           "placements", "shard_act", "spec_for_param"]
+__all__ = ["BATCH_AXES", "Block", "MeshSharding", "NamedSharding", "P",
+           "TPGroups", "axis_size", "batch_group", "batch_mean",
+           "batch_shard", "batch_specs", "computes_on_block",
+           "copy_to_model", "distribute", "fit_spec",
+           "gather_from_model", "global_batch", "heads_split",
+           "holds_first_copy", "materialize",
+           "max_over_model", "model_group", "named", "param_specs",
+           "placements", "reduce_from_model", "shard_act",
+           "spec_for_param", "tensor_parallel", "tp_blocks",
+           "tp_groups", "tp_rank", "tp_size"]
 
 
 class P(tuple):
@@ -374,26 +396,6 @@ def distribute(tree: Any, shardings: Any) -> Any:
     return _tree.map(lambda t, s: s.distribute(t), tree, shardings)
 
 
-def local_block(t: Any, like: Any) -> Any:
-    """The block of ``t`` (whole, equal on every rank) that the DTensor
-    ``like`` holds on this rank, as a plain tensor (a PackedArray and a
-    PackedArray of DTensor words: the block of the words)."""
-    from torch.distributed.tensor import distribute_tensor
-    if isinstance(t, PackedArray):
-        return t.with_words(local_block(t.words, like.words))
-    return distribute_tensor(t, like.device_mesh, like.placements,
-                             src_data_rank=None).to_local()
-
-
-def full_tensor(d: Any) -> Any:
-    """The DTensor ``d`` gathered whole on every rank (every rank of its
-    mesh calls this); a PackedArray of DTensor words as the PackedArray
-    of the gathered words."""
-    if isinstance(d, PackedArray):
-        return d.with_words(d.words.full_tensor())
-    return d.full_tensor()
-
-
 def holds_first_copy(d: Any) -> bool:
     """Whether this rank's block of the DTensor ``d`` is the first of its
     copies: coordinate 0 on every mesh dim that ``d`` replicates on (a
@@ -493,6 +495,461 @@ def batch_mean(x: torch.Tensor, dim: Tuple[int, ...]) -> torch.Tensor:
         return m
     group, size = at
     return _SumOverGroup.apply(m, group) / size
+
+
+# ------------------------------------------------------------------ #
+# tensor-parallel compute over "model", FSDP gathers over "data"       #
+# ------------------------------------------------------------------ #
+class TPGroups(NamedTuple):
+    """The process groups of one rank of an SPMD step: "model" (the
+    ranks that hold the other blocks of a tensor-parallel layer),
+    "data" (the FSDP gather of a leaf's blocks), "pod" and the batch
+    group (pod x data: the ranks whose rows are the global batch).  A
+    group is None where it is this rank alone."""
+    model: Any
+    model_size: int
+    model_rank: int
+    data: Any
+    data_size: int
+    pod: Any
+    pod_size: int
+    batch: Any
+    batch_size: int
+
+
+def _dim_group(mesh: Any, name: str) -> Tuple[Any, int, int]:
+    """(group, size, this rank's coordinate) of a ``DeviceMesh`` dim;
+    (None, 1, 0) where the mesh has no such dim or it has one rank."""
+    names = tuple(mesh.mesh_dim_names)
+    if name not in names or mesh.size(names.index(name)) == 1:
+        return None, 1, 0
+    return (mesh.get_group(name), mesh.size(names.index(name)),
+            mesh.get_local_rank(name))
+
+
+def model_group(mesh: Any) -> Tuple[Any, int, int]:
+    """(group, size, rank in it) of the ranks that differ from this one
+    only on "model"; (None, 1, 0) on a mesh with one rank there."""
+    return _dim_group(mesh, "model")
+
+
+def tp_groups(mesh: Any) -> TPGroups:
+    """This rank's :class:`TPGroups` on ``mesh``.  Every rank of the mesh
+    must call it (it makes the batch group)."""
+    batch, batch_size = batch_group(mesh)
+    m, ms, mr = model_group(mesh)
+    d, ds, _ = _dim_group(mesh, "data")
+    p, ps, _ = _dim_group(mesh, "pod")
+    return TPGroups(m, ms, mr, d, ds, p, ps, batch, batch_size)
+
+
+# the TP groups of the SPMD step running in this process, or None.  A
+# process-wide setting, like _BATCH_GROUP: on the card the backward
+# recomputes a checkpointed layer on the autograd engine's own thread.
+_TP: List[Optional[TPGroups]] = [None]
+
+
+@contextlib.contextmanager
+def tensor_parallel(groups: Optional[TPGroups]) -> Iterator[None]:
+    """Inside the block the model computes its tensor-parallel layers
+    on this rank's "model" blocks and :class:`Block` leaves gather over
+    ``groups`` (None: one process, nothing changes)."""
+    was = _TP[0]
+    _TP[0] = groups
+    try:
+        yield
+    finally:
+        _TP[0] = was
+
+
+def tp_size() -> int:
+    """The number of "model" ranks of the step running here (1 outside
+    one)."""
+    at = _TP[0]
+    return 1 if at is None else at.model_size
+
+
+def tp_rank() -> int:
+    """This rank's coordinate on "model" (0 outside a step)."""
+    at = _TP[0]
+    return 0 if at is None else at.model_rank
+
+
+def _wait(work: Any) -> None:
+    """Wait for a collective; what its backend dispatches meanwhile is
+    not the program's (``op_cost.backend_work``)."""
+    with backend_work():
+        work.wait()
+
+
+def _all_reduce(x: torch.Tensor, group: Any, op: str = "sum"
+                ) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group`` (sum or max)."""
+    import torch.distributed as dist
+    out = x.clone(memory_format=torch.contiguous_format)
+    _wait(dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                          else dist.ReduceOp.SUM, group=group,
+                          async_op=True))
+    return out
+
+
+def _all_gather(x: torch.Tensor, dim: int, group: Any, size: int
+                ) -> torch.Tensor:
+    """``x``'s blocks of ``size`` ranks of ``group`` concatenated along
+    ``dim`` in rank order."""
+    import torch.distributed as dist
+    dim %= x.ndim
+    x = x.contiguous()
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
+    _wait(dist.all_gather_into_tensor(out, x, group=group, async_op=True))
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= size
+    return out.view(size, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group: Any, size: int
+                    ) -> torch.Tensor:
+    """The sum of ``g`` over ``group``, this rank's block along ``dim``
+    (the transpose of ``_all_gather``)."""
+    import torch.distributed as dist
+    dim %= g.ndim
+    x = g.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
+    _wait(dist.reduce_scatter_tensor(out, x, group=group, async_op=True))
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def _own_block(g: torch.Tensor, dim: int, size: int, rank: int
+               ) -> torch.Tensor:
+    step = g.shape[dim] // size
+    return g.narrow(dim, rank * step, step)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity, its gradient summed over "model": the input of a
+    column-parallel layer (every model rank reads the same ``x`` and
+    gives back the gradient of its own block's product)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over "model" of each rank's partial product (the output
+    of a row-parallel layer); every rank reads the sum, so the gradient
+    passes back unchanged."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return g, None
+
+
+def copy_to_model(x: Any) -> Any:
+    """``x`` as the input of a column-parallel layer (the identity with
+    one "model" rank or no grad)."""
+    at = _TP[0]
+    if at is None or at.model_size == 1 or not torch.is_grad_enabled() \
+            or not x.requires_grad:
+        return x
+    return _CopyToModel.apply(x, at.model)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over "model" of ``x`` (the identity with one rank)."""
+    at = _TP[0]
+    if at is None or at.model_size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, at.model)
+    return _all_reduce(x, at.model)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The element-wise max over "model" of ``x``, no gradient (a
+    softmax's stabiliser)."""
+    at = _TP[0]
+    if at is None or at.model_size == 1:
+        return x
+    return _all_reduce(x.detach(), at.model, "max")
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The "model" ranks' blocks concatenated; each rank reads its own
+    part of the whole, so the gradient is summed over "model" and cut
+    to the rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, dim: int,
+                at: TPGroups) -> torch.Tensor:
+        ctx.dim, ctx.at = dim, at
+        return _all_gather(x, dim, at.model, at.model_size)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor):
+        at = ctx.at
+        return _reduce_scatter(g, ctx.dim, at.model, at.model_size), \
+            None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along ``dim``
+    (the identity with one rank); with grad, the gradient is
+    reduce-scattered back to the blocks."""
+    at = _TP[0]
+    if at is None or at.model_size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFromModel.apply(x, dim, at)
+    return _all_gather(x, dim, at.model, at.model_size)
+
+
+class Block:
+    """A param leaf of an SPMD step as this rank holds it: ``local``
+    (a plain tensor, or a PackedArray of local words), the dims its
+    spec splits over "model" and "data", and ``whole``: the model
+    computes on the leaf whole over "model" (it is gathered there)
+    rather than on its "model" block; ``part``: of a whole leaf, each
+    "model" rank reads its own part (its channels of two concatenated
+    halves), so its gradient is the rank's share of the whole one.
+    ``materialize`` makes what the model computes on; a stacked leaf's
+    ``unbind(0)`` gives one Block a cycle."""
+    __slots__ = ("local", "model_dim", "data_dim", "whole", "part")
+
+    def __init__(self, local: Any, model_dim: Optional[int],
+                 data_dim: Optional[int], whole: bool, part: bool = False):
+        self.local = local
+        self.model_dim = model_dim
+        self.data_dim = data_dim
+        self.whole = whole
+        self.part = part
+
+    def __repr__(self) -> str:
+        return (f"Block({tuple(_shape(self.local))}, model_dim="
+                f"{self.model_dim}, data_dim={self.data_dim}, "
+                f"whole={self.whole}, part={self.part})")
+
+    def _with(self, local: Any, shift: int = 0) -> "Block":
+        def dim(d):
+            return None if d is None else d - shift
+        return Block(local, dim(self.model_dim), dim(self.data_dim),
+                     self.whole, self.part)
+
+    def unbind(self, dim: int = 0) -> Tuple["Block", ...]:
+        if dim != 0 or 0 in (self.model_dim, self.data_dim):
+            raise ValueError(f"{self!r}: only an unsplit leading dim "
+                             f"unbinds")
+        if isinstance(self.local, PackedArray):
+            return tuple(self._with(self.local.with_words(w), 1)
+                         for w in self.local.words.unbind(0))
+        return tuple(self._with(t, 1) for t in self.local.unbind(0))
+
+    def detach(self) -> "Block":
+        return self._with(self.local.detach())
+
+    def requires_grad_(self, flag: bool = True) -> "Block":
+        self.local.requires_grad_(flag)
+        return self
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A float leaf's block gathered over "data" (and over "model"
+    where the model computes on it whole); the gradient taken back to
+    the block: the model slice of the (equal) whole gradient, or, where
+    each rank reads a part of it (``Block.part``), the ranks' shares
+    summed over "model" to the block (a reduce-scatter in the
+    gradient's dtype); then, in float32, summed over "data" to this
+    rank's block (a reduce-scatter) or, for a leaf the rules do not
+    split there, over the batch group, then over "pod", and divided by
+    the batch group's size."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, blk: Block,
+                at: TPGroups) -> torch.Tensor:
+        ctx.blk, ctx.at, ctx.dtype = blk, at, x.dtype
+        return _gather_tensor(x, blk, at)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor):
+        blk, at = ctx.blk, ctx.at
+        if blk.whole and blk.model_dim is not None and at.model_size > 1:
+            # the ranks' shares summed in the gradient's dtype, as a
+            # column-parallel input's gradient is (``copy_to_model``)
+            g = _reduce_scatter(g, blk.model_dim, at.model, at.model_size) \
+                if blk.part else _own_block(g, blk.model_dim, at.model_size,
+                                            at.model_rank)
+        g = g.to(torch.float32)
+        if blk.data_dim is not None and at.data_size > 1:
+            g = _reduce_scatter(g, blk.data_dim, at.data, at.data_size)
+            if at.pod_size > 1:
+                g = _all_reduce(g, at.pod)
+        elif at.batch_size > 1:
+            g = _all_reduce(g, at.batch)
+        if at.batch_size > 1:
+            g = g / at.batch_size
+        return g.to(ctx.dtype), None, None
+
+
+def _gather_tensor(x: torch.Tensor, blk: Block, at: TPGroups
+                   ) -> torch.Tensor:
+    if blk.data_dim is not None and at.data_size > 1:
+        x = _all_gather(x, blk.data_dim, at.data, at.data_size)
+    if blk.whole and blk.model_dim is not None and at.model_size > 1:
+        x = _all_gather(x, blk.model_dim, at.model, at.model_size)
+    return x
+
+
+def _gathers(blk: Block, at: TPGroups) -> bool:
+    """Whether materialising ``blk`` runs a collective (forward or
+    backward)."""
+    return at.batch_size > 1 or (at.data_size > 1
+                                 and blk.data_dim is not None) \
+        or (blk.whole and blk.model_dim is not None and at.model_size > 1)
+
+
+def materialize(tree: Any) -> Any:
+    """Every :class:`Block` leaf of ``tree`` as the tensor the model
+    computes on (other leaves as they are): gathered over "data", and
+    over "model" where it is ``whole``; a PackedArray's words likewise,
+    its length that of its "model" block where the block splits the
+    pack axis (the last block's pad bits stay outside it).  Outside an
+    SPMD step a tree has no Block."""
+    at = _TP[0]
+
+    def one(leaf: Any) -> Any:
+        if not isinstance(leaf, Block):
+            return leaf
+        x = leaf.local
+        if at is None or not _gathers(leaf, at):
+            return _packed_block(x, leaf, at)
+        if isinstance(x, PackedArray):
+            return _packed_block(
+                x.with_words(_gather_tensor(x.words, leaf, at)), leaf, at)
+        if x.is_floating_point() and x.requires_grad \
+                and torch.is_grad_enabled():
+            return _GatherLeaf.apply(x, leaf, at)
+        return _gather_tensor(x, leaf, at)
+    return _tree.map(one, tree)
+
+
+def _packed_block(x: Any, blk: Block, at: Optional[TPGroups]) -> Any:
+    """A PackedArray whose words keep their "model" block along the pack
+    axis: the block's bits as its length (the last block ends at the
+    array's length, its pad bits past it)."""
+    if not isinstance(x, PackedArray) or at is None or blk.whole \
+            or blk.model_dim is None or at.model_size == 1 \
+            or blk.model_dim - x.words.ndim != x.axis:
+        return x
+    n = x.words.shape[x.axis] * 32
+    start = at.model_rank * n
+    return PackedArray(x.words, length=max(0, min(x.length, start + n)
+                                           - start),
+                       axis=x.axis, values=x.values)
+
+
+# leaf path -> the layer rule deciding whether the model computes on its
+# "model" block (the rest is computed whole over "model"): embeddings
+# vocab-parallel, attention heads when they split (a rank's q heads must
+# read whole kv heads), the FFN / experts on d_ff, the Mamba and RG-LRU
+# channels.  Their in_proj / gate_proj write two concatenated halves
+# (x | z, r | i), whose column blocks are not a rank's channels: they
+# are gathered whole and each rank reads its channels of both halves.
+_TP_RULES: Tuple[Tuple[str, str], ...] = (
+    (r"(^|/)(embed|lm_head)$", "vocab"),
+    (r"attn/(wq|bq|wo)(_p)?(/words)?$", "q"),
+    (r"attn/(wk|wv|bk|bv)(_p)?(/words)?$", "kv"),
+    (r"(mlp|moe)/(w_gate|w_up|w_down|b_gate|b_up)(_p)?(/words)?$", "ffn"),
+    (r"(ssm|lru)/(in_proj|gate_proj)(_p)?(/words)?$", "whole"),
+    (r"(ssm|lru)/", "channels"),
+)
+
+
+def heads_split(cfg: Any, m: int) -> Tuple[bool, bool]:
+    """(q heads, kv heads) computed on "model" blocks at ``m`` model
+    ranks: q heads when they divide and a rank's q heads read whole kv
+    heads (the kv heads divide too, or one kv head serves a rank's
+    whole block); kv heads when they divide as well.  ``fit_spec`` only
+    asks that the projections' widths divide, which they do at
+    recurrentgemma's 10 heads (MQA) or whisper's 20 on 16 ranks."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if m == 1 or not hq or hq % m:
+        return False, False
+    if hkv % m == 0:
+        return True, True
+    return (hq // hkv) % (hq // m) == 0, False
+
+
+def _tp_rule(path: str) -> Optional[str]:
+    for pat, rule in _TP_RULES:
+        if re.search(pat, path):
+            return rule
+    return None
+
+
+def computes_on_block(path: str, cfg: Any, m: int) -> bool:
+    """Whether the model computes on the "model" block of the leaf at
+    ``path`` (``flatten_with_path``'s) at ``m`` model ranks, or on the
+    whole leaf (:class:`Block`'s ``whole``)."""
+    rule = _tp_rule(path)
+    if rule == "q":
+        return heads_split(cfg, m)[0]
+    if rule == "kv":
+        return heads_split(cfg, m)[1]
+    return rule not in (None, "whole")
+
+
+def _reads_part(path: str, shape: Sequence[int], m: int) -> bool:
+    """Whether each of ``m`` model ranks reads its own part of the
+    whole leaf at ``path`` of global ``shape`` (:class:`Block`'s
+    ``part``): a Mamba / RG-LRU in_proj or gate_proj whose halves' ``n``
+    channels split into the ranks' blocks (``param_specs`` then splits
+    the layer's channels over "model", ``layers.own_halves``)."""
+    return m > 1 and _tp_rule(path) == "whole" and (shape[-1] // 2) % m == 0
+
+
+def _mesh_dims(d: Any) -> Tuple[Optional[int], Optional[int]]:
+    """(the tensor dim the DTensor ``d`` is split on over "model", over
+    "data"), each None where it is not split there."""
+    from torch.distributed.tensor import Shard
+    dims = {}
+    for name, pl in zip(d.device_mesh.mesh_dim_names, d.placements):
+        if isinstance(pl, Shard):
+            dims[name] = pl.dim
+    return dims.get("model"), dims.get("data")
+
+
+def tp_blocks(params: Any, cfg: Any) -> Any:
+    """The DTensor ``params`` (placed by ``param_specs``) as a tree of
+    :class:`Block` leaves: each rank's local block (a PackedArray of
+    local words), the dims its placements split over "model" and
+    "data", and whether the model computes on it whole over "model"
+    (``computes_on_block``)."""
+    flat, treedef = _tree.flatten_with_path(params)
+    out = []
+    for path, leaf in flat:
+        packed = isinstance(leaf, PackedArray)
+        d = leaf.words if packed else leaf
+        names = tuple(d.device_mesh.mesh_dim_names)
+        m = d.device_mesh.size(names.index("model")) \
+            if "model" in names else 1
+        local = leaf.with_words(d.to_local()) if packed else d.to_local()
+        model_dim, data_dim = _mesh_dims(d)
+        out.append(Block(local, model_dim, data_dim,
+                         not computes_on_block(path, cfg, m),
+                         model_dim is not None
+                         and _reads_part(path, d.shape, m)))
+    return _tree.unflatten(treedef, out)
 
 
 # ------------------------------------------------------------------ #

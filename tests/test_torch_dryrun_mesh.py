@@ -16,11 +16,15 @@ weights on a ``DeviceMesh`` (``runtime.sharding.MeshSharding``).
 * (c) on the mesh, the scaled count (a cycle as the difference of two
   cut depths, each placed anew) equals the full count at a reduced
   depth;
-* (d) a device's dot flops times pod x data equal the one-card cell's
-  ("model" shards storage only);
+* (d) a device's dot flops times pod x data x model equal the one-card
+  cell's (tensor-parallel compute over "model"); the train step's
+  all-gather bytes are the FSDP gathers ``param_specs`` gives, none of
+  a leaf over "model" where its layer computes on blocks; the
+  collectives are priced by their operands;
 * (e) a PackedArray distributed on (2, 2) and (2, 1, 2) gloo meshes
   holds ``NamedSharding.blocks`` of its words on every rank, and
-  ``full_tensor`` gives the original words back bit for bit;
+  the words DTensor's ``full_tensor()`` gives the original words back
+  bit for bit;
 * (f) the CLI's ``--mesh both`` writes both records and exits 0;
 * (g) ``fake_world`` refuses to open over an initialised process group.
 
@@ -137,16 +141,13 @@ def _packed_report(rank):
                 w.words.shape)[me]
             want = w.words[tuple(slice(a, b) for a, b in block)]
             cut += want.numel() < w.words.numel()
-            back = shd.full_tensor(d)
+            back = d.words.full_tensor()
             same = (isinstance(d, PackedArray)
                     and (d.length, d.axis, d.values)
                     == (w.length, w.axis, w.values)
                     and torch.equal(d.words.to_local(), want)
-                    and torch.equal(shd.local_block(w, d).words, want)
-                    and isinstance(back, PackedArray)
-                    and back.words.dtype == w.words.dtype
-                    and torch.equal(back.words, w.words)
-                    and (back.length, back.axis) == (w.length, w.axis))
+                    and back.dtype == w.words.dtype
+                    and torch.equal(back, w.words))
             if not same:
                 bad.append(path)
         report[key] = dict(bad=bad, cut=cut, packed=packed)
@@ -321,15 +322,18 @@ def test_scaled_count_equals_full_count_on_the_mesh(arch, kind):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_dot_flops_are_the_batch_share(kind):
-    """A device's mm / bmm flops x pod x data equal the one-card cell's
-    at qwen's published widths (one cycle, a short sequence): the
-    model-axis ranks compute the same rows."""
+def test_dot_flops_are_the_device_share(kind):
+    """A device's mm / bmm flops x pod x data x model equal the one-card
+    cell's at qwen's published widths (one cycle, a short sequence):
+    every layer computes on its "model" block (16 heads, d_ff 2816 and
+    the vocab divide 16).  The vocab chunk is the vocab block (9496
+    rows), so that the one-card loss pads no chunk."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world
     from repro_torch.runtime import op_cost
     cfg = dryrun.cut_depth(dryrun.cell_config(ARCH, "train_4k"),
                            {"decoder": 1})
+    cfg = cfg.replace(logits_chunk=cfg.padded_vocab() // 16)
     shape = small_shape(kind, batch=32, seq=64)
 
     class Dots(op_cost.Counter):
@@ -355,7 +359,86 @@ def test_dot_flops_are_the_batch_share(kind):
         with fake_world(world):
             per_device = dots(dryrun.production_mesh(
                 "multi" if pods == 2 else "single"))
-        assert per_device * 16 * pods == one, (world, per_device, one)
+        assert per_device * 16 * 16 * pods == one, (world, per_device, one)
+
+
+def _gathered_bytes(cfg, mesh_shape, whole):
+    """The all-gather operand bytes of one train step, from
+    ``param_specs`` alone: each leaf split over "data" is gathered from
+    its block (every cycle of a stacked leaf twice, remat "full"
+    recomputing it in the backward), and a leaf of a layer in ``whole``
+    (a path pattern) split over "model" is gathered there too, from its
+    block over "model"."""
+    import re
+
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime.sharding import P, param_specs
+    rules = make_production_mesh()
+    rules.shape.update(zip(("data", "model"), mesh_shape))
+    params = M.abstract_params(cfg)
+    specs = param_specs(params, rules, ("decoder", "encoder"))
+    total = 0
+    for (path, leaf), spec in zip(
+            tree.flatten_with_path(params)[0],
+            tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))):
+        axes = [a for e in spec if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))]
+        nbytes = leaf.numel() * leaf.element_size()
+        times = 2 if path.startswith("decoder/layers") else 1
+        if "data" in axes:
+            total += times * nbytes // math.prod(
+                rules.shape[a] for a in axes)
+        if "model" in axes and re.search(whole, path):
+            total += times * nbytes // rules.shape["model"]
+    return total
+
+
+@pytest.mark.parametrize("arch,whole", [(ARCH, r"$^"),
+                                        ("falcon-mamba-7b", r"/ssm/in_proj")])
+def test_train_step_gathers_no_block_leaf_over_model(arch, whole):
+    """On a fake (2, 2) world the TP train step's all-gather operand
+    bytes are the FSDP gathers over "data" that ``param_specs`` gives,
+    plus, over "model", only the leaves computed whole (none of qwen's;
+    the Mamba block's in_proj, whose x | z halves each rank reads its
+    channels of)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.runtime import op_cost
+    cfg, shape = small_cfg(arch), small_shape("train")
+    with fake_world(4):
+        _, fn, args = dryrun.build_cell(arch, shape.name, "baseline", cfg,
+                                        shape, mesh=process_mesh((2, 2)))
+        with op_cost.Counter() as c:
+            fn(*args)
+    got = c.cost.collectives
+    assert got["all-gather"] == _gathered_bytes(cfg, (2, 2), whole)
+    assert got["reduce-scatter"] > 0 and got["all-reduce"] > 0
+
+
+def test_collectives_are_priced_by_their_operands():
+    """On meta over a fake world: an all-gather is its block's bytes,
+    a reduce-scatter its whole input's, an all-reduce (a TP sum, a max)
+    its tensor's; ``wait_tensor`` of a functional one is free."""
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.runtime import op_cost
+    from repro_torch.runtime import sharding as shd
+    with fake_world(4):
+        dm = process_mesh((2, 2))
+        g = dm.get_group("model")
+        x = torch.empty(6, 8, device="meta")
+        with op_cost.Counter() as c:
+            shd._all_gather(x, 1, g, 2)
+        assert dict(c.cost.collectives) == {"all-gather": 6 * 8 * 4}
+        with op_cost.Counter() as c:
+            out = shd._reduce_scatter(x, 1, g, 2)
+        assert tuple(out.shape) == (6, 4)
+        assert dict(c.cost.collectives) == {"reduce-scatter": 6 * 8 * 4}
+        with op_cost.Counter() as c:
+            shd._all_reduce(x, g)
+            shd._all_reduce(x, g, "max")
+        assert dict(c.cost.collectives) == {"all-reduce": 2 * 6 * 8 * 4}
 
 
 @pytest.mark.parametrize("key", list(PACKED_MESHES))

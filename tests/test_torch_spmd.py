@@ -17,9 +17,10 @@ does.
   (1, 4) and (2, 1, 2) meshes, for qwen1.5-0.5b, mixtral-8x22b and
   whisper-large-v3 reduced; a dim split over ("pod", "data") gives
   DTensor's block and ``NamedSharding.blocks``' the same.
-* Against the one-process port, at world 4: the loss within
-  ``LOSS_TOL`` and the mean-reduced grads within ``GRAD_TOL`` x max|g|
-  of ``loss_and_grads`` on the same global batch, all ten reduced
+* Against the one-process port, at world 4: the tensor-parallel step's
+  loss within ``LOSS_TOL`` and its grads (the rank's reduce-scattered
+  blocks, gathered whole) within ``GRAD_TOL`` x max|g| of
+  ``loss_and_grads`` on the same global batch, all ten reduced
   archs on (2, 2) (MoE's aux loss over the global batch) and qwen on
   (4, 1) and (1, 4); the params after one step within ``PARAM_TOL`` x
   max|p| but for counted elements (``step_close``); ``train(mesh=)``'s
@@ -133,6 +134,16 @@ def full(tree_):
             for t in tree.leaves(tree_)]
 
 
+def whole_grads(grads, like):
+    """The mesh step's gradient blocks (one a leaf, in leaf order) as
+    whole tensors: each placed as its DTensor param ``like`` and
+    gathered (every rank calls this)."""
+    from repro_torch import tree
+    from repro_torch.launch import train as T
+    return [T._from_local(g, p).full_tensor()
+            for g, p in zip(tree.leaves(grads), tree.leaves(like))]
+
+
 def psum_inputs(rank, n=1500):
     rng = np.random.default_rng(100 + rank)
     x = (rng.standard_normal(n) * 3.0).astype(np.float32)
@@ -218,16 +229,16 @@ def _steps(rank, result):
     meshes = {k: _mesh(SHAPES[k]) for k in ("2x2", "4x1", "1x4")}
     for arch, key in STEP_CASES:
         dm, cfg = meshes[key], cfg_of(arch)
-        group, size = shd.batch_group(dm)
+        groups = shd.tp_groups(dm)
         params = init(arch)
         p_shard, o_shard = T.shardings(params, dm)
         params, opt = shd.distribute((params, adamw.init(params)),
                                      (p_shard, o_shard))
         mine = rows(global_batch(cfg), *shd.batch_shard(dm))
-        loss, grads = T.mesh_loss_and_grads(params, cfg, mine, group, size)
+        loss, grads = T.mesh_loss_and_grads(params, cfg, mine, groups)
         new_p, new_o, met = T.make_mesh_train_step(cfg, opt_cfg(), dm)(
             params, opt, mine)
-        got = dict(loss=float(loss), grads=tree.leaves(grads),
+        got = dict(loss=float(loss), grads=whole_grads(grads, params),
                    params=full(new_p), m=full(new_o.m),
                    grad_norm=float(met["grad_norm"]),
                    step=int(new_o.step.full_tensor()))
@@ -366,11 +377,11 @@ def job_refstep(rank, out):
                                  (p_shard, o_shard))
     batch = {k: torch.from_numpy(v).long() for k, v in ref["batch"].items()}
     mine = rows(batch, *shd.batch_shard(dm))
-    group, size = shd.batch_group(dm)
-    loss, grads = T.mesh_loss_and_grads(params, cfg, mine, group, size)
+    loss, grads = T.mesh_loss_and_grads(params, cfg, mine,
+                                        shd.tp_groups(dm))
     new_p, _, met = T.make_mesh_train_step(cfg, opt_cfg(), dm)(
         params, opt, mine)
-    got = dict(loss=float(loss), grads=tree.leaves(grads),
+    got = dict(loss=float(loss), grads=whole_grads(grads, params),
                params=full(new_p), grad_norm=float(met["grad_norm"]))
     x, e = (torch.from_numpy(a) for a in psum_inputs(rank))
     y, err = tcomp.compressed_psum(x, e)
