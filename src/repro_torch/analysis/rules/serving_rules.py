@@ -99,8 +99,9 @@ _PROTECTED: Dict[str, "frozenset[str]"] = {
             "_timeouts",
             "_rejected",
             "_thread_restarts",
-            "_latencies",
-            "_queue_waits",
+            "_latency",
+            "_queue_wait",
+            "_host_ns",
         }
     ),
 }

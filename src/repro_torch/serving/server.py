@@ -73,10 +73,17 @@ Inputs are float ``[B, H, W, C]`` tensors for image specs or
 ``PackedArray [B, K]`` (packed on the last axis) for dense-entry specs;
 outputs keep the compiled pipeline's type (float logits or a
 PackedArray), always sliced back to the request's true row count.
+
+Host timing (``serving/spans.py``): ``stats()["host_ns"]`` counts each
+boundary a flight crosses and the ns spent inside it, ``latency_s`` and
+``queue_wait_s`` summarise cumulative histograms over every request
+since start, and ``trace_spans(True)`` records a span at each boundary
+until ``trace_spans(False)``; ``spans()`` hands them back.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -84,7 +91,6 @@ from concurrent.futures import Future
 from queue import Empty, Queue
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.graph.replay import (CaptureError, GraphedApply, kind_of,
@@ -111,6 +117,11 @@ from repro_torch.serving.errors import (
 )
 from repro_torch.serving.placement import (check_mesh, replicate,
                                            shard_batch)
+from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
+                                       DISPATCHER, ENQUEUE, LAUNCH, QUEUE,
+                                       RECOVER, RESOLVE, SYNC,
+                                       THREAD_NAMES, Histogram, HostTimes,
+                                       Span, SpanRecorder)
 
 __all__ = ["BNNServer"]
 
@@ -160,22 +171,6 @@ def _concat_rows(xs: Sequence[Any]) -> Any:
     return torch.cat(list(xs))
 
 
-def _pcts(samples: List[float]) -> Dict[str, float]:
-    """mean/p50/p95/p99/max of a non-empty pre-sorted sample list."""
-    n = len(samples)
-
-    def pct(q: float) -> float:
-        return float(samples[min(n - 1, int(q * n))])
-
-    return {
-        "mean": float(np.mean(samples)),
-        "p50": pct(0.50),
-        "p95": pct(0.95),
-        "p99": pct(0.99),
-        "max": float(samples[-1]),
-    }
-
-
 def _is_kill(e: BaseException) -> bool:
     """A chaos-injected thread kill.  robustness/chaos.py raises it as
     a BaseException precisely so the ordinary ``except Exception``
@@ -210,7 +205,12 @@ def _is_retryable(e: BaseException) -> bool:
 
 
 class _Request:
-    __slots__ = ("x", "rows", "kind", "future", "t_enqueue", "deadline")
+    """One submitted request; its times are ``perf_counter_ns``: when it
+    was submitted, when the dispatcher took it off the queue, and its
+    deadline (or None)."""
+
+    __slots__ = ("x", "rows", "kind", "future", "t_enqueue", "t_taken",
+                 "deadline")
 
     def __init__(
         self,
@@ -218,18 +218,26 @@ class _Request:
         rows: int,
         kind: Tuple,
         future: Future,
-        t_enqueue: float,
-        deadline: Optional[float] = None,
+        t_enqueue: int,
+        deadline: Optional[int] = None,
     ):
         self.x = x
         self.rows = rows
         self.kind = kind
         self.future = future
         self.t_enqueue = t_enqueue
+        self.t_taken = t_enqueue
         self.deadline = deadline
 
-    def expired(self, now: float) -> bool:
+    def expired(self, now: int) -> bool:
         return self.deadline is not None and now >= self.deadline
+
+
+def _record_queue(sp: SpanRecorder, flight: int,
+                  taken: List[_Request]) -> None:
+    """Each request's ``queue`` span: submitted -> taken."""
+    for r in taken:
+        sp.record(QUEUE, flight, r.t_enqueue, r.t_taken)
 
 
 class _Slot:
@@ -281,20 +289,22 @@ _Parts = List[Tuple[Any, Any, _Slot]]
 
 
 class _Flight:
-    """One launched-but-unresolved micro-batch: its admitted requests
-    and, for each chunk, its pieces (each output with the event its
+    """One launched-but-unresolved micro-batch: its id, its admitted
+    requests, for each chunk its pieces (each output with the event its
     slot's stream recorded after it; None on the CPU, where a piece is
-    computed at launch) and its row count."""
+    computed at launch) and its row count, and the ``perf_counter_ns``
+    at which the dispatcher began it (the watchdog's wall time)."""
 
-    __slots__ = ("reqs", "outs", "t_launch")
+    __slots__ = ("id", "reqs", "outs", "t_start")
 
     def __init__(
-        self, reqs: List[_Request], outs: List[Tuple[_Parts, int]],
-        t_launch: float,
+        self, id: int, reqs: List[_Request], outs: List[Tuple[_Parts, int]],
+        t_start: int,
     ):
+        self.id = id
         self.reqs = reqs
         self.outs = outs
-        self.t_launch = t_launch
+        self.t_start = t_start
 
 
 class BNNServer:
@@ -408,8 +418,13 @@ class BNNServer:
         self._completer_done = False
         self._launched: Queue = Queue()
         self._ahead_sem = threading.Semaphore(dispatch_ahead)
-        self._latencies: deque = deque(maxlen=2048)
-        self._queue_waits: deque = deque(maxlen=2048)
+        self._latency = Histogram()
+        self._queue_wait = Histogram()
+        self._host_ns = HostTimes()
+        # spans: recorded while _spans is the recorder (trace_spans)
+        self._recorder = SpanRecorder()
+        self._spans: Optional[SpanRecorder] = None
+        self._flight_ids = itertools.count()
         self._traffic_cache: Dict[int, int] = {}
         self._queued_rows = 0
         self._n_requests = 0
@@ -584,12 +599,15 @@ class BNNServer:
                 parts.append((out, ev, slot))
         return parts
 
-    def _launch(self, x: Any, rows: int, fallback: bool = False) -> _Parts:
+    def _launch(self, x: Any, rows: int, fallback: bool = False,
+                flight: int = -1) -> _Parts:
         """Enqueue one micro-batch at its (bucket, valid) level, a piece
         on each slot that receives rows; returns the UNRESOLVED pieces
         (together ``valid`` >= ``rows`` rows).  Degraded dispatches skip
         the graph cache: they run ``_fallback_apply()`` eagerly and
-        whole on the first slot (same bounded level set)."""
+        whole on the first slot (same bounded level set).  Timed as an
+        ``enqueue`` of ``flight``."""
+        t0 = time.perf_counter_ns()
         bucket = bucket_for(rows, self.max_batch)
         valid = ragged_valid(rows, bucket)
         hit: Optional[bool] = None
@@ -608,7 +626,9 @@ class BNNServer:
                     _slice_rows(x, lo, lo + g.batch)
                 work.append((slot, lambda g=g, p=piece: g(p), piece))
         parts = self._enqueue(work)
+        t1 = time.perf_counter_ns()
         with self._stats_lock:
+            self._host_ns.add(ENQUEUE, t1 - t0)
             for slot, _, p in work:
                 self._slot_rows[slot.index] += rows_of(p)
             if hit is True:
@@ -620,10 +640,13 @@ class BNNServer:
             self._valid_rows += valid
             self._real_rows += rows
             self._hbm_bytes += self._level_traffic(valid)
+        sp = self._spans
+        if sp is not None:
+            sp.record(ENQUEUE, flight, t0, t1)
         return parts
 
     def _launch_chunks(
-        self, x: Any, rows: int, fallback: bool = False
+        self, x: Any, rows: int, fallback: bool = False, flight: int = -1
     ) -> List[Tuple[_Parts, int]]:
         """Enqueue a payload as max_batch chunks + remainder; returns
         [(unresolved pieces, chunk rows)]."""
@@ -632,29 +655,41 @@ class BNNServer:
         off = 0
         for chunk in chunks:
             piece = x if len(chunks) == 1 else _slice_rows(x, off, off + chunk)
-            outs.append((self._launch(piece, chunk, fallback), chunk))
+            outs.append((self._launch(piece, chunk, fallback, flight), chunk))
             off += chunk
         return outs
 
-    def _finish_chunks(self, outs: List[Tuple[_Parts, int]]) -> Any:
-        """Resolve launched chunks (``event.synchronize()``), gather each
-        chunk's pieces on the first slot's device and reassemble the
-        true-row-count result.  Each piece's memory is recorded on its
-        device's default stream, where callers (and the gather) use
-        it."""
+    @staticmethod
+    def _sync(outs: List[Tuple[_Parts, int]]) -> None:
+        """Block until every piece of the launched chunks is computed
+        (``event.synchronize()``)."""
+        for parts, _ in outs:
+            for _, ev, _ in parts:
+                if ev is not None:
+                    ev.synchronize()
+
+    def _gather(self, outs: List[Tuple[_Parts, int]]) -> Any:
+        """Gather each synchronised chunk's pieces on the first slot's
+        device and reassemble the true-row-count result.  Each piece's
+        memory is recorded on its device's default stream, where callers
+        (and the gather) use it."""
         first = self._slots[0].device
         results = []
         for parts, chunk in outs:
             ys = []
             for out, ev, slot in parts:
                 if ev is not None:
-                    ev.synchronize()
                     tensor_of(out).record_stream(slot.callers)
                 ys.append(out)
             y = ys[0] if len(ys) == 1 else \
                 _concat_rows([_to(p, first) for p in ys])
             results.append(_slice_rows(y, 0, chunk))
         return results[0] if len(results) == 1 else _concat_rows(results)
+
+    def _finish_chunks(self, outs: List[Tuple[_Parts, int]]) -> Any:
+        """Resolve launched chunks: ``_sync``, then ``_gather``."""
+        self._sync(outs)
+        return self._gather(outs)
 
     def _level_traffic(self, valid: int) -> int:
         b = self._traffic_cache.get(valid)
@@ -668,12 +703,13 @@ class BNNServer:
         batch (chunked through ``max_batch`` when larger);
         bit-identical to ``compiled.apply(params, x)``."""
         rows = rows_of(x)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         out = self._finish_chunks(self._launch_chunks(x, rows))
+        t1 = time.perf_counter_ns()
         with self._stats_lock:
             self._n_requests += 1
             self._n_rows += rows
-            self._latencies.append(time.perf_counter() - t0)
+            self._latency.add(t1 - t0)
         return out
 
     # -- the continuous-batching request queue ----------------------- #
@@ -689,8 +725,8 @@ class BNNServer:
         without touching the device and its future resolves with
         RequestTimeout.  Raises ServerOverloaded (without enqueueing)
         when admission would push the queue past max_queue_rows."""
-        now = time.perf_counter()
-        deadline = None if deadline_s is None else now + deadline_s
+        now = time.perf_counter_ns()
+        deadline = None if deadline_s is None else now + int(deadline_s * 1e9)
         req = _Request(x, rows_of(x), kind_of(x), Future(), now, deadline)
         with self._qlock:
             full = (
@@ -714,30 +750,39 @@ class BNNServer:
         with self._qlock:
             return len(self._queue)
 
-    def _take_microbatch(self) -> List[_Request]:
-        """Pop a FIFO run of requests whose rows coalesce under
-        ``max_batch`` (an oversized head request comes back alone and
-        is chunked by ``_launch_chunks``).  Only same-kind payloads
-        coalesce: a request whose trailing shape/dtype differs from the
-        head's starts its own micro-batch, so one malformed request can
-        never fail its neighbors' futures."""
-        taken: List[_Request] = []
-        total = 0
-        kind = None
+    def _pop(self, taken: List[_Request]) -> Tuple[int, bool]:
+        """Move the queue's head requests onto ``taken`` while their rows
+        coalesce with it under ``max_batch`` (an oversized head request
+        comes alone and is chunked by ``_launch_chunks``), stamping each
+        with the time it was taken; returns (rows taken in all, whether
+        requests stay queued).  Only same-kind payloads coalesce: a
+        request whose trailing shape/dtype differs from the head's
+        starts its own micro-batch, so one malformed request can never
+        fail its neighbors' futures."""
+        n = len(taken)
+        total = sum(r.rows for r in taken)
         with self._qlock:
             while self._queue:
                 nxt = self._queue[0]
-                if taken and total + nxt.rows > self.max_batch:
+                if taken and (total + nxt.rows > self.max_batch
+                              or nxt.kind != taken[0].kind):
                     break
-                if taken and nxt.kind != kind:
-                    break
-                if not taken:
-                    kind = nxt.kind
                 taken.append(self._queue.popleft())
                 self._queued_rows -= nxt.rows
                 total += nxt.rows
                 if total >= self.max_batch:
                     break
+            backlog = bool(self._queue)
+        if len(taken) > n:
+            now = time.perf_counter_ns()
+            for r in taken[n:]:
+                r.t_taken = now
+        return total, backlog
+
+    def _take_microbatch(self) -> List[_Request]:
+        """Pop a FIFO run of requests whose rows coalesce (``_pop``)."""
+        taken: List[_Request] = []
+        self._pop(taken)
         return taken
 
     def _admit(self) -> List[_Request]:
@@ -758,37 +803,21 @@ class BNNServer:
         open, for at most ``admit_window_s`` — time that is fully
         overlapped with device compute."""
         taken: List[_Request] = []
-        total = 0
-        kind = None
-        deadline: Optional[float] = None
+        deadline: Optional[int] = None
         while not self._stop.is_set():
             self._chaos_kill("dispatcher")
-            with self._qlock:
-                while self._queue:
-                    nxt = self._queue[0]
-                    if taken and total + nxt.rows > self.max_batch:
-                        break
-                    if taken and nxt.kind != kind:
-                        break
-                    if not taken:
-                        kind = nxt.kind
-                    taken.append(self._queue.popleft())
-                    self._queued_rows -= nxt.rows
-                    total += nxt.rows
-                    if total >= self.max_batch:
-                        break
-                backlog = bool(self._queue)
+            total, backlog = self._pop(taken)
             if taken and (total >= self.max_batch or backlog):
                 break
             if taken:
                 if self._inflight() == 0:
                     break
-                now = time.perf_counter()
+                now = time.perf_counter_ns()
                 if deadline is None:
-                    deadline = now + self.admit_window_s
+                    deadline = now + int(self.admit_window_s * 1e9)
                 if now >= deadline:
                     break
-                timeout = min(deadline - now, 0.0005)
+                timeout = min(deadline - now, 500_000) / 1e9
             else:
                 timeout = 0.05
             self._wake.wait(timeout=timeout)
@@ -808,11 +837,11 @@ class BNNServer:
         """Resolve requests whose deadline already passed with
         RequestTimeout — BEFORE any device work — and return the
         still-live remainder."""
-        now = time.perf_counter()
+        now = time.perf_counter_ns()
         live: List[_Request] = []
         for r in reqs:
             if r.expired(now):
-                late = now - r.deadline
+                late = (now - r.deadline) / 1e9
                 r.future.set_exception(
                     RequestTimeout(f"deadline expired {late:.3f}s before launch")
                 )
@@ -822,7 +851,8 @@ class BNNServer:
                 live.append(r)
         return live
 
-    def _execute(self, reqs: List[_Request], fallback: bool = False) -> Any:
+    def _execute(self, reqs: List[_Request], fallback: bool = False,
+                 flight: int = -1) -> Any:
         """Synchronously run one coalesced flight end to end (launch +
         block) and return the concatenated result — the re-execution
         primitive the recovery ladder is built from.  Safe to call
@@ -832,11 +862,11 @@ class BNNServer:
         self._chaos_flight(reqs, fallback)
         x = _concat_rows([r.x for r in reqs])
         rows = sum(r.rows for r in reqs)
-        outs = self._launch_chunks(x, rows, fallback=fallback)
+        outs = self._launch_chunks(x, rows, fallback, flight)
         return self._finish_chunks(outs)
 
     def _recover(
-        self, reqs: List[_Request], exc: BaseException, top: bool = True
+        self, reqs: List[_Request], exc: BaseException, flight: int
     ) -> None:
         """The recovery ladder for a failed flight: degraded step ->
         bounded retry with backoff -> bisection -> typed singleton
@@ -865,19 +895,29 @@ class BNNServer:
           landing on a half mid-bisection still takes the degraded
           step instead of failing healthy requests.
 
-        ``top`` marks the outermost call (one per failed flight) for
-        the fault counter; recursion runs with top=False.
+        Counted once a failed flight and timed as its ``recover`` span.
         """
-        if top:
-            with self._stats_lock:
-                self._flight_faults += 1
+        t0 = time.perf_counter_ns()
+        with self._stats_lock:
+            self._flight_faults += 1
+        try:
+            self._climb(reqs, exc, flight)
+        finally:
+            sp = self._spans
+            if sp is not None:
+                sp.record(RECOVER, flight, t0, time.perf_counter_ns())
+
+    def _climb(self, reqs: List[_Request], exc: BaseException,
+               flight: int) -> None:
+        """One climb of the ladder (``_recover``) over ``reqs``; each
+        half of a bisection climbs it again."""
         if isinstance(exc, CaptureError):
             for r in reqs:
                 r.future.set_exception(exc)
             return
         if self.fallback_backend is not None and _is_backend_fault(exc):
             try:
-                out = self._execute(reqs, fallback=True)
+                out = self._execute(reqs, True, flight)
             except Exception as e:
                 exc = e
             else:
@@ -891,7 +931,7 @@ class BNNServer:
                 with self._stats_lock:
                     self._retries += 1
                 try:
-                    out = self._execute(reqs)
+                    out = self._execute(reqs, flight=flight)
                 except Exception as e:
                     exc = e
                 else:
@@ -903,9 +943,9 @@ class BNNServer:
             mid = len(reqs) // 2
             for half in (reqs[:mid], reqs[mid:]):
                 try:
-                    out = self._execute(half)
+                    out = self._execute(half, flight=flight)
                 except Exception as e:
-                    self._recover(half, e, top=False)
+                    self._climb(half, e, flight)
                 else:
                     self._resolve(half, out)
             return
@@ -935,33 +975,54 @@ class BNNServer:
         computation without waiting (dispatch-ahead): the completer
         thread blocks on results in launch order while this thread
         returns to admission for the next batch.  The dispatch-ahead
-        semaphore bounds launched-but-unresolved flights.  A launch
-        failure runs the recovery ladder here, synchronously — rare by
-        construction, and recovery must not race admission."""
+        semaphore bounds launched-but-unresolved flights; the rows are
+        concatenated before a slot is asked for, so the join overlaps
+        the wait.  A launch failure runs the recovery ladder here,
+        synchronously — rare by construction, and recovery must not race
+        admission.  Timed as the flight's ``admit`` (its first request
+        taken to this call), ``concat``, ``ahead_wait`` and ``launch``;
+        each request's queue wait ends where ``launch`` starts."""
+        t_decided = time.perf_counter_ns()
+        t_admit = taken[0].t_taken
         taken = self._shed_expired(taken)
         if not taken:
             return
+        flight = next(self._flight_ids)
         acquired = False
-        t_launch = time.perf_counter()
         try:
             self._chaos_flight(taken, False)
+            t_concat = time.perf_counter_ns()
             x = _concat_rows([r.x for r in taken])
             rows = sum(r.rows for r in taken)
+            t_wait = time.perf_counter_ns()
             self._ahead_sem.acquire()
             acquired = True
-            outs = self._launch_chunks(x, rows)
+            t_launch = time.perf_counter_ns()
+            outs = self._launch_chunks(x, rows, flight=flight)
         except Exception as e:
             if acquired:
                 self._ahead_sem.release()
-            self._recover(taken, e)
-            self._observe_wall(time.perf_counter() - t_launch)
+            self._recover(taken, e, flight)
+            self._observe_wall((time.perf_counter_ns() - t_decided) / 1e9)
             return
+        t_end = time.perf_counter_ns()
         with self._stats_lock:
             self._inflight_n += 1
             self._inflight_peak = max(self._inflight_peak, self._inflight_n)
+            self._host_ns.add(ADMIT, t_decided - t_admit)
+            self._host_ns.add(CONCAT, t_wait - t_concat)
+            self._host_ns.add(AHEAD_WAIT, t_launch - t_wait)
+            self._host_ns.add(LAUNCH, t_end - t_launch)
             for r in taken:
-                self._queue_waits.append(t_launch - r.t_enqueue)
-        self._launched.put(_Flight(taken, outs, t_launch))
+                self._queue_wait.add(t_launch - r.t_enqueue)
+        sp = self._spans
+        if sp is not None:
+            _record_queue(sp, flight, taken)
+            sp.record(ADMIT, flight, t_admit, t_decided)
+            sp.record(CONCAT, flight, t_concat, t_wait)
+            sp.record(AHEAD_WAIT, flight, t_wait, t_launch)
+            sp.record(LAUNCH, flight, t_launch, t_end)
+        self._launched.put(_Flight(flight, taken, outs, t_decided))
 
     def _serve_one(self, taken: List[_Request]) -> None:
         """Run one coalesced micro-batch synchronously and resolve its
@@ -970,29 +1031,36 @@ class BNNServer:
         taken = self._shed_expired(taken)
         if not taken:
             return
-        t_start = time.perf_counter()
+        flight = next(self._flight_ids)
+        t_start = time.perf_counter_ns()
         with self._stats_lock:
             for r in taken:
-                self._queue_waits.append(t_start - r.t_enqueue)
+                self._queue_wait.add(t_start - r.t_enqueue)
+        sp = self._spans
+        if sp is not None:
+            _record_queue(sp, flight, taken)
         try:
-            out = self._execute(taken)
+            out = self._execute(taken, flight=flight)
         except Exception as e:
-            self._recover(taken, e)
+            self._recover(taken, e, flight)
         else:
             self._resolve(taken, out)
-        self._observe_wall(time.perf_counter() - t_start)
+        self._observe_wall((time.perf_counter_ns() - t_start) / 1e9)
 
     def _resolve(self, taken: List[_Request], out: Any) -> None:
-        """Slice a completed micro-batch result back to its requests."""
-        t_done = time.perf_counter()
+        """Slice a completed micro-batch result back to its requests,
+        counted first; ``set_result`` runs each caller's done-callbacks
+        here, on this thread."""
+        t_done = time.perf_counter_ns()
+        with self._stats_lock:
+            self._n_requests += len(taken)
+            for r in taken:
+                self._n_rows += r.rows
+                self._latency.add(t_done - r.t_enqueue)
         off = 0
         for r in taken:
             r.future.set_result(_slice_rows(out, off, off + r.rows))
             off += r.rows
-            with self._stats_lock:
-                self._n_requests += 1
-                self._n_rows += r.rows
-                self._latencies.append(t_done - r.t_enqueue)
 
     def flush(self) -> int:
         """Drain the queue synchronously; returns micro-batches run.
@@ -1019,13 +1087,22 @@ class BNNServer:
         self._completer_done = False
         self._launched = Queue()
         self._ahead_sem = threading.Semaphore(self.dispatch_ahead)
-        self._completer = threading.Thread(target=self._complete_loop, daemon=True)
-        self._worker = threading.Thread(target=self._dispatch_loop, daemon=True)
-        self._supervisor = threading.Thread(target=self._supervise_loop, daemon=True)
+        self._completer = self._thread(COMPLETER)
+        self._worker = self._thread(DISPATCHER)
+        self._supervisor = threading.Thread(target=self._supervise_loop,
+                                            name="BNNServer-supervisor",
+                                            daemon=True)
         self._completer.start()
         self._worker.start()
         self._supervisor.start()
         return self
+
+    def _thread(self, role: str) -> threading.Thread:
+        """A new (not started) dispatcher or completer loop thread, named
+        for its role (``spans.THREAD_NAMES``)."""
+        loop = self._dispatch_loop if role == DISPATCHER else self._complete_loop
+        return threading.Thread(target=loop, name=THREAD_NAMES[role],
+                                daemon=True)
 
     def _dispatch_loop(self) -> None:
         while not self._stop.is_set():
@@ -1066,19 +1143,33 @@ class BNNServer:
 
     def _complete_one(self, fl: _Flight) -> None:
         """Resolve one launched flight (failures climb the recovery
-        ladder); ALWAYS releases its dispatch-ahead slot."""
+        ladder); ALWAYS releases its dispatch-ahead slot.  Timed as its
+        ``sync`` and ``resolve``."""
+        t_sync = time.perf_counter_ns()
+        t_synced = None
         try:
             try:
-                out = self._finish_chunks(fl.outs)
+                self._sync(fl.outs)
+                t_synced = time.perf_counter_ns()
+                out = self._gather(fl.outs)
             except Exception as e:
-                self._recover(fl.reqs, e)
+                self._recover(fl.reqs, e, fl.id)
             else:
                 self._resolve(fl.reqs, out)
         finally:
-            self._observe_wall(time.perf_counter() - fl.t_launch)
+            wall = (time.perf_counter_ns() - fl.t_start) / 1e9
             with self._stats_lock:
+                self._watchdog.observe(wall)
+                t_end = time.perf_counter_ns()
                 self._inflight_n -= 1
+                if t_synced is not None:
+                    self._host_ns.add(SYNC, t_synced - t_sync)
+                    self._host_ns.add(RESOLVE, t_end - t_synced)
             self._ahead_sem.release()
+            sp = self._spans
+            if sp is not None and t_synced is not None:
+                sp.record(SYNC, fl.id, t_sync, t_synced)
+                sp.record(RESOLVE, fl.id, t_synced, t_end)
 
     def _supervise_loop(self) -> None:
         """Thread watchdog: a dispatcher or completer that died without
@@ -1090,13 +1181,13 @@ class BNNServer:
             w, c = self._worker, self._completer
             if w is not None and not w.is_alive() and not self._dispatcher_exited:
                 # started before it is published: stop() may join it
-                t = threading.Thread(target=self._dispatch_loop, daemon=True)
+                t = self._thread(DISPATCHER)
                 t.start()
                 self._worker = t
                 with self._stats_lock:
                     self._thread_restarts += 1
             if c is not None and not c.is_alive() and not self._completer_done:
-                t = threading.Thread(target=self._complete_loop, daemon=True)
+                t = self._thread(COMPLETER)
                 t.start()
                 self._completer = t
                 with self._stats_lock:
@@ -1142,6 +1233,19 @@ class BNNServer:
         self.flush()  # anything submitted after the drain began
 
     # -- observability ----------------------------------------------- #
+    def trace_spans(self, on: bool = True) -> None:
+        """Record a span at every boundary a flight crosses from now on
+        (``on``), or stop recording; what was kept stays for ``spans()``
+        (at most ``spans.SPAN_CAP`` a thread between two calls, the rest
+        counted as dropped)."""
+        self._spans = self._recorder if on else None
+
+    def spans(self) -> Tuple[List[Span], int]:
+        """The spans kept since the last call, by start, and how many
+        were dropped past the cap; they are cleared (``serving/spans.py``
+        says what each span is)."""
+        return self._recorder.drain()
+
     def health(self) -> Dict[str, Any]:
         """Readiness probe: thread liveness, queue pressure, restart
         count.  ``healthy`` is True when the server can make progress —
@@ -1176,11 +1280,16 @@ class BNNServer:
         row totals, dispatch and bucket-reuse counts, jit trace count
         vs the policy bound, padded-vs-valid-vs-real occupancy, HBM
         bytes/request from the compiled traffic model, the in-flight
-        gauge, queue-wait / end-to-end latency percentiles, the
-        fault-recovery counters, and the straggler watchdog flags."""
+        gauge, the host ns of each boundary a flight crosses
+        (``host_ns``), queue-wait / end-to-end latency over every
+        request since start (mean, max, count and ns sum exact; the
+        percentiles bucket estimates within a few percent,
+        ``spans.Histogram``), the fault-recovery counters, and the
+        straggler watchdog flags."""
         with self._stats_lock:  # snapshot: writers hold the same locks
-            lat = sorted(self._latencies)
-            waits = sorted(self._queue_waits)
+            lat = self._latency.copy()
+            waits = self._queue_wait.copy()
+            host_ns = self._host_ns.snapshot()
             requests, rows = self._n_requests, self._n_rows
             batches = self._n_batches
             hits, misses = self._bucket_hits, self._bucket_misses
@@ -1227,9 +1336,10 @@ class BNNServer:
             "faults": faults,
             "straggler_flags": straggler_flags,
             "straggler_median_s": straggler_median,
+            "host_ns": host_ns,
         }
-        if lat:
-            stats["latency_s"] = _pcts(lat)
-        if waits:
-            stats["queue_wait_s"] = _pcts(waits)
+        if lat.count:
+            stats["latency_s"] = lat.summary()
+        if waits.count:
+            stats["queue_wait_s"] = waits.summary()
         return stats

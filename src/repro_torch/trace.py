@@ -16,6 +16,12 @@ bound).  Needs a CUDA device; each line names the card and its power
 limit (``nvidia-smi``), and the results also go to
 ``trace_<model>.json`` (``trace_<model>_graphed.json``) in the output
 directory (see ``main``).
+
+For a running ``BNNServer`` traced from outside: ``clock_anchor`` maps
+its spans (``serving/spans.py``, on ``perf_counter_ns``) onto the
+profiler's clock, ``idle_gaps`` finds a session's device idle gaps, and
+``label_gaps`` labels each idle ns by the dispatcher's or the
+completer's span.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import json
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -32,6 +38,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import graph
 from repro_torch.core.workloads import WORKLOADS, Workload
 from repro_torch.graph.replay import GraphedApply
+from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
+                                       DISPATCHER, LAUNCH, RECOVER, RESOLVE,
+                                       SYNC, Span)
 
 # kernel-name fragment -> group: the port's five kernels by symbol, then
 # the float entry convs (the kernels cuDNN chose, with its layout
@@ -135,6 +144,75 @@ def device_times(fn: Callable[[], object], iters: int = 2
     out: Dict[str, float] = {}
     for e in device_events(fn, iters)[0]:
         out[e.key] = out.get(e.key, 0.0) + _device_us(e) / iters
+    return out
+
+
+def clock_anchor() -> Tuple[int, int]:
+    """A ``(time.perf_counter_ns(), time.time_ns())`` pair read at one
+    instant, the tightest of 16 reads: the profiler's events
+    are on the Unix-epoch clock, a server's spans on ``perf_counter_ns``,
+    and ``time_ns - perf_counter_ns`` maps the second onto the first."""
+    best = None
+    for _ in range(16):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, wall)
+    return best[1], best[2]
+
+
+def idle_gaps(events: Iterable) -> List[Tuple[int, int]]:
+    """The ``(start, end)`` ns, on the profiler's clock, of every gap
+    between the busy intervals of a session's device events (kernels,
+    copies, sets: ``prof.profiler.kineto_results.events()``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    iv = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events
+                if e.device_type() == cuda and e.duration_ns() > 0)
+    gaps: List[Tuple[int, int]] = []
+    if not iv:
+        return gaps
+    end = iv[0][1]
+    for s, e in iv[1:]:
+        if s > end:
+            gaps.append((end, s))
+        end = max(end, e)
+    return gaps
+
+
+# a thread's outermost spans, which label an idle ns (the rest is "none")
+LABELS = {DISPATCHER: (LAUNCH, AHEAD_WAIT, CONCAT, ADMIT, RECOVER),
+          COMPLETER: (SYNC, RESOLVE, RECOVER)}
+
+
+def label_gaps(gaps: Iterable[Tuple[int, int]], spans: Sequence[Span],
+               offset_ns: int, role: str = DISPATCHER) -> Dict[str, int]:
+    """Every ns of the ``gaps`` (``(start, end)`` on another clock, such
+    as the device trace's) labelled by the span of ``LABELS[role]`` that
+    thread was in at that instant, or ``"none"``; a span's times map
+    onto the gaps' clock by ``+ offset_ns``.  The labels sum to the
+    gaps' length (these spans of one thread do not overlap, but for a
+    ``recover`` inside a completer's ``resolve``, whose ns the
+    ``resolve`` keeps)."""
+    names = LABELS[role]
+    iv = sorted((s.t0_ns + offset_ns, s.t1_ns + offset_ns, s.name)
+                for s in spans if s.role == role and s.name in names)
+    out = dict.fromkeys(names + ("none",), 0)
+    i = 0
+    for g0, g1 in sorted(gaps):
+        while i < len(iv) and iv[i][1] <= g0:
+            i += 1
+        cur, j = g0, i
+        while j < len(iv) and iv[j][0] < g1 and cur < g1:
+            s0, s1, name = iv[j]
+            lo, hi = max(cur, s0), min(g1, s1)
+            if hi > lo:
+                out["none"] += lo - cur
+                out[name] += hi - lo
+                cur = hi
+            j += 1
+        out["none"] += g1 - cur
     return out
 
 

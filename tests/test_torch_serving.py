@@ -203,14 +203,15 @@ def test_apply_batch_equals_reference_server(backend):
 
 
 def _counters(st):
-    """stats() without its timings, and without ``jit_traces``: the
-    reference reads that from jax's jit cache, which may key one level
-    twice (a numpy and a jax array of the same shape); the port's
-    graphs are held against the reference's own set of dispatched
-    levels instead (``_same_levels``)."""
+    """stats() without its timings (``host_ns`` is the port's alone),
+    and without ``jit_traces``: the reference reads that from jax's jit
+    cache, which may key one level twice (a numpy and a jax array of
+    the same shape); the port's graphs are held against the reference's
+    own set of dispatched levels instead (``_same_levels``)."""
     return {k: v for k, v in st.items()
-            if k not in ("latency_s", "queue_wait_s", "straggler_flags",
-                         "straggler_median_s", "jit_traces")}
+            if k not in ("latency_s", "queue_wait_s", "host_ns",
+                         "straggler_flags", "straggler_median_s",
+                         "jit_traces")}
 
 
 def _same_levels(tsrv, jsrv):
