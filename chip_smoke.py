@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi``), torch and CUDA versions, and builds
-   the five Hopper kernels from ``src/repro_torch/kernels/csrc`` with
+   the six Hopper kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together (timed);
 2. holds each kernel — pack, packed_conv2d, fused_binary_mlp,
-   popcount_gemm, xnor_gemm — against its plain torch version on the
+   popcount_gemm, xnor_gemm, entry_conv — against its plain torch
+   version on the
    card at the main paths' shapes and at edge shapes (odd N and F,
    valid_n masking, scalar and per-channel thresholds, pack_out on and
    off, stride 2, valid padding, ragged K, float32 and bf16), and times
@@ -58,7 +59,15 @@
    many of the six shapes the plan got fastest is printed, and every
    kernel variant in its library must hold BMMAs (cuobjdump).  Its
    ``kernels`` entry is BinaryNet fc1+fc2 at batch 256, as in earlier
-   slices.  Before the phases, the
+   slices.  entry_conv (BinaryNet's conv1 with its signs packed in the
+   epilogue, float32 FMAs) is held bit for bit against its plain
+   version (cuDNN's conv, then the pack) on 8-bit integer pixels at
+   BinaryNet's conv1 at batches 1, 7, 256 and 2048 and on edge shapes
+   (K 3 to 7, stride 2, C 1 to 16, F 32 to 256, pad 0, a zero alpha,
+   exact zero weights), and timed at batches 256 and 2048 beside its
+   FMA bound, its plain version and the two steps it replaces on the
+   card (``library_ms``: cuDNN's conv and the pack kernel, device
+   time).  Before the phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -66,8 +75,9 @@
    equal the ``"torch"`` backend's on the card exactly (and, at batch 1,
    the CPU's, with the head split off at binarize@conv2 returning the
    CPU's alpha-scaled activations), each forward must launch exactly 1
-   pack, 5 packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm, and no
-   elementwise multiply (conv1's alpha is taken in the pack's load);
+   entry_conv, 5 packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm,
+   and no pack and no elementwise multiply (conv1's alpha is taken in
+   entry_conv's epilogue);
 4. runs full-width XNOR-AlexNet the same way at batches 1, 32 and 256:
    6 launches per forward (1 pack, 3 packed_conv2d, fc6+fc7 in one
    fused_binary_mlp, 1 popcount_gemm), conv1's and conv2's alpha
@@ -112,8 +122,9 @@
    resumed must equal the uninterrupted one bit for bit (losses and
    params, bn, opt); the trained state is folded, exported and compiled
    for the ``"cuda"`` backend: ``check_sign_identity`` on 256 held-out
-   rows must give exactly the eval forward's logits with 1 pack, 5
-   packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm launch, and
+   rows must give exactly the eval forward's logits with 2 entry_conv
+   (the eval forward's conv1 runs it too), 5 packed_conv2d, 1
+   fused_binary_mlp and 1 popcount_gemm launch, and
    ``BNNServer(max_batch=256)`` the same logits; then 20 steps at batch
    256 are timed after 3 warm-ups (ms per step, images/s, peak memory),
    two steps' device time is split by torch.profiler (cuDNN convs,
@@ -210,7 +221,7 @@
    planted int32 output (conv2's ``pack_out`` forced off) fails it;
 14. runs the example twins and the dry-run: (a) the ``main`` of
    ``examples/torch_quickstart.py`` on the card (its six sections; its
-   compiled BinaryNet's forward must launch exactly 1 pack, 5
+   compiled BinaryNet's forward must launch exactly 1 entry_conv, 5
    packed_conv2d, 1 fused_binary_mlp and 1 popcount_gemm, by the
    counts and by the profiler (asked again, up to 3 times, where it
    shows fewer), its server take no fallback), of
@@ -1282,10 +1293,77 @@ def check_xnor(rnd, rec):
                     shapes=shapes))
 
 
+# entry_conv's shapes beside BinaryNet's conv1 (N, H=W, C, F, K, stride,
+# padding): K 5 and 7, stride 2, C 1, 4 and 16, F 32, 96 and 256, VALID
+ENTRY_EDGES = [(3, 13, 1, 32, 5, 2, 0), (2, 13, 4, 256, 3, 2, "same"),
+               (2, 9, 3, 96, 3, 1, 1), (2, 40, 6, 64, 7, 2, 3),
+               (2, 20, 16, 160, 3, 1, 1), (2, 200, 3, 64, 3, 1, 1)]
+ENTRY_BATCHES = (1, 7, 256, 2048)        # BinaryNet's conv1
+ENTRY_TIMED = (BATCH, 2048)              # timed there
+
+
+def entry_operands(rnd, n, h, c, f, k):
+    """8-bit integer pixels (float32 sums exact in any order), normal
+    latent weights with exact zeros, alpha = mean|w| with a zero
+    channel."""
+    x = rnd.ints(0, 256, n, h, h, c).to(torch.float32)
+    w = rnd.normal(k, k, c, f)
+    w[0, 0, 0, :3] = 0.0
+    alpha = w.abs().mean(dim=(0, 1, 2))
+    alpha[5] = 0.0
+    return x, w, alpha
+
+
+def check_entry_conv(rnd, rec):
+    from repro_torch.kernels.entry_conv import (entry_conv,
+                                                entry_conv_plain,
+                                                sign_weight_conv)
+    from repro_torch.kernels.pack import pack
+    err = 0
+    shapes = [(n, 32, 3, 128, 3, 1, 1) for n in ENTRY_BATCHES] + \
+        ENTRY_EDGES
+    for n, h, c, f, k, s, pad in shapes:
+        x, w, alpha = entry_operands(rnd, n, h, c, f, k)
+        err = max(err, check_equal(
+            f"entry_conv [{n}, {h}, {h}, {c}] k{k} s{s} p{pad} F={f}",
+            entry_conv(x, w, alpha, s, pad),
+            entry_conv_plain(x, w, alpha, s, pad)))
+    rows = []
+    for n in ENTRY_TIMED:
+        x, w, alpha = entry_operands(rnd, n, 32, 3, 128, 3)
+
+        def two_steps():
+            y = sign_weight_conv(x, w, 1, 1)
+            return pack(y.reshape(-1, 128), alpha)
+        ms = kernel_ms(lambda: entry_conv(x, w, alpha, 1, 1),
+                       "entry_convolve_bits_kernel")
+        # the two steps' device time: every kernel of the call
+        lib = kernel_ms(two_steps, "")
+        plain = time_ms(lambda: entry_conv_plain(x, w, alpha, 1, 1), 3)
+        nbytes = 4 * (n * 32 * 32 * 3 + n * 32 * 32 * 4 + 27 * 128 + 128)
+        b, by = bound(nbytes, 2 * n * 32 * 32 * 128 * 27, FP32_OPS)
+        rows.append(dict(batch=n, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b, bound_by=by,
+                         ns_per_image=ms * 1e6 / n))
+        print(f"entry_conv BinaryNet conv1 B={n}: kernel_ms={ms:.4f} "
+              f"({ms * 1e6 / n:.1f} ns an image) plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} (cuDNN conv + pack kernel) "
+              f"bound_ms={b:.5f} ({by}); {b / ms:.3f} of the bound")
+    main = rows[0]
+    rec.append(dict(name="entry_conv", route="cuda",
+                    source="src/repro_torch/kernels/csrc/entry_conv.cu",
+                    replaces="none (the JAX package leaves conv1 to XLA)",
+                    max_abs_err=err, ms=main["ms"],
+                    plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shapes=rows))
+
+
 # ------------------------------------------------------------------ #
 # the main paths                                                       #
 # ------------------------------------------------------------------ #
-BINARYNET_PER_FORWARD = {"pack": 1, "packed_conv2d": 5,
+# conv1 packs its signs in entry_conv's epilogue: no pack launch
+BINARYNET_PER_FORWARD = {"entry_conv": 1, "packed_conv2d": 5,
                          "fused_binary_mlp": 1, "popcount_gemm": 1}
 # fc6+fc7 fused in one launch, fc8 the popcount head
 ALEXNET_PER_FORWARD = {"pack": 1, "packed_conv2d": 3, "fused_binary_mlp": 1,
@@ -1529,7 +1607,7 @@ def port_kernels(fn):
     the call did not change that).  ``PROFILER_PAD`` one-element torch
     adds launched ahead of ``fn`` in each session take that loss; only
     the port's kernels are counted."""
-    from repro_torch.trace import GROUPS, device_kernels
+    from repro_torch.trace import PORT_GROUPS, device_kernels
     pad = torch.zeros(1, device=DEVICE)
 
     def padded():
@@ -1539,7 +1617,7 @@ def port_kernels(fn):
 
     seen = {}
     for name, count in device_kernels(padded).items():
-        for frag, group in GROUPS[:5]:
+        for frag, group in PORT_GROUPS:
             if frag in name:
                 seen[group] = seen.get(group, 0) + count
                 break
@@ -2059,7 +2137,10 @@ def train_path(launches):
                                       sparams=sparams)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    expect_launches("the exported forward", counts, BINARYNET_PER_FORWARD)
+    # the eval forward runs conv1 through the same entry_conv op as the
+    # served one (train.models), so that its signs are the served ones
+    sign_launches = {**BINARYNET_PER_FORWARD, "entry_conv": 2}
+    expect_launches("the exported forward", counts, sign_launches)
     with torch.no_grad():
         eval_logits, _ = train.train_forward(spec, params, bn, x,
                                              train=False)
@@ -2074,7 +2155,8 @@ def train_path(launches):
         raise AssertionError("BNNServer's logits differ from the eval "
                              "forward's")
     print(f"export -> compile -> serve on the card: check_sign_identity "
-          f"{stats} with {BINARYNET_PER_FORWARD} launches; "
+          f"{stats} with {sign_launches} launches (the eval forward's "
+          f"entry_conv included); "
           f"BNNServer(max_batch={SIGN_ROWS}).apply_batch equal to the "
           f"eval logits; launches with the server's {counts}")
 
@@ -2192,7 +2274,7 @@ SIM_DOT = "_exact_dot products (cuBLAS, float32)"
 SIM_REST = "the rest (entry convs, patches, pools, casts, copies)"
 SIM_GROUPS = (*((f, SIM_ORACLE) for f in (
     "pack_kernel", "packed_conv_kernel", "fused_mlp_kernel",
-    "popcount_gemm_kernel")),
+    "popcount_gemm_kernel", "entry_convolve_bits_kernel")),
     *((f, SIM_REST) for f in ("convolve", "cudnn", "fft", "fprop",
                               "flip_filter", "nchwToNhwc", "nhwcToNchw")),
     *((f, SIM_DOT) for f in ("gemm", "gemv", "splitKreduce")))
@@ -4792,7 +4874,7 @@ def main():
     rec = []
     rnd = Rand(1234, DEVICE)
     for phase in (check_pack, check_conv, check_fused, check_gemm,
-                  check_xnor):
+                  check_xnor, check_entry_conv):
         phase(rnd, rec)
         torch.cuda.synchronize()
         r = rec[-1]

@@ -164,9 +164,12 @@ def expected_launches(compiled: Any, batch: int) -> Dict[str, int]:
 
     def add(name, n=1):
         want[name] = want.get(name, 0) + n
-    for step in compiled.plan:
-        if step.kind == "binarize":
-            add("pack")
+    for i, step in enumerate(compiled.plan):
+        if compiled._entry_packs(i):
+            add("entry_conv")
+        elif step.kind == "binarize":
+            if not (i > 0 and compiled._entry_packs(i - 1)):
+                add("pack")
         elif step.kind == "binary_conv":
             add("packed_conv2d" if step.args["impl"] == "direct"
                 else "popcount_gemm")

@@ -108,6 +108,9 @@ def _check_manual_pack(module: Module, run: LintRun) -> Iterable[Tuple[int, str]
 _SIGN_SITES = {
     "kernels/packed.py": (ast.Gt,),
     "kernels/ref.py": (ast.Gt, ast.GtE),
+    # the float entry conv's weight sign `w > 0` (sign_weight_conv, the
+    # plain version of the entry_conv kernel, which signs as it does)
+    "kernels/entry_conv.py": (ast.Gt,),
     "core/binarize.py": (ast.Gt, ast.GtE),
     "core/bnn_layers.py": (ast.Gt, ast.GtE),
     "core/threshold.py": (ast.Gt, ast.GtE),

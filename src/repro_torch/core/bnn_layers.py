@@ -19,13 +19,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.binarize import (binarize_weights, ste_sign,
                                        xnor_popcount_dot)
-from repro_torch.kernels.ops import binary_conv2d, conv_padding
+from repro_torch.kernels.entry_conv import sign_weight_conv
+from repro_torch.kernels.ops import binary_conv2d
 from repro_torch.kernels.packed import WORD, PackedArray
-from repro_torch.kernels.ref import full_fp32
 
 __all__ = ["FoldedThreshold", "apply_folded", "binary_conv",
            "binary_weight_conv", "bn_reference", "bnn_dense_serve_folded",
@@ -226,23 +225,6 @@ def binary_conv(xp: PackedArray, wf: PackedArray,
     return binary_conv2d(xp, wf, stride=stride, padding=padding,
                          threshold=thr, pack_out=pack_out,
                          backend=backend, impl=impl)
-
-
-def sign_weight_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-                     padding="same") -> torch.Tensor:
-    """The first-layer conv before its alpha: real-valued NHWC input
-    against sign(w), w [KH, KW, C, F], real zero padding.  Plain XLA in
-    the reference, so cuDNN computes it here, in full float32 (TF32 off).
-    Returns float32 [N, HO, WO, F] (an NHWC view of cuDNN's output,
-    which follows the channels-last input)."""
-    kh, kw = w.shape[0], w.shape[1]
-    pad_h, pad_w = conv_padding(padding, kh, kw)
-    wb = torch.where(w > 0, 1.0, -1.0).to(torch.float32)
-    with full_fp32():
-        y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2),
-                     wb.permute(3, 2, 0, 1), stride=stride,
-                     padding=(pad_h, pad_w))
-    return y.permute(0, 2, 3, 1)
 
 
 def binary_weight_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

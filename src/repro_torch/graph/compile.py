@@ -36,6 +36,7 @@ from repro_torch.graph.ir import (BinaryConv, BinaryDense, BNNSpec,
                                   from_workload, spec_to_workload)
 from repro_torch.graph.passes import (PlanStep, batches_tuning_keys,
                                       build_plan, plan_tuning_keys)
+from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
@@ -87,11 +88,21 @@ class CompiledBNN:
                 f"{len(self.plan)} steps, "
                 f"{self.launch_count()} kernel launches "
                 f"(layer by layer: {self.legacy_launch_count()})")
-        return "\n".join([head] + [f"  {s}" for s in self.plan])
+        lines = [f"  {s}" for s in self.plan]
+        for i, s in enumerate(self.plan):
+            if self._entry_packs(i):
+                lines[i] += (" on the entry_conv kernel, signs packed in "
+                             "its epilogue (the binarize passes them on)")
+            elif s.kind == "integer_conv":
+                lines[i] += " on F.conv2d (cuDNN on the card)"
+        return "\n".join([head] + lines)
 
     def launch_count(self) -> int:
-        """Kernel launches per forward pass under this plan (the float
-        entry conv, pools and reshapes are no kernels of the port)."""
+        """Kernel launches per forward pass under this plan: one a
+        binarize, binary conv, dense and fused stack step, where an
+        entry conv that packs its own signs (:meth:`_entry_packs`)
+        launches in place of the binarize after it (a float entry conv
+        on cuDNN, pools and reshapes are no kernels of the port)."""
         return sum(s.kind in ("binarize", "binary_conv", "dense",
                               "fused_stack") for s in self.plan)
 
@@ -222,6 +233,24 @@ class CompiledBNN:
         return nxt is not None and nxt.kind == "binarize" \
             and not nxt.args["flatten"]
 
+    def _entry_packs(self, i: int) -> bool:
+        """Whether the integer conv at plan step ``i`` runs as the
+        ``entry_conv`` kernel, which packs its signs (alpha taken in)
+        in its epilogue, so that the binarize after it has nothing
+        left to do: on a kernel backend, where the alpha would go to
+        the pack anyway (:meth:`_alpha_in_pack`) and the kernel takes
+        the conv's shape.  BinaryNet's conv1 does; AlexNet's entry
+        convs (a float pool follows), a head cut off by ``split`` and
+        the "torch" backend keep cuDNN and the pack."""
+        step = self.plan[i]
+        if step.kind != "integer_conv" or not self._alpha_in_pack(i) \
+                or not get_backend(self.backend).uses_kernels:
+            return False
+        nd = self.spec.conv_nodes[step.args["conv_idx"]]
+        return kentry.supports((1, nd.h_in, nd.w_in, nd.c_in),
+                               (nd.kh, nd.kw, nd.c_in, nd.c_out),
+                               step.args["stride"], step.args["pad"])
+
     # -------------------------------------------------------------- #
     def apply(self, params: Dict[str, Any], x: Any,
               valid_rows: Optional[int] = None) -> Any:
@@ -240,7 +269,13 @@ class CompiledBNN:
             a = step.args
             if step.kind == "integer_conv":
                 p = params["conv"][a["conv_idx"]]
-                if self._alpha_in_pack(i):
+                if self._entry_packs(i):
+                    h = PackedArray(
+                        kentry.entry_conv(h, p["w"], p["alpha"],
+                                          stride=a["stride"],
+                                          padding=a["pad"]),
+                        length=p["w"].shape[3], axis=-1)
+                elif self._alpha_in_pack(i):
                     h = sign_weight_conv(h, p["w"], stride=a["stride"],
                                          padding=a["pad"])
                     scale = p["alpha"]
@@ -251,6 +286,8 @@ class CompiledBNN:
             elif step.kind == "float_pool":
                 h = _maxpool_float(h, a["window"], a["stride"])
             elif step.kind == "binarize":
+                if i > 0 and self._entry_packs(i - 1):
+                    continue                   # entry_conv packed it
                 if a["flatten"]:
                     h = h.reshape(h.shape[0], -1)
                 h = kops.binarize_pack(h, backend=be, scale=scale)

@@ -192,8 +192,8 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 "integer_conv", nd.name,
                 {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad},
                 f"float NHWC conv {nd.c_in}->{nd.c_out} k{nd.kh} "
-                f"s{nd.stride} p{nd.pad}, alpha*sign(w) (cuDNN, full "
-                f"float32, real zero padding)"))
+                f"s{nd.stride} p{nd.pad}, alpha*sign(w) (full float32, "
+                f"real zero padding)"))
             conv_i += 1
             h, w = nd.h_out, nd.w_out
         elif isinstance(nd, Binarize):

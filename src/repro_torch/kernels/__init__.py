@@ -13,6 +13,9 @@ plain torch versions.
                     words (+ word-level im2col)     (csrc/packed_conv.cu)
   fused_mlp.py      a thresholded binary-MLP stack in one launch,
                     activations kept in shared memory (csrc/fused_mlp.cu)
+  entry_conv.py     the float entry conv (float32 FMAs) with its signs,
+                    alpha taken in, packed in the epilogue
+                    (csrc/entry_conv.cu); ``sign_weight_conv``
   ops.py            public wrappers, dispatch through the registry
   _build.py         nvcc build, ctypes binding and launch counts
   csrc/binary.cuh   device helpers: threshold modes, ballot pack

@@ -39,7 +39,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm")
+SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm",
+           "entry_conv")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
@@ -183,7 +184,12 @@ FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
 XNOR_GEMM = Kernel("xnor_gemm", "xnor_gemm", "xnor_gemm_launch",
                    [P, I, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P])
 
-KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM)
+ENTRY_CONV = Kernel("entry_conv", "entry_conv", "entry_conv_launch",
+                    [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                     I, I])
+
+KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM,
+           ENTRY_CONV)
 
 
 def launch_counts() -> Dict[str, int]:

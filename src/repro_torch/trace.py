@@ -42,19 +42,21 @@ from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
                                        DISPATCHER, LAUNCH, RECOVER, RESOLVE,
                                        SYNC, Span)
 
-# kernel-name fragment -> group: the port's five kernels by symbol, then
-# the float entry convs (the kernels cuDNN chose, with its layout
-# transposes and FFT stages) and torch's own kernels (elementwise, pools,
-# copies); the first fragment a name holds decides
+# kernel-name fragment -> group: the port's six kernels by symbol, then
+# the float entry convs left to cuDNN (the kernels cuDNN chose, with its
+# layout transposes and FFT stages) and torch's own kernels (elementwise,
+# pools, copies); the first fragment a name holds decides
 CUDNN = "cuDNN float convs"
 TORCH = "torch elementwise, pools, copies"
 GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("fused_mlp_kernel", "fused_binary_mlp"),
           ("popcount_gemm_kernel", "popcount_gemm"),
           ("xnor_gemm_kernel", "xnor_gemm"),
+          ("entry_convolve_bits_kernel", "entry_conv"),
           ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
           ("xmma_", CUDNN), ("flip_filter", CUDNN),
           ("at::native::", TORCH))
+PORT_GROUPS = GROUPS[:6]          # the port's own kernels
 
 
 def _device_us(e) -> float:

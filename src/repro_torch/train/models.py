@@ -21,11 +21,14 @@ is the contract ``train.export.check_sign_identity`` compares):
   * max-pool over pm1 activations = the packed OR; its gradient goes
     to the first maximum of a window, as the reference's does;
   * the eval forward computes the integer entry conv with the serving
-    conv itself (``core.bnn_layers.sign_weight_conv``: cuDNN in full
-    float32 on the card), multiplies by alpha and signs with ``> 0``,
-    which is what the serving pack does with the alpha in its load —
-    another padding or layout could let cuDNN pick another algorithm,
-    and a near-zero sum change sign.
+    conv itself, as the "cuda" backend's ``CompiledBNN.apply`` does:
+    where a binarize follows and the kernel takes the shape, the
+    ``kernels.entry_conv`` kernel (its packed signs of ``acc * alpha``,
+    unpacked to +-1 here), else ``core.bnn_layers.sign_weight_conv``
+    (cuDNN in full float32 on the card) times alpha, signed with
+    ``> 0``, which is what the serving pack does with the alpha in its
+    load — another kernel, padding or layout could sum in another
+    order, and a near-zero sum change sign.
 
 Activations are NHWC, as in the reference; the convs see NCHW views.
 Every conv runs in full float32 (TF32 off).  Batch norm is written out:
@@ -50,7 +53,8 @@ from repro_torch.core.bnn_layers import sign_weight_conv
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, IntegerEntry,
                                   Logits, MaxPool)
-from repro_torch.kernels.packed import resolve_device
+from repro_torch.kernels import entry_conv as kentry
+from repro_torch.kernels.packed import resolve_device, unpack_words
 from repro_torch.kernels.ref import full_fp32
 
 __all__ = ["init_train_state", "train_forward", "clip_mask_for",
@@ -214,12 +218,20 @@ def train_forward(spec: BNNSpec, params: Dict[str, Any],
     h = x
     if isinstance(spec.nodes[0], BinaryDense):
         h = act(h)  # dense entry: sign the input
-    for nd in spec.nodes:
+    for k, nd in enumerate(spec.nodes):
         if isinstance(nd, IntegerEntry):
             p = params["conv"][conv_i]
             # alpha over (kh, kw, c_in): matches binary_weight_conv
             alpha = alpha_of(p["w"], (0, 1, 2))
-            if binarize and not train:
+            nxt = spec.nodes[k + 1] if k + 1 < len(spec.nodes) else None
+            if binarize and not train and isinstance(nxt, Binarize) \
+                    and not nxt.flatten and kentry.supports(
+                        h.shape, p["w"].shape, nd.stride, nd.pad):
+                # the Binarize after it leaves these +-1 values as they are
+                h = unpack_words(kentry.entry_conv(
+                    h, p["w"], alpha, stride=nd.stride, padding=nd.pad),
+                    dtype=h.dtype)
+            elif binarize and not train:
                 h = sign_weight_conv(h, p["w"], stride=nd.stride,
                                      padding=nd.pad) * alpha
             else:

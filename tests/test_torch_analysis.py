@@ -318,7 +318,8 @@ def test_banned_shapes_and_launches_derive_from_plan():
     assert expected_launches(cb, 2) == {"fused_binary_mlp": 1,
                                         "popcount_gemm": 1}
     bn = tgraph.compile(binarynet_cifar10(), device="cpu", batch=2)
-    assert expected_launches(bn, 256) == {"pack": 1, "packed_conv2d": 5,
+    assert expected_launches(bn, 256) == {"entry_conv": 1,
+                                          "packed_conv2d": 5,
                                           "fused_binary_mlp": 1,
                                           "popcount_gemm": 1}
     assert (2, 32, 32, 128) in banned_int32_shapes(bn, 2)

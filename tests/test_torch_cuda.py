@@ -408,15 +408,18 @@ def test_binarynet_launch_counts_and_logits(cuda):
     _build.reset_launch_counts()
     logits = cb.apply(params, x)
     torch.cuda.synchronize()
-    assert _build.launch_counts() == {"pack": 1, "packed_conv2d": 5,
+    # conv1 packs its signs in the entry_conv kernel: no pack launch
+    assert _build.launch_counts() == {"pack": 0, "packed_conv2d": 5,
                                       "fused_binary_mlp": 1,
-                                      "popcount_gemm": 1, "xnor_gemm": 0}
+                                      "popcount_gemm": 1, "xnor_gemm": 0,
+                                      "entry_conv": 1}
     ref = graph.compile(binarynet_cifar10(), backend="torch").apply(params, x)
     assert torch.equal(logits, ref)
 
 
 def test_alexnet_launch_counts_and_logits(cuda):
-    """The float entry convs run the same cuDNN calls on both backends,
+    """The float entry convs run the same cuDNN calls on both backends
+    (a float pool follows each, so the entry_conv kernel never runs),
     so the card's two backends agree exactly."""
     cb = graph.compile(alexnet_imagenet(), batch=2)
     params = cb.init(torch.Generator().manual_seed(0))
@@ -428,7 +431,8 @@ def test_alexnet_launch_counts_and_logits(cuda):
     torch.cuda.synchronize()
     assert _build.launch_counts() == {"pack": 1, "packed_conv2d": 3,
                                       "fused_binary_mlp": 1,
-                                      "popcount_gemm": 1, "xnor_gemm": 0}
+                                      "popcount_gemm": 1, "xnor_gemm": 0,
+                                      "entry_conv": 0}
     ref = graph.compile(alexnet_imagenet(), backend="torch").apply(params, x)
     assert logits.shape == (2, 1000) and torch.equal(logits, ref)
 
@@ -565,8 +569,8 @@ def test_binary_dense_launches_xnor_gemm(cuda):
 # ------------------------------------------------------------------ #
 @pytest.mark.parametrize("batch", [1, 32, 256])
 @pytest.mark.parametrize("workload,per_forward", [
-    ("binarynet", {"pack": 1, "packed_conv2d": 5, "fused_binary_mlp": 1,
-                   "popcount_gemm": 1}),
+    ("binarynet", {"entry_conv": 1, "packed_conv2d": 5,
+                   "fused_binary_mlp": 1, "popcount_gemm": 1}),
     ("alexnet", {"pack": 1, "packed_conv2d": 3, "fused_binary_mlp": 1,
                  "popcount_gemm": 1})])
 def test_graphed_logits_equal_eager(cuda, workload, per_forward, batch):

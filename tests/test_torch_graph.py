@@ -199,31 +199,45 @@ def test_split_head_keeps_the_alpha_multiply(small_ref):
 def test_apply_hands_the_entry_alpha_to_the_pack(small_ref, monkeypatch,
                                                  backend):
     """conv1 followed by binarize@conv2: apply leaves the alpha multiply
-    to the pack (binarize_pack gets conv1's alpha as its scale, and
-    binary_weight_conv, the scaled entry conv, is not called), and the
-    logits equal the reference's."""
+    to the pack (binary_weight_conv, the scaled entry conv, is not
+    called), and the logits equal the reference's.  On "torch"
+    binarize_pack gets conv1's alpha as its scale; on "cuda" the
+    entry_conv op takes it and packs in its epilogue, so binarize_pack
+    gets no alpha."""
     jparams, x, want = small_ref
     import importlib
     tcompile = importlib.import_module("repro_torch.graph.compile")
+    from repro_torch.kernels import entry_conv as tentry
     from repro_torch.kernels import ops as tops
-    seen = []
+    seen, fused = [], []
     real = tops.binarize_pack
+    real_fused = tentry.entry_conv
 
     def recording(h, backend=None, scale=None):
         seen.append(scale)
         return real(h, backend=backend, scale=scale)
 
+    def recording_fused(h, w, alpha, stride=1, padding="same"):
+        fused.append(alpha)
+        return real_fused(h, w, alpha, stride=stride, padding=padding)
+
     monkeypatch.setattr(tops, "binarize_pack", recording)
+    monkeypatch.setattr(tentry, "entry_conv", recording_fused)
     monkeypatch.setattr(tcompile, "binary_weight_conv", None)
     cb = tgraph.compile(_small_spec(tgraph), backend=backend, device="cpu",
                         batch=5)
     params = params_from_numpy(np_tree(jparams), "cpu")
     got = cb.apply(params, torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
-    # the "torch" backend's binary layers pack their outputs through
-    # binarize_pack too, with no scale
-    assert seen[0] is params["conv"][0]["alpha"]
-    assert all(scale is None for scale in seen[1:])
+    alpha = params["conv"][0]["alpha"]
+    if backend == "cuda":
+        assert len(fused) == 1 and fused[0] is alpha
+    else:
+        # the "torch" backend's binary layers pack their outputs through
+        # binarize_pack too, with no scale
+        assert not fused and seen[0] is alpha
+        seen = seen[1:]
+    assert all(scale is None for scale in seen)
 
 
 def test_which_entry_convs_leave_their_alpha_to_the_pack():
