@@ -67,7 +67,15 @@
    exact zero weights), and timed at batches 256 and 2048 beside its
    FMA bound, its plain version and the two steps it replaces on the
    card (``library_ms``: cuDNN's conv and the pack kernel, device
-   time).  Before the phases, the
+   time).  residual_epilogue (ReActNet's half-step epilogue: the
+   zero-pad correction, batch norm, shortcut, RPReLU and the next
+   sign's words) is held bit for bit against its plain version at each
+   of ReActNet-A's 26 half-steps at batches 1, 7 and 256, on the dot and
+   stream of the forward's own chain, and stem_conv (its 3x3x3 stem,
+   batch norm and signs) at the 224x224 stem at those batches and at
+   three other shapes; both are timed over one forward at batch 256
+   beside their byte bound and plain version (the stem also beside
+   cuDNN's conv alone, TF32 off).  Before the phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -87,6 +95,14 @@
    ``binarize@conv3``: the float entry layers (cuDNN, TF32 off) within
    1e-5 * max|h|, then the CPU's float activations through the card's
    binary tail, exact;
+4b. runs full-width ReActNet-A (``graph.ir.reactnet_a``, weights
+   bound from their published form) at batches 1, 32 and 256 on
+   unit-variance float pixels: each forward launches exactly 1
+   stem_conv, 26 packed_conv2d and 26 residual_epilogue (counts reset
+   just before it), the ``"cuda"`` logits equal the ``"torch"``
+   backend's on the card, and every logit lies within 1e-4 of the
+   image's largest logit of the plain reference
+   (``repro_torch.reference.reactnet``);
 5. replays both models at batches 1, 32 and 256 from one CUDA graph
    per forward (``graph.replay.GraphedApply``): the replayed logits
    must equal eager ``apply``'s bit for bit, and a replay must run 8
@@ -1359,6 +1375,161 @@ def check_entry_conv(rnd, rec):
                     library_ms=main["library_ms"], shapes=rows))
 
 
+# ReActNet-A's 26 half-step epilogues are held bit for bit at these
+# batches, on the dot and stream of the forward's own chain, and timed
+# over one forward at BATCH; the stem also at other widths, strides and
+# pads: (N, H, F, stride, pad)
+RESIDUAL_BATCHES = (1, 7, BATCH)
+STEM_EDGES = [(3, 17, 96, 2, 0), (3, 19, 64, 1, 1), (5, 224, 32, 2, 1)]
+
+
+def residual_chain(cb, params, x):
+    """One eager ReActNet forward of ``x`` as the calls of its float
+    kernels: the stem's arguments, and each half-step's epilogue
+    arguments (packed_conv2d's dot, the correction, the table, the
+    stream in, the step's options), each step fed by the kernels'
+    outputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import residual as kres
+    from repro_torch.kernels.packed import PackedArray
+    stem, steps, h, bits = None, [], None, None
+    for step in cb.plan:
+        a = step.args
+        if step.kind == "real_conv":
+            p = params["stem"][a["stem_idx"]]
+            stem = (x, p["w"], p["table"], dict(
+                stride=a["stride"], pad=a["pad"], write_bits=a["sign_next"]))
+            h, bits = kres.stem_conv(stem[0], stem[1], stem[2], **stem[3])
+        elif step.kind == "residual_conv":
+            nd = cb.spec.residual_nodes[a["res_idx"]]
+            p = params["res"][a["res_idx"]]
+            dot = ops.binary_conv2d(PackedArray(bits, length=nd.c_in,
+                                                axis=-1), p["wf"],
+                                    stride=a["stride"], padding=a["pad"])
+            kw = dict(shortcut=a["shortcut"], k=a["k"], stride=a["stride"],
+                      pad=a["pad"], h_in=nd.h_in, w_in=nd.w_in,
+                      write_bits=a["sign_next"])
+            steps.append((nd, dot, p.get("corr"), p["table"], h, kw))
+            h, bits = kres.residual_epilogue(dot, p.get("corr"), p["table"],
+                                             h, **kw)
+    return stem, steps
+
+
+def float_bits_equal(name, got, want):
+    """A kernel's float32 tensor and its plain version's, bit for bit
+    (the error in units of the bit patterns)."""
+    return check_equal(name, got.view(torch.int32), want.view(torch.int32))
+
+
+def epilogue_pair_equal(name, got, want):
+    err = float_bits_equal(f"{name} stream", got[0], want[0])
+    if (got[1] is None) != (want[1] is None):
+        raise AssertionError(f"{name}: the kernel and its plain version "
+                             f"disagree on writing the signs")
+    if got[1] is not None:
+        err = max(err, check_equal(f"{name} signs", got[1], want[1]))
+    return err
+
+
+def epilogue_bytes(nd, rows, bits):
+    """The least bytes of one half-step's epilogue over ``rows`` images:
+    the int32 dot and float32 stream of every output element, the
+    shortcut map it reads (the larger input map where it averages, the
+    half-width one where it doubles), and with ``bits`` one bit an
+    output element for the next sign."""
+    n_out = nd.h_out * nd.w_out * nd.c_out
+    sc = {"avgpool": nd.h_in * nd.w_in * nd.c_in,
+          "duplicate": nd.h_out * nd.w_out * nd.c_in}.get(nd.shortcut, n_out)
+    return rows * (8 * n_out + 4 * sc + (n_out / 8 if bits else 0))
+
+
+def check_residual(rnd, rec):
+    """``residual_epilogue`` at each of ReActNet-A's 26 half-steps and
+    ``stem_conv`` at its stem (and at STEM_EDGES), bit for bit against
+    their plain versions; both timed over one forward at BATCH beside
+    the bound and the plain version (two records)."""
+    from repro_torch import graph
+    from repro_torch.graph.ir import reactnet_a
+    from repro_torch.kernels import residual as kres
+    cb = graph.compile(reactnet_a(), device=DEVICE, batch=BATCH)
+    params = cb.init(torch.Generator().manual_seed(0))
+    err_e = err_s = 0
+    for n in RESIDUAL_BATCHES:
+        # unit-variance pixels: the stem's drawn batch norm centres them
+        stem, steps = residual_chain(cb, params, rnd.normal(n, 224, 224, 3))
+        for nd, dot, corr, table, sc, kw in steps:
+            err_e = max(err_e, epilogue_pair_equal(
+                f"residual_epilogue {nd.name} B={n}",
+                kres.residual_epilogue(dot, corr, table, sc, **kw),
+                kres.residual_epilogue_plain(dot, corr, table, sc, **kw)))
+        err_s = max(err_s, epilogue_pair_equal(
+            f"stem_conv ReActNet-A B={n}",
+            kres.stem_conv(stem[0], stem[1], stem[2], **stem[3]),
+            kres.stem_conv_plain(stem[0], stem[1], stem[2], **stem[3])))
+    for n, h, f, s, pad in STEM_EDGES:
+        x = rnd.ints(0, 256, n, h, h, 3).to(torch.float32)
+        w = rnd.normal(3, 3, 3, f)
+
+        def u(lo, hi):
+            return lo + (hi - lo) * torch.rand(f, generator=rnd.g,
+                                               device=DEVICE)
+        table = kres.stem_table(rnd.normal(f) * 100, u(1e4, 1.1e5),
+                                u(0.5, 1.5), u(-0.5, 0.5), u(-0.5, 0.5))
+        args = dict(stride=s, pad=pad)
+        err_s = max(err_s, epilogue_pair_equal(
+            f"stem_conv [{n}, {h}, {h}, 3] F={f} s{s} p{pad}",
+            kres.stem_conv(x, w, table, **args),
+            kres.stem_conv_plain(x, w, table, **args)))
+
+    def epilogues(fn):
+        return lambda: [fn(dot, corr, table, sc, **kw)
+                        for _, dot, corr, table, sc, kw in steps]
+    ms = kernel_ms(epilogues(kres.residual_epilogue),
+                   "residual_epilogue_kernel")
+    plain = time_ms(epilogues(kres.residual_epilogue_plain), 3)
+    nbytes = sum(epilogue_bytes(nd, BATCH, kw["write_bits"])
+                 for nd, *_, kw in steps)
+    b, by = bound(nbytes, 0, FP32_OPS)
+    print(f"residual_epilogue ReActNet-A B={BATCH}, 26 half-steps: "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
+          f"({by}, {nbytes / 2**20:.1f} MiB); {b / ms:.3f} of the bound")
+    rec.append(dict(name="residual_epilogue", route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "residual_epilogue.cu",
+                    replaces="none (ReActNet is port-only)",
+                    max_abs_err=err_e, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, library_ms=None))
+
+    x, w, table, args = stem
+    ms = kernel_ms(lambda: kres.stem_conv(x, w, table, **args),
+                   "stem_conv_bn_sign_kernel")
+    plain = time_ms(lambda: kres.stem_conv_plain(x, w, table, **args), 3)
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # cuDNN's conv alone (no batch norm, no signs): every kernel
+        lib = kernel_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, stride=args["stride"], padding=args["pad"]), "")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    st = cb.spec.stem_nodes[0]
+    out = BATCH * st.h_out * st.w_out * st.c_out
+    nbytes = 4 * x.numel() + 4 * out + out / 8
+    b, by = bound(nbytes, 2 * st.kh * st.kw * st.c_in * out, FP32_OPS)
+    print(f"stem_conv ReActNet-A B={BATCH}: kernel_ms={ms:.4f} "
+          f"plain_ms={plain:.4f} library_ms={lib:.4f} (cuDNN's conv "
+          f"alone, float32, TF32 off) bound_ms={b:.5f} ({by}); "
+          f"{b / ms:.3f} of the bound")
+    rec.append(dict(name="stem_conv", route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "residual_epilogue.cu",
+                    replaces="none (ReActNet is port-only)",
+                    max_abs_err=err_s, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, library_ms=lib))
+
+
 # ------------------------------------------------------------------ #
 # the main paths                                                       #
 # ------------------------------------------------------------------ #
@@ -1532,6 +1703,104 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
               f"{peak / 2**20:.1f} MiB, launches {counts}, {muls} "
               f"elementwise multiply kernels, logits equal to the torch "
               f"backend" + (f"; {note}" if note else ""))
+    return out
+
+
+# one ReActNet-A forward: the stem, then a packed_conv2d and a
+# residual_epilogue a half-step; the pool and the fc are torch's
+REACTNET_PER_FORWARD = {"stem_conv": 1, "packed_conv2d": 26,
+                        "residual_epilogue": 26}
+
+
+def reactnet_table(spec):
+    """A ReActNet spec as the reference's layer table."""
+    from repro_torch.graph import ir
+    rows = []
+    for nd in spec.nodes:
+        if isinstance(nd, ir.RealConv):
+            rows.append({"op": "real_conv", "k": nd.kh, "stride": nd.stride,
+                         "pad": nd.pad, "out_hw": nd.h_out})
+        elif isinstance(nd, ir.ResidualBinaryConv):
+            rows.append({"op": "conv", "kind": "binary", "name": nd.name,
+                         "stride": nd.stride, "pad": nd.pad,
+                         "shortcut": nd.shortcut})
+        elif isinstance(nd, ir.GlobalAvgPool):
+            rows.append({"op": "avgpool"})
+        elif isinstance(nd, ir.RealDense):
+            rows.append({"op": "real_dense"})
+    return rows
+
+
+def reactnet_path(launches):
+    """Full-width ReActNet-A through ``graph.compile(...).bind/apply`` at
+    batches 1, 32 and 256, published-form weights from a seeded
+    generator, unit-variance float pixels: each forward launches exactly
+    REACTNET_PER_FORWARD (counts reset just before it), its logits equal
+    the ``"torch"`` backend's on the card and lie within the plain
+    reference's ``LOGIT_REL_TOL`` of its largest logit; prints
+    images/s, ms per forward and peak device memory."""
+    from repro_torch import graph
+    from repro_torch.graph.ir import reactnet_a
+    from repro_torch.kernels import _build
+    from repro_torch.reference import reactnet as reference
+    spec = reactnet_a()
+    table = reactnet_table(spec)
+    out = {}
+    for batch in BATCHES:
+        cb = graph.compile(spec, device=DEVICE, batch=batch)
+        if batch == 1:
+            print(cb.describe())
+            raw = cb.draw_residual(torch.Generator().manual_seed(0))
+            params = cb.bind(raw)
+            weights = list(raw["stem"]) + list(raw["res"]) + \
+                list(raw["head"])
+        if cb.launch_count() != sum(REACTNET_PER_FORWARD.values()):
+            raise AssertionError(f"ReActNet-A: plan has "
+                                 f"{cb.launch_count()} launches")
+        x = torch.randn(batch, 224, 224, 3, generator=torch.Generator(
+            ).manual_seed(batch)).to(DEVICE)
+        _build.reset_launch_counts()
+        logits = cb.apply(params, x)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        expect_launches(f"ReActNet-A batch {batch}", counts,
+                        REACTNET_PER_FORWARD)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if logits.shape != (batch, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"ReActNet-A: bad logits "
+                                 f"{tuple(logits.shape)}")
+        plain = graph.compile(spec, backend="torch", device=DEVICE
+                              ).apply(params, x)
+        if not torch.equal(logits, plain):
+            raise AssertionError(f"ReActNet-A batch {batch}: cuda logits "
+                                 f"differ from the torch backend's")
+        want = reference.logits(table, weights, x)
+        gap = float(((logits - want).abs().amax(dim=1) /
+                     want.abs().amax(dim=1)).max())
+        if not gap <= reference.LOGIT_REL_TOL:
+            raise AssertionError(f"ReActNet-A batch {batch}: a logit "
+                                 f"{gap:.3g} of the image's largest off "
+                                 f"the reference's")
+        iters = 20 if batch < 256 else 10
+        cb.apply(params, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            cb.apply(params, x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out[batch] = dict(images_per_s=batch * iters / dt,
+                          ms_per_forward=dt / iters * 1e3,
+                          peak_mem_bytes=peak, max_rel_gap=gap,
+                          launches_per_forward=sum(counts.values()))
+        print(f"ReActNet-A B={batch}: {batch * iters / dt:.1f} images/s, "
+              f"{dt / iters * 1e3:.3f} ms/forward, peak device memory "
+              f"{peak / 2**20:.1f} MiB, launches {counts}, logits equal to "
+              f"the torch backend, {gap:.3g} of the largest logit off the "
+              f"reference")
     return out
 
 
@@ -4874,14 +5143,16 @@ def main():
     rec = []
     rnd = Rand(1234, DEVICE)
     for phase in (check_pack, check_conv, check_fused, check_gemm,
-                  check_xnor, check_entry_conv):
+                  check_xnor, check_entry_conv, check_residual):
+        first = len(rec)
         phase(rnd, rec)
         torch.cuda.synchronize()
-        r = rec[-1]
-        print(f"{r['name']}: held against its plain version "
-              f"(max_abs_err {r['max_abs_err']}); kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        for r in rec[first:]:
+            print(f"{r['name']}: held against its plain version "
+                  f"(max_abs_err {r['max_abs_err']}); kernel_ms="
+                  f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+                  f"{r['library_ms']} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
 
     from repro_torch.core.workloads import (alexnet_imagenet,
                                             binarynet_cifar10)
@@ -4892,6 +5163,7 @@ def main():
     alexnet = forward_path("AlexNet", alexnet_imagenet(),
                            ALEXNET_PER_FORWARD, 1000, alexnet_vs_cpu,
                            (1, 32), launches, 2)
+    reactnet = reactnet_path(launches)
     graphed = graphed_path(launches)
     served = serving_path(launches)
     stack_race = fused_vs_chained(rnd)
@@ -4928,7 +5200,8 @@ def main():
          **{f"{r['name']}_{part}": r[part] for r in rec
             for part in ("shapes", "sums") if part in r},
          "mma_sync_tops": peak,
-         "binarynet": perf, "alexnet": alexnet, "binary_dense": dense,
+         "binarynet": perf, "alexnet": alexnet, "reactnet": reactnet,
+         "binary_dense": dense,
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,
          "sim": simulated, "llm": llm, "llm_train": llm_train,

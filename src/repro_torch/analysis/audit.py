@@ -7,7 +7,9 @@ shows and re-derives the plan's own claims:
 * **launches** — the launches that ``kernels._build.recording()`` sees
   in one eager ``apply`` equal ``launch_count()``, kernel by kernel
   (each plan step's kernel: pack, packed_conv2d or its im2col
-  popcount_gemm, fused_binary_mlp, popcount_gemm).  On the card only;
+  popcount_gemm, fused_binary_mlp, popcount_gemm, entry_conv,
+  stem_conv, and a residual half-step's packed_conv2d and
+  residual_epilogue).  On the card only;
   the CPU's wrappers take their plain versions and launch nothing.
 * **int32-escape** — under a ``TorchDispatchMode`` that records the
   dtype, shape and device of every tensor ``apply`` creates, no int32
@@ -175,6 +177,11 @@ def expected_launches(compiled: Any, batch: int) -> Dict[str, int]:
                 else "popcount_gemm")
         elif step.kind == "dense":
             add("popcount_gemm")
+        elif step.kind == "real_conv":
+            add("stem_conv")
+        elif step.kind == "residual_conv":
+            add("packed_conv2d")
+            add("residual_epilogue")
         elif step.kind == "fused_stack":
             nds = [dense[j] for j in step.args["fc_indices"]]
             sp = fused_mlp.stack_plan(batch, nds[0].n_in,
@@ -283,14 +290,18 @@ def _check_plan_smem(compiled: Any, batch: int) -> AuditCheck:
                     f"{max(smem, sp['smem_bytes'])} B a block (BM="
                     f"{e['bm']}), fits one launch: {sp['fits']}, limit "
                     f"{limit}")
-        elif step.kind == "binary_conv" and step.args["impl"] == "direct":
-            nd = conv_nodes[step.args["conv_idx"]]
+        elif step.kind in ("binary_conv", "residual_conv") and \
+                step.args.get("impl", "direct") == "direct":
+            res = step.kind == "residual_conv"
+            nd = compiled.spec.residual_nodes[step.args["res_idx"]] if res \
+                else conv_nodes[step.args["conv_idx"]]
+            k = (nd.k, nd.k) if res else (nd.kh, nd.kw)
             d = kops.plan_conv_launch(
-                nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.kh, nd.kw,
+                nd.h_in, nd.w_in, nd.c_in, nd.c_out, *k,
                 stride=step.args["stride"], padding=step.args["pad"],
-                pack_out=True, impl="auto", nb=batch)
+                pack_out=not res, impl="auto", nb=batch)
             e = autotune.resolve(d["key"], device)
-            k32 = nd.kh * nd.kw * d["c32"]
+            k32 = k[0] * k[1] * d["c32"]
             smem = packed_conv.smem_bytes(e["bm"], e["bn"], k32, d["c32"])
             audited += 1
             if d["impl"] != "direct":

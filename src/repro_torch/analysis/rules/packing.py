@@ -111,6 +111,10 @@ _SIGN_SITES = {
     # the float entry conv's weight sign `w > 0` (sign_weight_conv, the
     # plain version of the entry_conv kernel, which signs as it does)
     "kernels/entry_conv.py": (ast.Gt,),
+    # the plain ReActNet reference's RSign `x + b > 0` and weight sign,
+    # written from the published equations (it imports nothing of the
+    # port, so it spells the pack convention itself)
+    "reference/reactnet.py": (ast.Gt,),
     "core/binarize.py": (ast.Gt, ast.GtE),
     "core/bnn_layers.py": (ast.Gt, ast.GtE),
     "core/threshold.py": (ast.Gt, ast.GtE),

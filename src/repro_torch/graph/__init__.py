@@ -13,14 +13,19 @@ from repro_torch.graph.compile import (CompiledBNN, compile,
                                        compile_dense_stack,
                                        serve_folded_stack)
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
-                                  BNNSpec, BNThreshold, IntegerEntry,
-                                  Logits, MaxPool, from_dense_stack,
-                                  from_workload, spec_to_workload)
+                                  BNNSpec, BNThreshold, GlobalAvgPool,
+                                  IntegerEntry, Logits, MaxPool, RealConv,
+                                  RealDense, ResidualBinaryConv,
+                                  from_dense_stack, from_workload,
+                                  reactnet_a, reactnet_small,
+                                  spec_to_workload)
 from repro_torch.graph.passes import PlanStep, build_plan
 from repro_torch.graph.replay import GraphedApply
 
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
-           "BNThreshold", "CompiledBNN", "GraphedApply", "IntegerEntry",
-           "Logits", "MaxPool", "PlanStep", "build_plan", "compile",
+           "BNThreshold", "CompiledBNN", "GlobalAvgPool", "GraphedApply",
+           "IntegerEntry", "Logits", "MaxPool", "PlanStep", "RealConv",
+           "RealDense", "ResidualBinaryConv", "build_plan", "compile",
            "compile_dense_stack", "from_dense_stack", "from_workload",
-           "serve_folded_stack", "spec_to_workload"]
+           "reactnet_a", "reactnet_small", "serve_folded_stack",
+           "spec_to_workload"]

@@ -11,6 +11,13 @@ across).
 ``tulip_mapping`` / ``table3_rows`` bridge the spec into the TULIP-PE
 mapping model (``core/mapping.py``), as the reference's do.
 
+The residual family (ReActNet: ``RealConv``, ``ResidualBinaryConv``,
+``GlobalAvgPool``, ``RealDense``) has params in its published form
+(float latent weights, batch-norm statistics, RSign and RPReLU biases,
+PReLU slopes), which :meth:`CompiledBNN.bind` turns once into what the
+kernels read: packed signs, the zero-padding correction and the
+per-channel tables of ``kernels.residual``.  ``init`` draws and binds.
+
 The entry point runs on the card unless the caller asks for the CPU:
 ``compile(..., device=None)`` means ``"cuda"`` and raises on a host
 without one.  With ``device="cpu"`` every kernel wrapper takes its
@@ -32,15 +39,18 @@ from repro_torch.core.mapping import (TULIP, YODANN, ArchParams, map_conv,
 from repro_torch.core.schedules import compare_fragment, maxpool_fragment
 from repro_torch.core.workloads import Workload
 from repro_torch.graph.ir import (BinaryConv, BinaryDense, BNNSpec,
-                                  IntegerEntry, MaxPool, from_dense_stack,
-                                  from_workload, spec_to_workload)
+                                  IntegerEntry, MaxPool, ResidualBinaryConv,
+                                  from_dense_stack, from_workload,
+                                  spec_to_workload)
 from repro_torch.graph.passes import (PlanStep, batches_tuning_keys,
                                       build_plan, plan_tuning_keys)
 from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import residual as kres
 from repro_torch.kernels.fused_mlp import fused_binary_mlp
 from repro_torch.kernels.packed import (WORD, PackedArray, get_backend,
                                         resolve_device)
+from repro_torch.kernels.ref import full_fp32
 
 __all__ = ["CompiledBNN", "compile", "compile_dense_stack",
            "serve_folded_stack"]
@@ -89,6 +99,12 @@ class CompiledBNN:
                 f"{self.launch_count()} kernel launches "
                 f"(layer by layer: {self.legacy_launch_count()})")
         lines = [f"  {s}" for s in self.plan]
+        if self.spec.residual_nodes:
+            lines.append(f"  ({len(self.spec.residual_nodes)} half-steps: "
+                         f"{len(self.spec.residual_nodes)} packed_conv2d + "
+                         f"{len(self.spec.residual_nodes)} residual_epilogue "
+                         f"launches; the float stream stays float32, the "
+                         f"signs between half-steps 1 bit)")
         for i, s in enumerate(self.plan):
             if self._entry_packs(i):
                 lines[i] += (" on the entry_conv kernel, signs packed in "
@@ -99,18 +115,23 @@ class CompiledBNN:
 
     def launch_count(self) -> int:
         """Kernel launches per forward pass under this plan: one a
-        binarize, binary conv, dense and fused stack step, where an
-        entry conv that packs its own signs (:meth:`_entry_packs`)
-        launches in place of the binarize after it (a float entry conv
-        on cuDNN, pools and reshapes are no kernels of the port)."""
-        return sum(s.kind in ("binarize", "binary_conv", "dense",
-                              "fused_stack") for s in self.plan)
+        binarize, binary conv, dense, fused stack and real (stem) conv
+        step, two a residual half-step (packed_conv2d, then
+        residual_epilogue), where an entry conv that packs its own signs
+        (:meth:`_entry_packs`) launches in place of the binarize after
+        it (a float entry conv on cuDNN, pools, reshapes and the real
+        dense head are no kernels of the port)."""
+        return sum(2 if s.kind == "residual_conv" else
+                   s.kind in ("binarize", "binary_conv", "dense",
+                              "fused_stack", "real_conv") for s in self.plan)
 
     def legacy_launch_count(self) -> int:
         """Launches of a layer-by-layer chain: every fused_stack
         segment unrolls to one launch per layer."""
         return sum(len(s.args["fc_indices"]) if s.kind == "fused_stack"
-                   else s.kind in ("binarize", "binary_conv", "dense")
+                   else 2 if s.kind == "residual_conv"
+                   else s.kind in ("binarize", "binary_conv", "dense",
+                                   "real_conv")
                    for s in self.plan)
 
     def tuning_keys_for_batch(self, batch: int) -> Tuple[tuple, ...]:
@@ -204,6 +225,8 @@ class CompiledBNN:
                                  device=gdev).to(self.device)
 
         params: Dict[str, Any] = {"conv": [], "fc": []}
+        if self.spec.residual_nodes or self.spec.stem_nodes:
+            params = self.bind(self.draw_residual(generator, dtype))
         for nd in self.spec.conv_nodes:
             w = normal(nd.kh, nd.kw, nd.c_in, nd.c_out)
             if isinstance(nd, IntegerEntry):
@@ -220,6 +243,108 @@ class CompiledBNN:
                 p["t"] = thresholds(nd.n_out)
             params["fc"].append(p)
         return params
+
+    def draw_residual(self, generator: torch.Generator,
+                      dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """Random params of the residual family's nodes in their
+        published form (what :meth:`bind` takes), on ``self.device``,
+        drawn from ``generator``: normal weights; batch-norm statistics
+        scaled to the conv's output (var: the variance its sum has over
+        random inputs, times U[0.5, 2]; mean: U[-0.5, 0.5] of its
+        standard deviation); gamma U[0.5, 1.5], beta U[-0.5, 0.5]; the
+        RSign and RPReLU biases U[-0.2, 0.2], PReLU slopes U[0.05,
+        0.35]; a head of normals over sqrt(n_in) with a bias U[-0.1,
+        0.1]."""
+        gdev = generator.device
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, dtype=dtype,
+                               device=gdev).to(self.device)
+
+        def uniform(n, lo, hi):
+            u = torch.rand((n,), generator=generator, dtype=dtype,
+                           device=gdev).to(self.device)
+            return lo + (hi - lo) * u
+
+        def bn(n, var_of_sum):
+            sd = var_of_sum.sqrt()
+            return {"mean": uniform(n, -0.5, 0.5) * sd,
+                    "var": uniform(n, 0.5, 2.0) * var_of_sum,
+                    "gamma": uniform(n, 0.5, 1.5),
+                    "beta": uniform(n, -0.5, 0.5)}
+
+        out: Dict[str, Any] = {"conv": [], "fc": [], "stem": [], "res": [],
+                               "head": []}
+        for nd in self.spec.stem_nodes:
+            w = normal(nd.kh, nd.kw, nd.c_in, nd.c_out)
+            out["stem"].append({"w": w,
+                                **bn(nd.c_out, (w * w).sum(dim=(0, 1, 2)))})
+        for nd in self.spec.residual_nodes:
+            w = normal(nd.k, nd.k, nd.c_in, nd.c_out)
+            alpha = w.abs().mean(dim=(0, 1, 2))
+            out["res"].append({"b_in": uniform(nd.c_in, -0.2, 0.2), "w": w,
+                               **bn(nd.c_out,
+                                    alpha * alpha * nd.k * nd.k * nd.c_in),
+                               "move_a": uniform(nd.c_out, -0.2, 0.2),
+                               "slope": uniform(nd.c_out, 0.05, 0.35),
+                               "move_b": uniform(nd.c_out, -0.2, 0.2)})
+        for nd in self.spec.head_nodes:
+            out["head"].append({"w": normal(nd.n_out, nd.n_in) /
+                                float(nd.n_in) ** 0.5,
+                                "b": uniform(nd.n_out, -0.1, 0.1)})
+        return out
+
+    def bind(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The residual family's params as the kernels read them, from
+        their published form (a new tree; the other keys are kept):
+
+        * ``stem[i]``: ``w`` [KH, KW, C, F] float, BN ``mean``, ``var``,
+          ``gamma``, ``beta`` -> ``w`` and ``table`` [5, F]
+          (``kernels.residual.stem_table``, with the next RSign's bias);
+        * ``res[i]``: ``b_in`` [C_in] (its RSign's bias), ``w`` [K, K,
+          C_in, C_out] float latent weights (a doubling half-step's two
+          1x1 convs concatenated on the output axis), BN ``mean``,
+          ``var``, ``gamma``, ``beta``, the RPReLU's ``move_a``,
+          ``slope``, ``move_b`` [C_out] -> ``wf`` (sign(w) packed on the
+          channel axis), ``corr`` (the zero-padding correction; a 1x1
+          conv has none) and ``table`` [9, F]
+          (``kernels.residual.epilogue_table``: alpha = mean |w| of each
+          output channel, the next half-step's RSign bias);
+        * ``head[i]``: ``w`` [N_out, N_in], ``b`` [N_out], as they are.
+
+        Other specs' params are returned as they are."""
+        res_nodes = self.spec.residual_nodes
+        if not res_nodes and not self.spec.stem_nodes:
+            return params
+        b_in = [p["b_in"] for p in params["res"]]
+
+        def next_bias(nd):
+            """The RSign bias of the half-step after ``nd``, if one is."""
+            nxt = self.spec.nodes[self.spec.nodes.index(nd) + 1]
+            return b_in[res_nodes.index(nxt)] \
+                if isinstance(nxt, ResidualBinaryConv) else None
+
+        out = dict(params)
+        out["stem"] = [{"w": p["w"].to(torch.float32).contiguous(),
+                        "table": kres.stem_table(p["mean"], p["var"],
+                                                 p["gamma"], p["beta"],
+                                                 next_bias(nd))}
+                       for nd, p in zip(self.spec.stem_nodes, params["stem"])]
+        out["res"] = []
+        for nd, p in zip(res_nodes, params["res"]):
+            w = p["w"].to(torch.float32)
+            wf = PackedArray.pack(w, axis=2)
+            alpha = w.abs().mean(dim=(0, 1, 2))
+            q = {"wf": wf, "table": kres.epilogue_table(
+                alpha, p["mean"], p["var"], p["gamma"], p["beta"],
+                p["move_a"], p["slope"], p["move_b"], next_bias(nd))}
+            if nd.pad:
+                q["corr"] = kres.zero_pad_correction(wf.unpack(torch.float32))
+            out["res"].append(q)
+        out["head"] = [{"w": p["w"].to(torch.float32).contiguous(),
+                        "b": p["b"].to(torch.float32).contiguous()}
+                       for p in params["head"]]
+        return out
 
     def _alpha_in_pack(self, i: int) -> bool:
         """Whether the integer conv at plan step ``i`` leaves its alpha
@@ -265,9 +390,35 @@ class CompiledBNN:
         be = self.backend
         h: Any = x if valid_rows is None else kops.mask_rows(x, valid_rows)
         scale = None         # an entry conv's alpha, left to the pack
+        bits = None          # the next half-step's RSign words
+        plain = not get_backend(be).uses_kernels
         for i, step in enumerate(self.plan):
             a = step.args
-            if step.kind == "integer_conv":
+            if step.kind == "real_conv":
+                p = params["stem"][a["stem_idx"]]
+                stem = kres.stem_conv_plain if plain else kres.stem_conv
+                h, bits = stem(h, p["w"], p["table"], stride=a["stride"],
+                               pad=a["pad"], write_bits=a["sign_next"])
+            elif step.kind == "residual_conv":
+                nd = self.spec.residual_nodes[a["res_idx"]]
+                p = params["res"][a["res_idx"]]
+                dot = kops.binary_conv2d(
+                    PackedArray(bits, length=nd.c_in, axis=-1), p["wf"],
+                    stride=a["stride"], padding=a["pad"], backend=be)
+                epi = kres.residual_epilogue_plain if plain else \
+                    kres.residual_epilogue
+                h, bits = epi(dot, p.get("corr"), p["table"], h,
+                              shortcut=a["shortcut"], k=a["k"],
+                              stride=a["stride"], pad=a["pad"],
+                              h_in=nd.h_in, w_in=nd.w_in,
+                              write_bits=a["sign_next"])
+            elif step.kind == "global_pool":
+                h = h.mean(dim=(1, 2))
+            elif step.kind == "real_dense":
+                p = params["head"][a["head_idx"]]
+                with full_fp32():
+                    h = F.linear(h, p["w"], p["b"])
+            elif step.kind == "integer_conv":
                 p = params["conv"][a["conv_idx"]]
                 if self._entry_packs(i):
                     h = PackedArray(
@@ -351,11 +502,48 @@ class CompiledBNN:
             layers.append({"name": nd.name,
                            "packed_bytes": n_in // 8 + n_w // 8,
                            "bf16_bytes": 2 * n_in + 2 * n_w})
+        layers += self._residual_traffic(batch)
         packed = sum(d["packed_bytes"] for d in layers)
         bf16 = sum(d["bf16_bytes"] for d in layers)
         return {"layers": layers, "packed_bytes": packed,
                 "bf16_bytes": bf16,
                 "ratio_bf16_over_packed": bf16 / packed}
+
+    def _residual_traffic(self, batch: int) -> List[Dict[str, Any]]:
+        """The residual family's layers in :meth:`traffic`: the stem
+        reads float pixels and writes the float stream and the signs; a
+        half-step reads the signs and the packed weights, writes and
+        reads the int32 dot, reads the shortcut and writes the stream
+        and the next signs; the head reads the stream and float
+        weights.  The bf16 baseline keeps every activation in bf16."""
+        layers = []
+        for nd in self.spec.stem_nodes:
+            n_in = batch * nd.h_in * nd.w_in * nd.c_in
+            n_out = batch * nd.h_out * nd.w_out * nd.c_out
+            n_w = nd.kh * nd.kw * nd.c_in * nd.c_out
+            layers.append({"name": nd.name,
+                           "packed_bytes": 4 * (n_in + n_w + n_out)
+                           + n_out // 8,
+                           "bf16_bytes": 2 * (n_in + n_w + n_out)})
+        for nd in self.spec.residual_nodes:
+            n_in = batch * nd.h_in * nd.w_in * nd.c_in
+            n_out = batch * nd.h_out * nd.w_out * nd.c_out
+            n_w = nd.k * nd.k * nd.c_in * nd.c_out
+            n_sc = n_in if nd.shortcut == "avgpool" else \
+                n_out // (2 if nd.shortcut == "duplicate" else 1)
+            layers.append({"name": nd.name,
+                           "packed_bytes": n_in // 8 + n_w // 8 + 8 * n_out
+                           + 4 * n_sc + 4 * n_out + n_out // 8,
+                           "bf16_bytes": 2 * (n_in + n_w + n_sc + n_out)})
+        for nd in self.spec.head_nodes:
+            last = self.spec.residual_nodes[-1] if self.spec.residual_nodes \
+                else self.spec.stem_nodes[-1]
+            n_pool = batch * last.h_out * last.w_out * nd.n_in
+            n_w = nd.n_in * nd.n_out
+            layers.append({"name": nd.name,
+                           "packed_bytes": 4 * (n_pool + n_w),
+                           "bf16_bytes": 2 * (n_pool + n_w)})
+        return layers
 
     # -------------------------------------------------------------- #
     def tulip_mapping(self, arch: ArchParams = TULIP) -> List[dict]:

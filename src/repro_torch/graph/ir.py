@@ -14,7 +14,18 @@ Node set:
   BinaryDense    packed XNOR-popcount dense (ops.binary_binary_dense)
   BNThreshold    per-channel integer threshold (folded BN, §IV-D);
                  always FUSED into its producer's pack epilogue
-  Logits         int32 dot -> float32 logits (the classifier output)
+  Logits         int32 dot (or a real dense's float) -> float32
+                 logits (the classifier output)
+
+and the residual family (ReActNet), whose activations are a float
+stream that each half-step leaves and re-enters the packed domain from:
+  RealConv             real-valued conv + eval batch norm (the stem)
+  ResidualBinaryConv   one residual half-step: learned-threshold sign
+                       (RSign), binary conv (0 padding), batch norm, a
+                       shortcut (identity, 2x2 average or duplicated
+                       channels) and the shifted PReLU (RPReLU)
+  GlobalAvgPool        mean over the spatial axes
+  RealDense            real-valued dense layer with a bias (the head)
 
 Lowering entry points:
   from_workload     core/workloads.py dataclass -> BNNSpec (subsumes
@@ -30,7 +41,10 @@ must match, the packed domain can only be left through Logits, integer
 layers cannot follow binary ones (a 1-bit activation cannot re-enter
 the float domain — a "not representable" layer), and every
 non-terminal BinaryConv/BinaryDense must be thresholded (an int32
-activation cannot stay packed).
+activation cannot stay packed).  A ResidualBinaryConv follows the
+RealConv or ResidualBinaryConv whose epilogue writes its sign bits,
+keeps the float stream's geometry rules (see ``validate``) and takes a
+float input; RealDense ends in Logits.
 """
 from __future__ import annotations
 
@@ -41,9 +55,11 @@ from typing import Optional, Sequence, Tuple, Union
 from repro_torch.core.workloads import ConvLayer, FCLayer, Workload
 
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
-           "BNThreshold", "IntegerEntry", "Logits", "MaxPool",
+           "BNThreshold", "GlobalAvgPool", "IntegerEntry", "Logits",
+           "MaxPool", "RealConv", "RealDense", "ResidualBinaryConv",
            "fc_entry_size", "from_dense_stack", "from_workload",
-           "infer_conv_geometry", "infer_pool", "spec_to_workload"]
+           "infer_conv_geometry", "infer_pool", "reactnet_a",
+           "reactnet_small", "spec_to_workload"]
 
 
 # ------------------------------------------------------------------ #
@@ -169,9 +185,67 @@ class Logits:
     classes: int
 
 
+@dataclass(frozen=True)
+class RealConv:
+    """Real-valued 3x3 conv over 3 channels (float weights, zero
+    padding) and its eval batch norm: the stem of a residual network."""
+    name: str
+    kh: int
+    kw: int
+    c_in: int
+    c_out: int
+    h_in: int
+    w_in: int
+    h_out: int
+    w_out: int
+    stride: int = 1
+    pad: int = 0
+
+
+SHORTCUTS = ("identity", "avgpool", "duplicate")
+
+
+@dataclass(frozen=True)
+class ResidualBinaryConv:
+    """One residual half-step (ReActNet): ``a = sign(x + b_in)`` (RSign),
+    ``u = bn(alpha * conv(a, sign(w)))`` with a k x k conv, a zero pad of
+    (k-1)/2 and ``alpha`` the mean |w| of each output channel, then
+    ``out = rprelu(u + shortcut(x))``.  ``shortcut``: "identity" (same
+    width, stride 1), "avgpool" (2x2 average, stride 2, same width) or
+    "duplicate" (channel f of the output takes channel f mod c_in; the
+    conv is the two concatenated convs of a doubling, c_out = 2*c_in)."""
+    name: str
+    k: int
+    c_in: int
+    c_out: int
+    h_in: int
+    w_in: int
+    h_out: int
+    w_out: int
+    stride: int = 1
+    pad: int = 0
+    shortcut: str = "identity"
+
+
+@dataclass(frozen=True)
+class GlobalAvgPool:
+    """Mean of the float stream over its spatial axes."""
+    name: str
+
+
+@dataclass(frozen=True)
+class RealDense:
+    """Real-valued dense layer with a bias (the classifier head)."""
+    name: str
+    n_in: int
+    n_out: int
+
+
 Node = Union[IntegerEntry, Binarize, BinaryConv, MaxPool, BinaryDense,
-             BNThreshold, Logits]
+             BNThreshold, Logits, RealConv, ResidualBinaryConv,
+             GlobalAvgPool, RealDense]
 ConvNode = (IntegerEntry, BinaryConv)
+RESIDUAL_NODES = (RealConv, ResidualBinaryConv, GlobalAvgPool, RealDense)
 
 
 # ------------------------------------------------------------------ #
@@ -197,6 +271,19 @@ class BNNSpec:
     def dense_nodes(self) -> Tuple[BinaryDense, ...]:
         return tuple(n for n in self.nodes
                      if isinstance(n, BinaryDense))
+
+    @property
+    def stem_nodes(self) -> Tuple[RealConv, ...]:
+        return tuple(n for n in self.nodes if isinstance(n, RealConv))
+
+    @property
+    def residual_nodes(self) -> Tuple[ResidualBinaryConv, ...]:
+        return tuple(n for n in self.nodes
+                     if isinstance(n, ResidualBinaryConv))
+
+    @property
+    def head_nodes(self) -> Tuple[RealDense, ...]:
+        return tuple(n for n in self.nodes if isinstance(n, RealDense))
 
     def thresholded(self, node: Union[BinaryConv, BinaryDense]) -> bool:
         """True when ``node`` is directly followed by a BNThreshold."""
@@ -267,7 +354,7 @@ class BNNSpec:
             elif isinstance(nd, BinaryDense):
                 if domain == "packed_conv":
                     domain, width = "packed_flat", h * w * c
-                elif domain == "float":
+                elif domain in ("float", "float_flat"):
                     raise ValueError(f"{nd.name}: dense input must be "
                                      f"packed (insert a Binarize node)")
                 if nd.n_in != width:
@@ -292,10 +379,48 @@ class BNNSpec:
                 if nd.channels != out:
                     raise ValueError(f"{nd.name}: {nd.channels} channels "
                                      f"for a {out}-wide producer")
+            elif isinstance(nd, RealConv):
+                if domain != "float":
+                    raise ValueError(f"{nd.name}: a real conv takes a float "
+                                     f"spatial input")
+                if (nd.kh, nd.kw, nd.c_in) != (3, 3, 3):
+                    raise ValueError(f"{nd.name}: a real conv is the stem of "
+                                     f"an image network, 3x3 over 3 channels, "
+                                     f"got {nd.kh}x{nd.kw}x{nd.c_in}")
+                _check_conv_geometry(nd, nd.kh, (c, h, w))
+                h, w, c = nd.h_out, nd.w_out, nd.c_out
+            elif isinstance(nd, ResidualBinaryConv):
+                if not isinstance(prev, (RealConv, ResidualBinaryConv)):
+                    raise ValueError(
+                        f"{nd.name}: a residual half-step follows the real "
+                        f"conv or half-step whose epilogue writes its sign "
+                        f"bits")
+                _check_residual(nd, (c, h, w))
+                h, w, c = nd.h_out, nd.w_out, nd.c_out
+            elif isinstance(nd, GlobalAvgPool):
+                if domain != "float":
+                    raise ValueError(f"{nd.name}: a global pool takes the "
+                                     f"float spatial stream")
+                domain, width = "float_flat", c
+            elif isinstance(nd, RealDense):
+                if domain != "float_flat":
+                    raise ValueError(f"{nd.name}: a real dense layer takes a "
+                                     f"flat float input (insert a "
+                                     f"GlobalAvgPool)")
+                if nd.n_in != width:
+                    raise ValueError(f"{nd.name}: n_in={nd.n_in} but the "
+                                     f"incoming width is {width}")
+                nxt = self.nodes[i + 1] if i + 1 < len(self.nodes) \
+                    else None
+                if not isinstance(nxt, Logits):
+                    raise ValueError(f"{nd.name}: a real dense layer must be "
+                                     f"followed by Logits")
+                width = nd.n_out
             elif isinstance(nd, Logits):
-                if not isinstance(prev, BinaryDense):
+                if not isinstance(prev, (BinaryDense, RealDense)):
                     raise ValueError(f"{nd.name}: Logits must follow an "
-                                     f"un-thresholded BinaryDense")
+                                     f"un-thresholded BinaryDense or a "
+                                     f"RealDense")
                 if nd.classes != prev.n_out:
                     raise ValueError(f"{nd.name}: {nd.classes} classes "
                                      f"vs {prev.n_out}-wide dense")
@@ -304,6 +429,54 @@ class BNNSpec:
                                      f"terminal node")
             else:
                 raise ValueError(f"unknown node {nd!r}")
+
+
+def _check_conv_geometry(nd, k: int, incoming: Tuple[int, int, int]
+                         ) -> None:
+    """A conv node's input is the incoming (C, H, W) and its output the
+    extent its stride and pad give."""
+    c, h, w = incoming
+    if (nd.c_in, nd.h_in, nd.w_in) != (c, h, w):
+        raise ValueError(f"{nd.name}: expects {nd.h_in}x{nd.w_in}x"
+                         f"{nd.c_in}, incoming is {h}x{w}x{c}")
+    for n_in, n_out, axis in ((nd.h_in, nd.h_out, "H"),
+                              (nd.w_in, nd.w_out, "W")):
+        if (n_in + 2 * nd.pad - k) // nd.stride + 1 != n_out:
+            raise ValueError(f"{nd.name}: {axis} {n_in} -> {n_out} is not a "
+                             f"{k}-wide stride-{nd.stride} pad-{nd.pad} "
+                             f"conv")
+
+
+def _check_residual(nd: "ResidualBinaryConv",
+                    incoming: Tuple[int, int, int]) -> None:
+    """A half-step's rules: packed words of whole channels, a 1x1 or a
+    3x3 "same" conv, and the shortcut its widths and stride call for."""
+    if nd.k not in (1, 3) or nd.pad != (nd.k - 1) // 2:
+        raise ValueError(f"{nd.name}: a half-step is a 1x1 (pad 0) or a 3x3 "
+                         f"(pad 1) conv, got k={nd.k} pad={nd.pad}")
+    if nd.stride not in (1, 2):
+        raise ValueError(f"{nd.name}: stride must be 1 or 2, got "
+                         f"{nd.stride}")
+    if nd.c_in % 32:
+        raise ValueError(f"{nd.name}: c_in={nd.c_in} is not whole packed "
+                         f"words (c_in % 32 != 0)")
+    if nd.stride == 2 and (nd.h_in % 2 or nd.w_in % 2):
+        raise ValueError(f"{nd.name}: stride 2 on an odd map {nd.h_in}x"
+                         f"{nd.w_in} (the 2x2 average shortcut needs even "
+                         f"extents)")
+    _check_conv_geometry(nd, nd.k, incoming)
+    if nd.c_out not in (nd.c_in, 2 * nd.c_in):
+        raise ValueError(f"{nd.name}: {nd.c_in} -> {nd.c_out} channels; a "
+                         f"half-step keeps its width or doubles it to "
+                         f"{2 * nd.c_in}")
+    want = ("duplicate" if nd.c_out == 2 * nd.c_in else
+            "avgpool" if nd.stride == 2 else "identity")
+    if nd.shortcut != want:
+        raise ValueError(f"{nd.name}: {nd.c_in} -> {nd.c_out} at stride "
+                         f"{nd.stride} takes the {want!r} shortcut, got "
+                         f"{nd.shortcut!r}")
+    if want == "duplicate" and nd.stride != 1:
+        raise ValueError(f"{nd.name}: a doubling half-step runs at stride 1")
 
 
 # ------------------------------------------------------------------ #
@@ -401,9 +574,16 @@ def spec_to_workload(spec: BNNSpec) -> Workload:
     """The inverse bridge: IR conv/dense nodes back into the
     workloads.py dataclasses the TULIP mapping/energy model consumes.
     Guarantees ``compile(wl).tulip_mapping()`` sees exactly the layers
-    ``core.mapping.table3_rows(wl)`` does."""
+    ``core.mapping.table3_rows(wl)`` does.  The residual family's nodes
+    are outside that model (a float stream between binary layers, which
+    the paper's PE array has no datapath for): raises on them."""
     conv, fc = [], []
     for nd in spec.nodes:
+        if isinstance(nd, RESIDUAL_NODES):
+            raise ValueError(
+                f"{spec.name}: {nd.name} ({type(nd).__name__}) is outside "
+                f"the TULIP mapping model, which covers chains of "
+                f"IntegerEntry, BinaryConv and BinaryDense layers")
         if isinstance(nd, ConvNode):
             if nd.kh != nd.kw:
                 raise ValueError(f"{nd.name}: the mapping model takes "
@@ -416,3 +596,59 @@ def spec_to_workload(spec: BNNSpec) -> Workload:
         elif isinstance(nd, BinaryDense):
             fc.append(FCLayer(nd.name, nd.n_in, nd.n_out))
     return Workload(spec.name, spec.dataset, tuple(conv), tuple(fc))
+
+
+# ------------------------------------------------------------------ #
+# the residual family: ReActNet                                        #
+# ------------------------------------------------------------------ #
+# ReActNet-A (Liu et al., ECCV 2020, arXiv:2003.03488): the width of
+# the stem and of each block's output; a block of width change that is
+# not to 64 runs at stride 2
+REACTNET_A_WIDTHS = (32, 64, 128, 128, 256, 256, 512, 512, 512, 512, 512,
+                     512, 1024, 1024)
+
+
+def reactnet_spec(name: str, input_hw: int, widths: Sequence[int],
+                  classes: int, dataset: str = "") -> BNNSpec:
+    """A ReActNet of ``widths`` (the stem's, then each block's output):
+    the stem (3x3 stride-2 real conv + BN), one block per later width
+    (a 3x3 half-step at the block's stride, then a 1x1 half-step, two
+    concatenated 1x1 convs where the width doubles), a global average
+    pool and a real dense head of ``classes``.  A block runs at stride 2
+    where its width changes and is not 64 (the published table)."""
+    h = (input_hw + 2 - 3) // 2 + 1
+    c = widths[0]
+    nodes: list = [RealConv("stem", 3, 3, 3, c, input_hw, input_hw, h, h, 2,
+                            1)]
+    for i, p in enumerate(widths[1:]):
+        s = 2 if p != c and p != 64 else 1
+        ho = (h - 1) // s + 1
+        nodes.append(ResidualBinaryConv(
+            f"block{i}.conv3x3", 3, c, c, h, h, ho, ho, s, 1,
+            "avgpool" if s == 2 else "identity"))
+        nodes.append(ResidualBinaryConv(
+            f"block{i}.conv1x1", 1, c, p, ho, ho, ho, ho, 1, 0,
+            "duplicate" if p == 2 * c else "identity"))
+        h, c = ho, p
+    nodes += [GlobalAvgPool("avgpool"), RealDense("fc", c, classes),
+              Logits("logits", classes)]
+    spec = BNNSpec(name, (input_hw, input_hw, 3), tuple(nodes),
+                   dataset=dataset)
+    spec.validate()
+    return spec
+
+
+def reactnet_a() -> BNNSpec:
+    """ReActNet-A at its published widths: 224x224x3 in, 13 blocks (26
+    half-steps), 1000 classes."""
+    return reactnet_spec("reactnet-a", 224, REACTNET_A_WIDTHS, 1000,
+                         dataset="imagenet")
+
+
+def reactnet_small(input_hw: int = 16, classes: int = 10) -> BNNSpec:
+    """A small spec of the same structure for the CPU: the stem to 32
+    channels, then 32 -> 64 (a doubling at stride 1), 64 -> 128 (stride
+    2: the average shortcut, then a doubling) and 128 -> 128 (identity
+    shortcuts)."""
+    return reactnet_spec("reactnet-small", input_hw, (32, 64, 128, 128),
+                         classes)

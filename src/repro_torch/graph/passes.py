@@ -14,6 +14,13 @@ lowering pipeline over a validated spec and returns a tuple of
   (4) conv impl selection — kernels.ops.plan_conv_launch, shared with
       dispatch.
 
+  (4b) the residual family — a RealConv becomes one ``stem_conv``
+      launch and each ResidualBinaryConv a ``residual_conv`` step: the
+      int32 dot of ``packed_conv2d`` (no threshold), then one
+      ``residual_epilogue`` launch that writes the float stream and the
+      packed signs of the next half-step's RSign (``sign_next``), so no
+      pack runs between half-steps;
+
   (5) tuning keys — every planned kernel launch records the key its
       launch plan is looked up under in the tuning table
       (``kernels.autotune``): ``plan_dense_launch`` / ``plan_conv_launch``
@@ -33,8 +40,9 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
-                                  BNNSpec, BNThreshold, IntegerEntry,
-                                  Logits, MaxPool)
+                                  BNNSpec, BNThreshold, GlobalAvgPool,
+                                  IntegerEntry, Logits, MaxPool, RealConv,
+                                  RealDense, ResidualBinaryConv)
 from repro_torch.kernels.fused_mlp import stack_plan
 from repro_torch.kernels.ops import plan_conv_launch, plan_dense_launch
 from repro_torch.kernels.packed_conv import smem_bytes as conv_smem_bytes
@@ -48,7 +56,8 @@ class PlanStep:
     """One executable step + the lowering decision that produced it.
 
     kind: integer_conv | float_pool | binarize | binary_conv |
-          packed_pool | flatten | fused_stack | dense | logits
+          packed_pool | flatten | fused_stack | dense | logits |
+          real_conv | residual_conv | global_pool | real_dense
     args: static operands for the executor (param indices, geometry,
           impl choices);  keys: the tuning keys of the step's launch.
     """
@@ -152,7 +161,19 @@ def plan_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
             nds = [dn[j] for j in s.args["fc_indices"]]
             keys.append(fused_key(batch, nds[0].n_in,
                                   [nd.n_out for nd in nds]))
+        elif s.kind == "residual_conv":
+            keys.append(_residual_launch(spec.residual_nodes[s.args["res_idx"]],
+                                         backend, batch)["key"])
     return tuple(keys)
+
+
+def _residual_launch(nd: ResidualBinaryConv, backend: Optional[str],
+                     batch: int) -> dict:
+    """The half-step's conv launch: the direct kernel's un-thresholded
+    mode (the dot goes to the residual epilogue)."""
+    return plan_conv_launch(nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.k, nd.k,
+                            stride=nd.stride, padding=nd.pad,
+                            backend=backend, pack_out=False, nb=batch)
 
 
 def batches_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
@@ -180,7 +201,7 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
         raise ValueError(f"conv_impl must be 'auto', 'direct', or "
                          f"'im2col', got {conv_impl!r}")
     steps = []
-    conv_i = fc_i = 0
+    conv_i = fc_i = stem_i = res_i = head_i = 0
     domain = "float" if len(spec.input_shape) == 3 else "packed_flat"
     h, w = (spec.input_shape[:2] if domain == "float" else (0, 0))
     nodes = spec.nodes
@@ -276,9 +297,57 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
             raise AssertionError(f"{nd.name}: BNThreshold not consumed "
                                  f"by its producer (validate() should "
                                  f"have caught this)")
+        elif isinstance(nd, RealConv):
+            sign_next = i + 1 < len(nodes) and \
+                isinstance(nodes[i + 1], ResidualBinaryConv)
+            steps.append(PlanStep(
+                "real_conv", nd.name,
+                {"stem_idx": stem_i, "stride": nd.stride, "pad": nd.pad,
+                 "sign_next": sign_next},
+                f"float32 conv {nd.c_in}->{nd.c_out} k{nd.kh} s{nd.stride} "
+                f"p{nd.pad} (zero pad, taps summed in a fixed order) + BN "
+                f"on the stem_conv kernel"
+                + ("; writes the next RSign's packed signs" if sign_next
+                   else "")))
+            stem_i += 1
+            h, w = nd.h_out, nd.w_out
+        elif isinstance(nd, ResidualBinaryConv):
+            d = _residual_launch(nd, backend, batch)
+            tiles = d["tiles"]
+            sign_next = i + 1 < len(nodes) and \
+                isinstance(nodes[i + 1], ResidualBinaryConv)
+            steps.append(PlanStep(
+                "residual_conv", nd.name,
+                {"res_idx": res_i, "k": nd.k, "stride": nd.stride,
+                 "pad": nd.pad, "shortcut": nd.shortcut,
+                 "sign_next": sign_next,
+                 "smem_bytes": conv_smem_bytes(tiles["bm"], tiles["bn"],
+                                               nd.k * nd.k * d["c32"],
+                                               d["c32"])},
+                f"packed conv {nd.c_in}->{nd.c_out} k{nd.k} s{nd.stride} "
+                f"p{nd.pad}, int32 dot (b1 tensor-core implicit GEMM, tile "
+                f"{tiles['bm']}x{tiles['bn']}), then the residual_epilogue "
+                f"kernel: {'zero-pad correction, ' if nd.pad else ''}BN, "
+                f"{nd.shortcut} shortcut, RPReLU"
+                + (", the next RSign's packed signs" if sign_next else ""),
+                (d["key"],)))
+            res_i += 1
+            h, w = nd.h_out, nd.w_out
+        elif isinstance(nd, GlobalAvgPool):
+            steps.append(PlanStep(
+                "global_pool", nd.name, {},
+                "float32 mean over the spatial axes"))
+        elif isinstance(nd, RealDense):
+            steps.append(PlanStep(
+                "real_dense", nd.name, {"head_idx": head_i},
+                f"float32 dense {nd.n_in}->{nd.n_out} + bias (cuBLAS, TF32 "
+                f"off)"))
+            head_i += 1
         elif isinstance(nd, Logits):
             steps.append(PlanStep(
                 "logits", nd.name, {},
-                f"int32 dot -> float32 logits [{nd.classes}]"))
+                f"int32 dot -> float32 logits [{nd.classes}]"
+                if isinstance(nodes[i - 1], BinaryDense) else
+                f"float32 logits [{nd.classes}]"))
         i += 1
     return tuple(steps)

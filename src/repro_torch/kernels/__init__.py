@@ -16,6 +16,10 @@ plain torch versions.
   entry_conv.py     the float entry conv (float32 FMAs) with its signs,
                     alpha taken in, packed in the epilogue
                     (csrc/entry_conv.cu); ``sign_weight_conv``
+  residual.py       ReActNet's float side: a residual half-step's
+                    epilogue (zero-pad correction, BN, shortcut, RPReLU,
+                    the next sign's bits) and the real stem conv with
+                    its BN and signs (csrc/residual_epilogue.cu)
   ops.py            public wrappers, dispatch through the registry
   _build.py         nvcc build, ctypes binding and launch counts
   csrc/binary.cuh   device helpers: threshold modes, ballot pack

@@ -1,0 +1,260 @@
+// The float side of a residual binary network (ReActNet): the epilogue
+// of one residual half-step, and the real-valued stem conv with its
+// batch norm, each in one pass that writes the float stream and the
+// packed signs of the next learned-threshold sign (RSign).
+//
+// residual_epilogue_kernel.  In: the int32 dot of packed_conv2d's
+// un-thresholded mode [M, F] (M = N*HO*WO output pixels; -1 spatial
+// padding), the zero-padding correction corr [16, F] (or none for a 1x1
+// conv), the per-channel table [9, F] (alpha, BN mean, 1/sqrt(var+eps),
+// gamma, beta, the RPReLU's bias before and its slope, its bias after,
+// the next RSign's bias) and the shortcut stream.  Per element:
+//     d  = dot + corr[class(pixel), f]       (int32: the 0-padded dot)
+//     v  = ((float(d) * alpha - mean) * inv) * gamma + beta
+//     o  = v + shortcut
+//     o  = o + move_a;  o = o > 0 ? o : o * slope;  o = o + move_b
+//     out[p, f] = o;    bit f of pixel p = (o + b_next) > 0
+// every float operation rounded on its own (__fmul_rn / __fadd_rn are
+// never contracted into an FMA), so the plain version in torch, which
+// runs the same operations in the same order, matches bit for bit.
+//
+// The correction: a padded tap of a -1 padded conv adds -sum_c sign(w)
+// where a 0 padded one adds 0, so dot_0 = dot_-1 + sum over the padded
+// taps of sum_c sign(w[tap, c, f]).  With a pad of 1 a pixel's padded
+// taps are the window's first and/or last row and column; the class
+// (top + 2*bottom) * 4 + (left + 2*right) indexes the 16 rows of corr.
+//
+// The shortcut: identity (x[p, f]), the 2x2 average of the twice larger
+// map (((x00 + x01) + x10) + x11) * 0.25, or, for a half-step that
+// doubles the channels, x[p, f mod C].
+//
+// stem_conv_bn_sign_kernel.  A real-valued 3x3 conv of float NHWC x
+// over 3 channels with float weights [3, 3, 3, F] and a zero pad,
+// summed in the fixed order (kh, kw, c) from 0 with one rounding a
+// product and one a sum, then
+// the batch norm ((acc - mean) * inv) * gamma + beta; writes the float
+// map and the signs (v + b_next) > 0.  Table [5, F]: mean, inv, gamma,
+// beta, b_next.
+//
+// Bound: memory.  Each thread owns one channel for the whole call, so
+// its per-channel constants sit in registers, and walks kIter pixels; a
+// warp covers 32 consecutive channels of one pixel, so the loads and
+// the float store are coalesced and the next RSign's word is one
+// ballot.
+#include <cstdint>
+
+#include "binary.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;          // most threads a block
+constexpr int kIter = 8;               // pixels a thread walks
+
+enum Shortcut { kIdentity = 0, kAvgPool = 1, kDuplicate = 2 };
+
+struct Geo {
+  int m, ho, wo, f, h_in, w_in, k, stride, pad, cs, has_corr, write_bits;
+};
+
+// threads of a block along the channels (a multiple of 32 dividing F)
+// and along the pixels
+__host__ __device__ inline int block_channels(int f) {
+  int cb = 256;
+  while (f % cb) cb /= 2;
+  return cb < 32 ? 32 : cb;
+}
+
+template <int SC>
+__global__ void __launch_bounds__(kThreads)
+residual_epilogue_kernel(const int32_t* __restrict__ dot,
+                         const int32_t* __restrict__ corr,
+                         const float* __restrict__ table,
+                         const float* __restrict__ sc,
+                         float* __restrict__ out,
+                         uint32_t* __restrict__ bits, Geo g) {
+  const int cb = block_channels(g.f);
+  const int pb = blockDim.x / cb;
+  const int f = blockIdx.y * cb + threadIdx.x % cb;
+  const int lane = threadIdx.x & 31;
+  const float alpha = table[f], mean = table[g.f + f],
+              inv = table[2 * g.f + f], gamma = table[3 * g.f + f],
+              beta = table[4 * g.f + f], move_a = table[5 * g.f + f],
+              slope = table[6 * g.f + f], move_b = table[7 * g.f + f],
+              b_next = table[8 * g.f + f];
+  const int hw = g.ho * g.wo;
+  const int fw = g.f / 32;
+  // a warp's lanes share the pixel (cb is a multiple of 32), so every
+  // branch on the pixel below is uniform over the warp; every index is
+  // below 2^31 (the wrapper checks m * f and the shortcut's size)
+  const int p0 = blockIdx.x * pb * kIter + threadIdx.x / cb;
+  for (int it = 0; it < kIter; ++it) {
+    const int p = p0 + it * pb;
+    if (p >= g.m) break;
+    int img = 0, oy = 0, ox = 0;
+    if (g.has_corr || SC == kAvgPool) {
+      img = p / hw;
+      const int r = p - img * hw;
+      oy = r / g.wo;
+      ox = r - oy * g.wo;
+    }
+    int d = dot[p * g.f + f];
+    if (g.has_corr) {
+      const int y0 = oy * g.stride - g.pad, x0 = ox * g.stride - g.pad;
+      const int cls = ((y0 < 0) + 2 * (y0 + g.k - 1 >= g.h_in)) * 4 +
+                      (x0 < 0) + 2 * (x0 + g.k - 1 >= g.w_in);
+      d += corr[cls * g.f + f];
+    }
+    float v = __fmul_rn((float)d, alpha);
+    v = __fmul_rn(__fsub_rn(v, mean), inv);
+    v = __fadd_rn(__fmul_rn(v, gamma), beta);
+    float s;
+    if (SC == kIdentity) {
+      s = sc[p * g.cs + f];
+    } else if (SC == kDuplicate) {
+      s = sc[p * g.cs + (f < g.cs ? f : f - g.cs)];
+    } else {
+      const int wi = 2 * g.wo;
+      const int b = ((img * 2 * g.ho + 2 * oy) * wi + 2 * ox) * g.cs + f;
+      const int row = wi * g.cs;
+      s = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(sc[b], sc[b + g.cs]),
+                                        sc[b + row]),
+                              sc[b + row + g.cs]),
+                    0.25f);
+    }
+    float o = __fadd_rn(__fadd_rn(v, s), move_a);
+    o = o > 0.f ? o : __fmul_rn(o, slope);
+    o = __fadd_rn(o, move_b);
+    out[p * g.f + f] = o;
+    if (g.write_bits) {
+      const uint32_t word =
+          __ballot_sync(REPRO_FULL_MASK, __fadd_rn(o, b_next) > 0.f);
+      if (lane == 0) bits[p * fw + f / 32] = word;
+    }
+  }
+}
+
+struct StemGeo {
+  int n, h, w, c, f, kh, kw, stride, pad, ho, wo, write_bits;
+};
+
+// the stem's epilogue: batch norm, the float map, the next RSign's word
+__device__ __forceinline__ void stem_store(float acc, const float* t, int f,
+                                           int ldf, int p, int fw,
+                                           int lane, float* out,
+                                           uint32_t* bits, int write_bits) {
+  float v = __fmul_rn(__fsub_rn(acc, t[0]), t[1]);
+  v = __fadd_rn(__fmul_rn(v, t[2]), t[3]);
+  out[p * ldf + f] = v;
+  if (write_bits) {
+    const uint32_t word =
+        __ballot_sync(REPRO_FULL_MASK, __fadd_rn(v, t[4]) > 0.f);
+    if (lane == 0) bits[p * fw + f / 32] = word;
+  }
+}
+
+// the taps known at compile time: the thread's column of weights lives
+// in registers and the taps unroll
+template <int KH, int KW, int C>
+__global__ void __launch_bounds__(kThreads)
+stem_conv_bn_sign_kernel(const float* __restrict__ x,
+                         const float* __restrict__ wt,
+                         const float* __restrict__ table,
+                         float* __restrict__ out,
+                         uint32_t* __restrict__ bits, StemGeo g) {
+  const int cb = block_channels(g.f);
+  const int pb = blockDim.x / cb;
+  const int f = blockIdx.y * cb + threadIdx.x % cb;
+  float wr[KH * KW * C];
+#pragma unroll
+  for (int t = 0; t < KH * KW * C; ++t) wr[t] = wt[t * g.f + f];
+  const float t5[5] = {table[f], table[g.f + f], table[2 * g.f + f],
+                       table[3 * g.f + f], table[4 * g.f + f]};
+  const int lane = threadIdx.x & 31;
+  const int hw = g.ho * g.wo;
+  const int m = g.n * hw;          // m * f < 2^31 (the wrapper checks)
+  const int p0 = blockIdx.x * pb * kIter + threadIdx.x / cb;
+  for (int it = 0; it < kIter; ++it) {
+    const int p = p0 + it * pb;
+    if (p >= m) break;
+    const int img = p / hw, r = p - img * hw;
+    const int oy = r / g.wo, ox = r - oy * g.wo;
+    const int y0 = oy * g.stride - g.pad, x0 = ox * g.stride - g.pad;
+    const float* xi = x + img * g.h * g.w * C;
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < KH; ++i) {
+      const int iy = y0 + i;
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        const int ix = x0 + j;
+        const bool in = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+        const float* px = xi + (in ? (iy * g.w + ix) * C : 0);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          acc = __fadd_rn(acc, __fmul_rn(in ? px[c] : 0.f,
+                                         wr[(i * KW + j) * C + c]));
+      }
+    }
+    stem_store(acc, t5, f, g.f, p, g.f / 32, lane, out, bits, g.write_bits);
+  }
+}
+
+dim3 grid_of(long long m, int f) {
+  const int cb = block_channels(f);
+  const int pb = kThreads / cb;
+  return dim3((unsigned)((m + (long long)pb * kIter - 1) / (pb * kIter)),
+              f / cb);
+}
+
+}  // namespace
+
+// dot, out [m, f]; corr [16, f] or NULL; table [9, f]; sc the shortcut
+// map ([m, cs], or [N, 2*ho, 2*wo, cs] for the average); bits [m, f/32]
+// or NULL.  f % 32 == 0; shortcut 0 identity, 1 2x2 average, 2 f mod cs.
+extern "C" int residual_epilogue_launch(const int32_t* dot,
+                                        const int32_t* corr,
+                                        const float* table, const float* sc,
+                                        float* out, uint32_t* bits, int m,
+                                        int ho, int wo, int f, int h_in,
+                                        int w_in, int k, int stride, int pad,
+                                        int cs, int shortcut,
+                                        cudaStream_t stream) {
+  if (m == 0) return 0;
+  if (f % 32 || f == 0) return (int)cudaErrorInvalidValue;
+  const Geo g{m, ho, wo, f, h_in, w_in, k, stride, pad, cs, corr != nullptr,
+              bits != nullptr};
+  const int cb = block_channels(f);
+  const dim3 grid = grid_of(m, f);
+  const int threads = (kThreads / cb) * cb;
+  if (shortcut == kIdentity)
+    residual_epilogue_kernel<kIdentity><<<grid, threads, 0, stream>>>(
+        dot, corr, table, sc, out, bits, g);
+  else if (shortcut == kAvgPool)
+    residual_epilogue_kernel<kAvgPool><<<grid, threads, 0, stream>>>(
+        dot, corr, table, sc, out, bits, g);
+  else if (shortcut == kDuplicate)
+    residual_epilogue_kernel<kDuplicate><<<grid, threads, 0, stream>>>(
+        dot, corr, table, sc, out, bits, g);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// x [n, h, w, 3] float NHWC, wt [3, 3, 3, f], table [5, f], out
+// [n*ho*wo, f], bits [n*ho*wo, f/32] or NULL
+extern "C" int stem_conv_launch(const float* x, const float* wt,
+                                const float* table, float* out,
+                                uint32_t* bits, int n, int h, int w, int c,
+                                int f, int kh, int kw, int stride, int pad,
+                                int ho, int wo, cudaStream_t stream) {
+  if ((long long)n * ho * wo == 0) return 0;
+  if (f % 32 || f == 0 || kh != 3 || kw != 3 || c != 3)
+    return (int)cudaErrorInvalidValue;
+  const StemGeo g{n, h, w, c, f, kh, kw, stride, pad, ho, wo,
+                  bits != nullptr};
+  stem_conv_bn_sign_kernel<3, 3, 3>
+      <<<grid_of((long long)n * ho * wo, f),
+         (kThreads / block_channels(f)) * block_channels(f), 0, stream>>>(
+          x, wt, table, out, bits, g);
+  return (int)cudaGetLastError();
+}

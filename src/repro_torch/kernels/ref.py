@@ -17,13 +17,19 @@ from repro_torch.kernels.packed import (WORD, pack_words, popcount_u32,
 
 @contextlib.contextmanager
 def full_fp32():
-    """Run float32 convolutions in full float32 on the card: cuDNN
-    defaults to TF32 (``cudnn.allow_tf32`` is True), which keeps about
-    three decimal digits and can flip a sign near zero."""
+    """Run float32 convolutions and products in full float32 on the
+    card: cuDNN defaults to TF32 (``cudnn.allow_tf32`` is True), which
+    keeps about three decimal digits and can flip a sign near zero, and
+    a caller may have turned TF32 on for cuBLAS."""
     cd = torch.backends.cudnn
-    with cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
-                  deterministic=cd.deterministic, allow_tf32=False):
-        yield
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
+                      deterministic=cd.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def xnor_gemm_ref(x: torch.Tensor, wp: torch.Tensor, alpha: torch.Tensor,

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.trace [--model binarynet alexnet]
         [--batches 1 32 256] [--graphed]
 
-Runs full-width BinaryNet CIFAR-10 or XNOR-AlexNet (random weights from
+Runs full-width BinaryNet CIFAR-10, XNOR-AlexNet or ReActNet-A (random
+weights from
 a seeded generator, integer images) through ``graph.compile(...).apply``
 — or, with ``--graphed``, through its CUDA graph
 (``graph.replay.GraphedApply``, captured before the trace), replayed —
@@ -30,19 +31,20 @@ import json
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import graph
 from repro_torch.core.workloads import WORKLOADS, Workload
+from repro_torch.graph.ir import BNNSpec, reactnet_a
 from repro_torch.graph.replay import GraphedApply
 from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
                                        DISPATCHER, LAUNCH, RECOVER, RESOLVE,
                                        SYNC, Span)
 
-# kernel-name fragment -> group: the port's six kernels by symbol, then
+# kernel-name fragment -> group: the port's eight kernels by symbol, then
 # the float entry convs left to cuDNN (the kernels cuDNN chose, with its
 # layout transposes and FFT stages) and torch's own kernels (elementwise,
 # pools, copies); the first fragment a name holds decides
@@ -53,10 +55,12 @@ GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("popcount_gemm_kernel", "popcount_gemm"),
           ("xnor_gemm_kernel", "xnor_gemm"),
           ("entry_convolve_bits_kernel", "entry_conv"),
+          ("residual_epilogue_kernel", "residual_epilogue"),
+          ("stem_conv_", "stem_conv"),
           ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
           ("xmma_", CUDNN), ("flip_filter", CUDNN),
           ("at::native::", TORCH))
-PORT_GROUPS = GROUPS[:6]          # the port's own kernels
+PORT_GROUPS = GROUPS[:8]          # the port's own kernels
 
 
 def _device_us(e) -> float:
@@ -218,8 +222,12 @@ def label_gaps(gaps: Iterable[Tuple[int, int]], spans: Sequence[Span],
     return out
 
 
-def trace_forward(workload: Workload, batch: int, iters: int = 20,
-                  graphed: bool = False) -> Dict:
+# the models ``--model`` takes: the paper's workloads and ReActNet-A
+MODELS = {**WORKLOADS, "reactnet": reactnet_a()}
+
+
+def trace_forward(workload: Union[Workload, BNNSpec], batch: int,
+                  iters: int = 20, graphed: bool = False) -> Dict:
     cb = graph.compile(workload, batch=batch)
     params = cb.init(torch.Generator().manual_seed(0))
     x = torch.randint(-3, 4, (batch, *cb.spec.input_shape),
@@ -253,7 +261,7 @@ def trace_forward(workload: Workload, batch: int, iters: int = 20,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=sorted(WORKLOADS), nargs="+",
+    ap.add_argument("--model", choices=sorted(MODELS), nargs="+",
                     default=["binarynet"])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 256])
     ap.add_argument("--graphed", action="store_true",
@@ -270,7 +278,7 @@ def main() -> None:
     for model in args.model:
         out = []
         for b in args.batches:
-            r = trace_forward(WORKLOADS[model], b, graphed=args.graphed)
+            r = trace_forward(MODELS[model], b, graphed=args.graphed)
             out.append(r)
             how = "replayed" if args.graphed else "eager"
             print(f"{smi}: {model} {how} B={b}: wall "

@@ -1,0 +1,496 @@
+"""ReActNet on the port: residual binary half-steps with learned sign
+thresholds (RSign), RPReLU and a float shortcut stream, held against
+the plain reference ``repro_torch/reference/reactnet.py`` (the JAX
+package has no such model).
+
+On the CPU: the zero-padding correction (``packed_conv2d``'s -1 padded
+dot plus the correction is the zero-padded +-1 conv, exactly, at every
+border class); each half-step kind and the stem bit for bit against the
+reference, float stream and packed signs; a small spec of the same
+structure end to end within the check's tolerance; the IR's rules; the
+plan's launches, description and byte model; the audit; a CPU server
+round trip; and that the reference imports only torch.  The tests
+marked ``gpu`` hold the kernels bit for bit against their plain
+versions at every ReActNet-A half-step shape, the full-width forward
+replayed as a CUDA graph against the reference, and a ``BNNServer``
+round trip; they skip, inside the ``cuda`` fixture, on a host without
+a CUDA device.  Run them on a GPU host with
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_reactnet.py
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# the suite runs several workers on one host: one torch thread each
+torch.set_num_threads(1)
+
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import graph  # noqa: E402
+from repro_torch.analysis.audit import expected_launches  # noqa: E402
+from repro_torch.graph import ir  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import residual as kres  # noqa: E402
+from repro_torch.kernels.packed import PackedArray  # noqa: E402
+from repro_torch.reference import reactnet as reference  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def table_of(spec):
+    """The spec as the reference's layer table."""
+    rows = []
+    for nd in spec.nodes:
+        if isinstance(nd, ir.RealConv):
+            rows.append({"op": "real_conv", "name": nd.name, "c_in": nd.c_in,
+                         "c_out": nd.c_out, "k": nd.kh, "stride": nd.stride,
+                         "pad": nd.pad, "in_hw": nd.h_in,
+                         "out_hw": nd.h_out})
+        elif isinstance(nd, ir.ResidualBinaryConv):
+            rows.append({"op": "conv", "kind": "binary", "name": nd.name,
+                         "c_in": nd.c_in, "c_out": nd.c_out, "k": nd.k,
+                         "stride": nd.stride, "pad": nd.pad,
+                         "in_hw": nd.h_in, "out_hw": nd.h_out,
+                         "shortcut": nd.shortcut})
+        elif isinstance(nd, ir.GlobalAvgPool):
+            rows.append({"op": "avgpool", "name": nd.name})
+        elif isinstance(nd, ir.RealDense):
+            rows.append({"op": "real_dense", "name": nd.name,
+                         "n_in": nd.n_in, "n_out": nd.n_out})
+    return rows
+
+
+def weights_of(raw):
+    """The published-form tree as the reference's list of weights."""
+    return list(raw["stem"]) + list(raw["res"]) + list(raw["head"])
+
+
+def _images(n, hw, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (n, hw, hw, 3), generator=g
+                         ).to(torch.float32).to(device)
+
+
+def _half_step_params(c, f, k, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(n, lo, hi):
+        return (lo + (hi - lo) * torch.rand(n, generator=g)).to(device)
+    w = torch.randn(k, k, c, f, generator=g).to(device)
+    alpha = w.abs().mean(dim=(0, 1, 2))
+    var = alpha * alpha * k * k * c
+    return {"b_in": u(c, -0.2, 0.2), "w": w,
+            "mean": u(f, -0.5, 0.5) * var.sqrt(), "var": u(f, 0.5, 2) * var,
+            "gamma": u(f, 0.5, 1.5), "beta": u(f, -0.5, 0.5),
+            "move_a": u(f, -0.2, 0.2), "slope": u(f, 0.05, 0.35),
+            "move_b": u(f, -0.2, 0.2)}
+
+
+# ------------------------------------------------------------------ #
+# the zero-padding correction                                          #
+# ------------------------------------------------------------------ #
+# (K, stride, C, map sizes H x W): every border class (a map of 1 pads
+# both sides), C of one and two words
+SIDES = [(h, w) for h in (1, 2, 5) for w in (1, 2, 5)]
+CORR_CASES = [(3, 1, 32, SIDES), (3, 1, 64, [(3, 4), (4, 3)]),
+              (3, 2, 32, [(4, 5), (5, 4), (1, 2)]), (3, 2, 64, [(6, 2)]),
+              (1, 1, 32, [(3, 2)]), (1, 1, 64, [(4, 4)])]
+
+
+@pytest.mark.parametrize("k,stride,c,sizes", CORR_CASES)
+def test_dot_plus_correction_is_the_zero_padded_conv(k, stride, c, sizes):
+    g = torch.Generator().manual_seed(k * 100 + stride * 10 + c)
+    f = 32
+    w = torch.randn(k, k, c, f, generator=g)
+    wf = PackedArray.pack(w, axis=2)
+    signs = wf.unpack(torch.float32)
+    pad = (k - 1) // 2
+    corr = kres.zero_pad_correction(signs) if pad else None
+    for h, wi in sizes:
+        a = torch.where(torch.randn(2, h, wi, c, generator=g) > 0, 1.0,
+                        -1.0)
+        dot = ops.binary_conv2d(PackedArray.pack(a, axis=-1), wf,
+                                stride=stride, padding=pad)
+        ho, wo = dot.shape[1], dot.shape[2]
+        want = F.conv2d(a.permute(0, 3, 1, 2), signs.permute(3, 2, 0, 1),
+                        stride=stride, padding=pad)
+        want = torch.round(want).to(torch.int32).permute(0, 2, 3, 1)
+        if corr is not None:
+            cls = kres.border_classes(ho, wo, h, wi, k, stride, pad)
+            dot = dot + corr[cls]
+        assert torch.equal(dot, want)
+
+
+def test_border_classes_cover_all_sixteen():
+    seen = set()
+    for h, w in SIDES:
+        seen |= set(kres.border_classes(h, w, h, w, 3, 1, 1).flatten()
+                    .tolist())
+    assert seen == set(range(16))
+
+
+# ------------------------------------------------------------------ #
+# half-steps and the stem against the reference                        #
+# ------------------------------------------------------------------ #
+# (C_in, C_out, K, stride, shortcut, H)
+HALF_STEPS = [(32, 32, 3, 1, "identity", 6), (64, 64, 3, 2, "avgpool", 6),
+              (32, 64, 1, 1, "duplicate", 5), (64, 64, 1, 1, "identity", 3),
+              (64, 128, 1, 1, "duplicate", 2)]
+
+
+def _port_half_step(x, p, c, f, k, stride, shortcut, h, backend, b_next):
+    pad = (k - 1) // 2
+    wf = PackedArray.pack(p["w"], axis=2)
+    a = PackedArray.pack(x + p["b_in"], axis=-1)
+    dot = ops.binary_conv2d(a, wf, stride=stride, padding=pad,
+                            backend=backend)
+    corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if pad \
+        else None
+    table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
+                                p["var"], p["gamma"], p["beta"],
+                                p["move_a"], p["slope"], p["move_b"], b_next)
+    return kres.residual_epilogue(dot, corr, table, x, shortcut=shortcut,
+                                  k=k, stride=stride, pad=pad, h_in=h,
+                                  w_in=h)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+@pytest.mark.parametrize("c,f,k,stride,shortcut,h", HALF_STEPS)
+def test_half_step_is_the_reference_bit_for_bit(c, f, k, stride, shortcut,
+                                               h, backend):
+    g = torch.Generator().manual_seed(c + f + k + h)
+    x = torch.randn(3, h, h, c, generator=g) * 2.0
+    p = _half_step_params(c, f, k, seed=h)
+    b_next = torch.rand(f, generator=g) - 0.5
+    out, bits = _port_half_step(x, p, c, f, k, stride, shortcut, h, backend,
+                                b_next)
+    layer = {"name": "step", "stride": stride, "pad": (k - 1) // 2,
+             "shortcut": shortcut}
+    want = reference._half_step(x, p, layer)
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    assert torch.equal(bits, PackedArray.pack(want + b_next, axis=-1).words)
+
+
+def test_stem_is_the_reference_bit_for_bit():
+    g = torch.Generator().manual_seed(5)
+    x = _images(2, 9, seed=5)
+    w = torch.randn(3, 3, 3, 32, generator=g)
+    bn = {"mean": torch.randn(32, generator=g) * 50,
+          "var": torch.rand(32, generator=g) * 1e4 + 1e3,
+          "gamma": torch.rand(32, generator=g) + 0.5,
+          "beta": torch.rand(32, generator=g) - 0.5}
+    b_next = torch.rand(32, generator=g) - 0.5
+    table = kres.stem_table(bn["mean"], bn["var"], bn["gamma"], bn["beta"],
+                            b_next)
+    out, bits = kres.stem_conv(x, w, table, stride=2, pad=1)
+    layer = {"k": 3, "stride": 2, "pad": 1, "out_hw": 5}
+    want = reference._stem(x, {"w": w, **bn}, layer, "exact")
+    assert torch.equal(out, want)
+    assert torch.equal(bits, PackedArray.pack(want + b_next, axis=-1).words)
+
+
+# ------------------------------------------------------------------ #
+# the small spec end to end                                            #
+# ------------------------------------------------------------------ #
+def _gap(got, want):
+    """Each image's widest logit gap over its largest reference logit."""
+    return ((got - want).abs().amax(dim=1) /
+            want.abs().amax(dim=1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_small_spec_within_tolerance_of_the_reference(seed):
+    spec = ir.reactnet_small()
+    cb = graph.compile(spec, device="cpu", batch=4)
+    raw = cb.draw_residual(torch.Generator().manual_seed(seed))
+    params = cb.bind(raw)
+    x = _images(4, 16, seed=seed + 10)
+    got = cb.apply(params, x)
+    assert torch.equal(got, cb.with_backend("torch").apply(params, x))
+    want = reference.logits(table_of(spec), weights_of(raw), x)
+    assert got.shape == want.shape == (4, 10)
+    assert float(_gap(got, want).max()) <= reference.LOGIT_REL_TOL
+    # the stream before the head is the reference's, bit for bit
+    head, _ = cb.split("avgpool")
+    stream = head.apply(params, x)
+    ref = x
+    for row, w in zip(table_of(spec)[:-2], weights_of(raw)):
+        ref = reference._stem(ref, w, row, "exact") \
+            if row["op"] == "real_conv" else reference._half_step(ref, w, row)
+    assert torch.equal(stream, ref)
+
+
+def test_valid_rows_keep_the_first_rows():
+    spec = ir.reactnet_small()
+    cb = graph.compile(spec, device="cpu", batch=4)
+    params = cb.init(torch.Generator().manual_seed(3))
+    x = _images(4, 16, seed=4)
+    assert torch.equal(cb.apply(params, x, valid_rows=3),
+                       cb.apply(params, x)[:3])
+
+
+# ------------------------------------------------------------------ #
+# the IR's rules                                                       #
+# ------------------------------------------------------------------ #
+def _chain(*steps, hw=8):
+    stem = ir.RealConv("stem", 3, 3, 3, 32, 2 * hw, 2 * hw, hw, hw, 2, 1)
+    tail = [ir.GlobalAvgPool("pool"), ir.RealDense("fc", steps[-1].c_out, 10),
+            ir.Logits("logits", 10)]
+    return ir.BNNSpec("t", (2 * hw, 2 * hw, 3), (stem, *steps, *tail))
+
+
+BAD = [
+    ("3x3 over 3 channels", lambda: ir.BNNSpec("t", (16, 16, 3), (
+        ir.RealConv("stem", 5, 5, 3, 32, 16, 16, 8, 8, 2, 2),
+        ir.GlobalAvgPool("p"), ir.RealDense("fc", 32, 10),
+        ir.Logits("l", 10)))),
+    ("expects", lambda: _chain(ir.ResidualBinaryConv(
+        "s", 3, 64, 64, 8, 8, 8, 8, 1, 1, "identity"))),          # width
+    ("keeps its width or doubles", lambda: _chain(ir.ResidualBinaryConv(
+        "s", 1, 32, 96, 8, 8, 8, 8, 1, 0, "duplicate"))),         # 3C
+    ("odd map", lambda: _chain(ir.ResidualBinaryConv(
+        "s", 3, 32, 32, 7, 7, 4, 4, 2, 1, "avgpool"), hw=7)),     # odd
+    ("takes the 'avgpool' shortcut", lambda: _chain(ir.ResidualBinaryConv(
+        "s", 3, 32, 32, 8, 8, 4, 4, 2, 1, "identity"))),
+    ("pad 1", lambda: _chain(ir.ResidualBinaryConv(
+        "s", 3, 32, 32, 8, 8, 6, 6, 1, 0, "identity"))),
+    ("writes its sign bits", lambda: ir.BNNSpec("t", (8, 8, 32), (
+        ir.ResidualBinaryConv("s", 3, 32, 32, 8, 8, 8, 8, 1, 1, "identity"),
+        ir.GlobalAvgPool("p"), ir.RealDense("fc", 32, 10),
+        ir.Logits("l", 10)))),
+    ("followed by Logits", lambda: ir.BNNSpec("t", (16, 16, 3), (
+        ir.RealConv("stem", 3, 3, 3, 32, 16, 16, 8, 8, 2, 1),
+        ir.GlobalAvgPool("p"), ir.RealDense("fc", 32, 10)))),
+]
+
+
+@pytest.mark.parametrize("message,build", BAD, ids=[b[0] for b in BAD])
+def test_validate_rejects_a_malformed_chain(message, build):
+    with pytest.raises(ValueError, match=message):
+        build().validate()
+
+
+def test_reactnet_a_is_the_published_network():
+    spec = ir.reactnet_a()
+    res = spec.residual_nodes
+    assert len(res) == 26 and spec.input_shape == (224, 224, 3)
+    assert [nd.c_out for nd in res[1::2]] == list(ir.REACTNET_A_WIDTHS[1:])
+    assert [i + 1 for i, nd in enumerate(res[0::2]) if nd.stride == 2] == \
+        [2, 4, 6, 12]
+    assert res[-1].h_out == 7 and spec.head_nodes[0].n_out == 1000
+    shortcuts = {nd.shortcut for nd in res}
+    assert shortcuts == {"identity", "avgpool", "duplicate"}
+    # 4.82e9 BOPs, as published: 3x3 convs 4.277 G, 1x1 convs 0.54 G
+    b3 = sum(nd.k ** 2 * nd.c_in * nd.c_out * nd.h_out ** 2 for nd in res
+             if nd.k == 3)
+    b1 = sum(nd.c_in * nd.c_out * nd.h_out ** 2 for nd in res if nd.k == 1)
+    assert round(b3 / 1e9, 3) == 4.277 and round(b1 / 1e9, 2) == 0.54
+    assert round((b3 + b1) / 1e9, 2) == 4.82
+
+
+# ------------------------------------------------------------------ #
+# plan, launches, description, byte model, audit, mapping              #
+# ------------------------------------------------------------------ #
+def test_plan_launches_and_description():
+    cb = graph.compile(ir.reactnet_a(), device="cpu", batch=256)
+    kinds = [s.kind for s in cb.plan]
+    assert kinds.count("residual_conv") == 26
+    assert kinds[0] == "real_conv" and kinds[-3:] == ["global_pool",
+                                                      "real_dense", "logits"]
+    assert cb.launch_count() == 53
+    assert expected_launches(cb, 256) == {"stem_conv": 1,
+                                          "packed_conv2d": 26,
+                                          "residual_epilogue": 26}
+    text = cb.describe()
+    assert "residual_epilogue" in text and "stem_conv" in text
+    sign_next = [s.args["sign_next"] for s in cb.plan
+                 if s.kind in ("real_conv", "residual_conv")]
+    assert sign_next == [True] * 26 + [False]
+    t = cb.traffic(1)
+    assert [ly["name"] for ly in t["layers"]] == \
+        [s.name for s in cb.plan if s.kind in ("real_conv", "residual_conv",
+                                               "real_dense")]
+    assert len(cb.tuning_keys) == 26
+    assert cb.tuning_keys_for_batch(32) == graph.compile(
+        ir.reactnet_a(), device="cpu", batch=32).tuning_keys
+
+
+def test_audit_passes_on_the_small_spec():
+    cb = graph.compile(ir.reactnet_small(), device="cpu", batch=2)
+    report = cb.audit(batch=2, max_batch=8)
+    assert report.ok
+
+
+def test_tulip_mapping_refuses_the_residual_family():
+    cb = graph.compile(ir.reactnet_small(), device="cpu")
+    with pytest.raises(ValueError, match="outside the TULIP mapping"):
+        cb.tulip_mapping()
+
+
+def test_cpu_server_round_trip():
+    from repro_torch.serving import BNNServer
+
+    cb = graph.compile(ir.reactnet_small(), device="cpu", batch=8)
+    params = cb.init(torch.Generator().manual_seed(7))
+    x = _images(5, 16, seed=8)
+    srv = BNNServer(cb, params, max_batch=8, device="cpu")
+    srv.start()
+    try:
+        got = srv.submit(x).result(timeout=60)
+    finally:
+        srv.stop()
+    assert torch.equal(got, cb.apply(params, x))
+
+
+def test_reference_imports_only_torch():
+    path = ROOT / "src" / "repro_torch" / "reference" / "reactnet.py"
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0
+            names.add(node.module.split(".")[0])
+    assert names <= {"__future__", "contextlib", "typing", "torch"}
+    assert "torch" in names
+
+
+# ------------------------------------------------------------------ #
+# on the card                                                          #
+# ------------------------------------------------------------------ #
+def _reactnet_a_steps():
+    spec = ir.reactnet_a()
+    return [(nd.c_in, nd.c_out, nd.k, nd.stride, nd.shortcut, nd.h_in)
+            for nd in spec.residual_nodes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,f,k,stride,shortcut,h",
+                         sorted(set(_reactnet_a_steps())))
+def test_residual_epilogue_kernel_bit_for_bit(cuda, c, f, k, stride,
+                                              shortcut, h):
+    g = torch.Generator().manual_seed(c + f + h)
+    n = 2
+    ho = (h - 1) // stride + 1
+    dot = torch.randint(-9 * c, 9 * c + 1, (n, ho, ho, f), generator=g,
+                        dtype=torch.int32)
+    wf = PackedArray.pack(torch.randn(k, k, c, f, generator=g), axis=2)
+    corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if k == 3 \
+        else None
+    p = _half_step_params(c, f, k, seed=h)
+    table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
+                                p["var"], p["gamma"], p["beta"],
+                                p["move_a"], p["slope"], p["move_b"],
+                                torch.rand(f, generator=g) - 0.5)
+    sc_c = f // 2 if shortcut == "duplicate" else f
+    sc = torch.randn(n, h if shortcut == "avgpool" else ho,
+                     h if shortcut == "avgpool" else ho, sc_c, generator=g)
+    args = dict(shortcut=shortcut, k=k, stride=stride, pad=(k - 1) // 2,
+                h_in=h, w_in=h)
+    want = kres.residual_epilogue_plain(dot, corr, table, sc, **args)
+    _build.reset_launch_counts()
+    got = kres.residual_epilogue(
+        dot.to(cuda), None if corr is None else corr.to(cuda),
+        table.to(cuda), sc.to(cuda), **args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["residual_epilogue"] == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,f,stride,pad", [(224, 32, 2, 1),
+                                             (17, 96, 2, 0), (19, 64, 1, 1)])
+def test_stem_kernel_bit_for_bit(cuda, hw, f, stride, pad):
+    """ReActNet's stem, and other widths, strides and pads."""
+    k, c = 3, 3
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (3, hw, hw, c), generator=g).to(torch.float32)
+    w = torch.randn(k, k, c, f, generator=g)
+    table = kres.stem_table(torch.randn(f, generator=g) * 100,
+                            torch.rand(f, generator=g) * 1e5 + 1e4,
+                            torch.rand(f, generator=g) + 0.5,
+                            torch.rand(f, generator=g) - 0.5,
+                            torch.rand(f, generator=g) - 0.5)
+    want = kres.stem_conv_plain(x, w, table, stride=stride, pad=pad)
+    _build.reset_launch_counts()
+    got = kres.stem_conv(x.to(cuda), w.to(cuda), table.to(cuda),
+                         stride=stride, pad=pad)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["stem_conv"] == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_full_width_graphed_forward_against_the_reference(cuda):
+    spec = ir.reactnet_a()
+    cb = graph.compile(spec, batch=8)
+    raw = cb.draw_residual(torch.Generator().manual_seed(0))
+    params = cb.bind(raw)
+    x = _images(6, 224, seed=1, device=cuda)
+    g = graph.GraphedApply(cb, params, batch=8, valid_rows=6)
+    _build.reset_launch_counts()
+    got = g(x)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["residual_epilogue"] == 26 and counts["stem_conv"] == 1
+    assert counts["packed_conv2d"] == 26
+    want = reference.logits(table_of(spec), weights_of(raw), x)
+    assert float(_gap(got, want).max()) <= reference.LOGIT_REL_TOL
+    # the float stream is the eager forward's bit for bit; the head's sums
+    # may take another order at another batch
+    head, _ = cb.split("avgpool")
+    assert torch.equal(graph.GraphedApply(head, params, batch=8,
+                                          valid_rows=6)(x),
+                       head.apply(params, x))
+
+
+@pytest.mark.gpu
+def test_audit_on_the_card(cuda):
+    """One eager forward launches exactly the plan's kernels (1 stem, a
+    packed_conv2d and a residual_epilogue a half-step), and the plan's
+    shared memory re-derives."""
+    cb = graph.compile(ir.reactnet_small(), batch=4)
+    report = cb.audit(batch=4, max_batch=8)
+    launches = next(c for c in report.checks if c.name == "launches")
+    assert report.ok and not launches.skipped
+    assert report.launches == {"stem_conv": 1, "packed_conv2d": 6,
+                               "residual_epilogue": 6}
+
+
+@pytest.mark.gpu
+def test_server_round_trip_on_the_card(cuda):
+    from repro_torch.serving import BNNServer
+
+    cb = graph.compile(ir.reactnet_a(), batch=8)
+    params = cb.init(torch.Generator().manual_seed(2))
+    x = _images(5, 224, seed=3, device=cuda)
+    srv = BNNServer(cb, params, max_batch=8, prewarm=True)
+    srv.start()
+    try:
+        got = srv.submit(x).result(timeout=300)
+    finally:
+        srv.stop()
+    want = cb.apply(params, x)
+    assert float(_gap(got, want).max()) <= reference.LOGIT_REL_TOL
+
+
+def test_every_half_step_shape_is_covered_on_the_card():
+    """The card's kernel test runs each distinct ReActNet-A half-step
+    shape: C = 32 (one word), 1x1 and 3x3, stride 2, F = 2C."""
+    shapes = set(_reactnet_a_steps())
+    assert any(c == 32 for c, *_ in shapes)
+    assert {(k, s) for _, _, k, s, _, _ in shapes} == {(3, 1), (3, 2),
+                                                       (1, 1)}
+    assert any(f == 2 * c for c, f, *_ in shapes)
