@@ -8,14 +8,15 @@ shows and re-derives the plan's own claims:
   in one eager ``apply`` equal ``launch_count()``, kernel by kernel
   (each plan step's kernel: pack, packed_conv2d or its im2col
   popcount_gemm, fused_binary_mlp, popcount_gemm, entry_conv,
-  stem_conv, and a residual half-step's packed_conv2d and
-  residual_epilogue).  On the card only;
+  stem_conv, and a residual half-step's fused residual_conv).  On the
+  card only;
   the CPU's wrappers take their plain versions and launch nothing.
 * **int32-escape** — under a ``TorchDispatchMode`` that records the
   dtype, shape and device of every tensor ``apply`` creates, no int32
   tensor of a shape from :func:`banned_int32_shapes` (the activations
   an unfused chain would write: NHWC conv planes and their [B, M, N]
-  twins, thresholded dense and fused-stack activations) exists on the
+  twins, a residual half-step's int32 dot, thresholded dense and
+  fused-stack activations) exists on the
   card.  This stands in for walking the jaxpr.  Skipped on the
   ``"torch"`` backend (as the reference skips ``"xla"``) and on the
   CPU, where the plain versions form the int32 dot by design.
@@ -45,6 +46,7 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.graph.passes import _dense_nodes, fused_key
 from repro_torch.kernels import _build, autotune, fused_mlp, packed_conv
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import residual as kres
 from repro_torch.kernels.packed import WORD, get_backend
 from repro_torch.serving.bucketing import dispatch_grid, trace_bound
 
@@ -137,8 +139,9 @@ class TensorLog(TorchDispatchMode):
 def banned_int32_shapes(compiled: Any, batch: int) -> Set[tuple]:
     """The int32 activation shapes an *unfused* chain would write to
     device memory under this plan at ``batch`` rows: NHWC conv planes
-    and their batch-major [B, M, N] twins, and every thresholded dense
-    and fused-stack activation.  None may exist on the card.  As in the
+    and their batch-major [B, M, N] twins (a residual half-step's int32
+    dot among them), and every thresholded dense and fused-stack
+    activation.  None may exist on the card.  As in the
     reference, the flattened 2-D [B*M, N] forms and the classifier
     head's int32 dot are not banned."""
     dense = _dense_nodes(compiled.spec)
@@ -147,6 +150,10 @@ def banned_int32_shapes(compiled: Any, batch: int) -> Set[tuple]:
     for step in compiled.plan:
         if step.kind == "binary_conv":
             nd = conv_nodes[step.args["conv_idx"]]
+            banned.add((batch, nd.h_out, nd.w_out, nd.c_out))
+            banned.add((batch, nd.h_out * nd.w_out, nd.c_out))
+        elif step.kind == "residual_conv":
+            nd = compiled.spec.residual_nodes[step.args["res_idx"]]
             banned.add((batch, nd.h_out, nd.w_out, nd.c_out))
             banned.add((batch, nd.h_out * nd.w_out, nd.c_out))
         elif step.kind == "dense" and step.args["pack_out"]:
@@ -180,8 +187,7 @@ def expected_launches(compiled: Any, batch: int) -> Dict[str, int]:
         elif step.kind == "real_conv":
             add("stem_conv")
         elif step.kind == "residual_conv":
-            add("packed_conv2d")
-            add("residual_epilogue")
+            add("residual_conv")
         elif step.kind == "fused_stack":
             nds = [dense[j] for j in step.args["fc_indices"]]
             sp = fused_mlp.stack_plan(batch, nds[0].n_in,
@@ -300,7 +306,9 @@ def _check_plan_smem(compiled: Any, batch: int) -> AuditCheck:
                 nd.h_in, nd.w_in, nd.c_in, nd.c_out, *k,
                 stride=step.args["stride"], padding=step.args["pad"],
                 pack_out=not res, impl="auto", nb=batch)
-            e = autotune.resolve(d["key"], device)
+            e = kres.residual_tile_plan(*d["key"][2:],
+                                        autotune._sms(device)) if res \
+                else autotune.resolve(d["key"], device)
             k32 = k[0] * k[1] * d["c32"]
             smem = packed_conv.smem_bytes(e["bm"], e["bn"], k32, d["c32"])
             audited += 1

@@ -100,11 +100,11 @@ class CompiledBNN:
                 f"(layer by layer: {self.legacy_launch_count()})")
         lines = [f"  {s}" for s in self.plan]
         if self.spec.residual_nodes:
-            lines.append(f"  ({len(self.spec.residual_nodes)} half-steps: "
-                         f"{len(self.spec.residual_nodes)} packed_conv2d + "
-                         f"{len(self.spec.residual_nodes)} residual_epilogue "
-                         f"launches; the float stream stays float32, the "
-                         f"signs between half-steps 1 bit)")
+            lines.append(f"  ({len(self.spec.residual_nodes)} half-steps, "
+                         f"one residual_conv launch each "
+                         f"(packed_conv_kernel_residual_epilogue: the "
+                         f"int32 dot stays on chip); the float stream stays "
+                         f"float32, the signs between half-steps 1 bit)")
         for i, s in enumerate(self.plan):
             if self._entry_packs(i):
                 lines[i] += (" on the entry_conv kernel, signs packed in "
@@ -115,19 +115,20 @@ class CompiledBNN:
 
     def launch_count(self) -> int:
         """Kernel launches per forward pass under this plan: one a
-        binarize, binary conv, dense, fused stack and real (stem) conv
-        step, two a residual half-step (packed_conv2d, then
-        residual_epilogue), where an entry conv that packs its own signs
-        (:meth:`_entry_packs`) launches in place of the binarize after
-        it (a float entry conv on cuDNN, pools, reshapes and the real
-        dense head are no kernels of the port)."""
-        return sum(2 if s.kind == "residual_conv" else
-                   s.kind in ("binarize", "binary_conv", "dense",
-                              "fused_stack", "real_conv") for s in self.plan)
+        binarize, binary conv, dense, fused stack, real (stem) conv and
+        residual half-step (the fused ``residual_conv``) step, where an
+        entry conv that packs its own signs (:meth:`_entry_packs`)
+        launches in place of the binarize after it (a float entry conv
+        on cuDNN, pools, reshapes and the real dense head are no kernels
+        of the port)."""
+        return sum(s.kind in ("binarize", "binary_conv", "dense",
+                              "fused_stack", "real_conv", "residual_conv")
+                   for s in self.plan)
 
     def legacy_launch_count(self) -> int:
         """Launches of a layer-by-layer chain: every fused_stack
-        segment unrolls to one launch per layer."""
+        segment unrolls to one launch per layer, and a residual
+        half-step to two (packed_conv2d, then residual_epilogue)."""
         return sum(len(s.args["fc_indices"]) if s.kind == "fused_stack"
                    else 2 if s.kind == "residual_conv"
                    else s.kind in ("binarize", "binary_conv", "dense",
@@ -402,16 +403,13 @@ class CompiledBNN:
             elif step.kind == "residual_conv":
                 nd = self.spec.residual_nodes[a["res_idx"]]
                 p = params["res"][a["res_idx"]]
-                dot = kops.binary_conv2d(
-                    PackedArray(bits, length=nd.c_in, axis=-1), p["wf"],
-                    stride=a["stride"], padding=a["pad"], backend=be)
-                epi = kres.residual_epilogue_plain if plain else \
-                    kres.residual_epilogue
-                h, bits = epi(dot, p.get("corr"), p["table"], h,
-                              shortcut=a["shortcut"], k=a["k"],
-                              stride=a["stride"], pad=a["pad"],
-                              h_in=nd.h_in, w_in=nd.w_in,
-                              write_bits=a["sign_next"])
+                signs = PackedArray(bits, length=nd.c_in, axis=-1)
+                kw = dict(shortcut=a["shortcut"], stride=a["stride"],
+                          pad=a["pad"], write_bits=a["sign_next"])
+                conv = kres.residual_conv_plain if plain \
+                    else kres.residual_conv
+                h, bits = conv(signs, p["wf"], p.get("corr"), p["table"], h,
+                               **kw)
             elif step.kind == "global_pool":
                 h = h.mean(dim=(1, 2))
             elif step.kind == "real_dense":
@@ -512,10 +510,11 @@ class CompiledBNN:
     def _residual_traffic(self, batch: int) -> List[Dict[str, Any]]:
         """The residual family's layers in :meth:`traffic`: the stem
         reads float pixels and writes the float stream and the signs; a
-        half-step reads the signs and the packed weights, writes and
-        reads the int32 dot, reads the shortcut and writes the stream
-        and the next signs; the head reads the stream and float
-        weights.  The bf16 baseline keeps every activation in bf16."""
+        half-step reads the signs and the packed weights, reads the
+        shortcut and writes the stream and the next signs (its int32
+        dot stays in the fused kernel's shared memory); the head reads
+        the stream and float weights.  The bf16 baseline keeps every
+        activation in bf16."""
         layers = []
         for nd in self.spec.stem_nodes:
             n_in = batch * nd.h_in * nd.w_in * nd.c_in
@@ -532,7 +531,7 @@ class CompiledBNN:
             n_sc = n_in if nd.shortcut == "avgpool" else \
                 n_out // (2 if nd.shortcut == "duplicate" else 1)
             layers.append({"name": nd.name,
-                           "packed_bytes": n_in // 8 + n_w // 8 + 8 * n_out
+                           "packed_bytes": n_in // 8 + n_w // 8
                            + 4 * n_sc + 4 * n_out + n_out // 8,
                            "bf16_bytes": 2 * (n_in + n_w + n_sc + n_out)})
         for nd in self.spec.head_nodes:

@@ -15,11 +15,12 @@ lowering pipeline over a validated spec and returns a tuple of
       dispatch.
 
   (4b) the residual family — a RealConv becomes one ``stem_conv``
-      launch and each ResidualBinaryConv a ``residual_conv`` step: the
-      int32 dot of ``packed_conv2d`` (no threshold), then one
-      ``residual_epilogue`` launch that writes the float stream and the
-      packed signs of the next half-step's RSign (``sign_next``), so no
-      pack runs between half-steps;
+      launch and each ResidualBinaryConv a ``residual_conv`` step: one
+      launch of ``packed_conv``'s fused kernel, the -1 padded dot of the
+      conv's mainloop kept in shared memory and the residual epilogue
+      on it, which writes the float stream and the packed signs of the
+      next half-step's RSign (``sign_next``), so no int32 dot reaches
+      device memory and no pack runs between half-steps;
 
   (5) tuning keys — every planned kernel launch records the key its
       launch plan is looked up under in the tuning table
@@ -46,6 +47,7 @@ from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
 from repro_torch.kernels.fused_mlp import stack_plan
 from repro_torch.kernels.ops import plan_conv_launch, plan_dense_launch
 from repro_torch.kernels.packed_conv import smem_bytes as conv_smem_bytes
+from repro_torch.kernels.residual import residual_tile_plan
 
 __all__ = ["PlanStep", "batches_tuning_keys", "build_plan",
            "fused_key", "plan_tuning_keys"]
@@ -169,8 +171,9 @@ def plan_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
 
 def _residual_launch(nd: ResidualBinaryConv, backend: Optional[str],
                      batch: int) -> dict:
-    """The half-step's conv launch: the direct kernel's un-thresholded
-    mode (the dot goes to the residual epilogue)."""
+    """The half-step's conv geometry and key (the direct kernel's
+    ``packed_conv`` key; the fused kernel's plan, ``residual_tile_plan``,
+    takes its rule and reads no entry of the tuning table)."""
     return plan_conv_launch(nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.k, nd.k,
                             stride=nd.stride, padding=nd.pad,
                             backend=backend, pack_out=False, nb=batch)
@@ -313,7 +316,9 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
             h, w = nd.h_out, nd.w_out
         elif isinstance(nd, ResidualBinaryConv):
             d = _residual_launch(nd, backend, batch)
-            tiles = d["tiles"]
+            k32 = nd.k * nd.k * d["c32"]
+            tiles = residual_tile_plan(batch * nd.h_out * nd.w_out,
+                                       nd.c_out, k32)
             sign_next = i + 1 < len(nodes) and \
                 isinstance(nodes[i + 1], ResidualBinaryConv)
             steps.append(PlanStep(
@@ -322,12 +327,12 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                  "pad": nd.pad, "shortcut": nd.shortcut,
                  "sign_next": sign_next,
                  "smem_bytes": conv_smem_bytes(tiles["bm"], tiles["bn"],
-                                               nd.k * nd.k * d["c32"],
-                                               d["c32"])},
+                                               k32, d["c32"])},
                 f"packed conv {nd.c_in}->{nd.c_out} k{nd.k} s{nd.stride} "
-                f"p{nd.pad}, int32 dot (b1 tensor-core implicit GEMM, tile "
-                f"{tiles['bm']}x{tiles['bn']}), then the residual_epilogue "
-                f"kernel: {'zero-pad correction, ' if nd.pad else ''}BN, "
+                f"p{nd.pad} (b1 tensor-core implicit GEMM, tile "
+                f"{tiles['bm']}x{tiles['bn']}) with the residual epilogue "
+                f"on its tile, one residual_conv launch: "
+                f"{'zero-pad correction, ' if nd.pad else ''}BN, "
                 f"{nd.shortcut} shortcut, RPReLU"
                 + (", the next RSign's packed signs" if sign_next else ""),
                 (d["key"],)))

@@ -178,6 +178,11 @@ POPCOUNT_GEMM = Kernel("popcount_gemm", "popcount_gemm",
 PACKED_CONV = Kernel("packed_conv2d", "packed_conv", "packed_conv2d_launch",
                      [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
                       I, I, I, I])
+# the fused residual half-step (ReActNet): packed_conv's mainloop and
+# the residual epilogue in one kernel
+RESIDUAL_CONV = Kernel("residual_conv", "packed_conv",
+                       "packed_conv2d_residual_launch",
+                       [P, P, P, P, P, P, P] + [I] * 16)
 FUSED_MLP = Kernel("fused_binary_mlp", "fused_mlp", "fused_mlp_launch",
                    [P, P, I, I, I, P, P, P, P, P, P, I, I, I])
 
@@ -196,7 +201,7 @@ STEM_CONV = Kernel("stem_conv", "residual_epilogue", "stem_conv_launch",
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I])
 
 KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM,
-           ENTRY_CONV, RESIDUAL_EPILOGUE, STEM_CONV)
+           ENTRY_CONV, RESIDUAL_EPILOGUE, STEM_CONV, RESIDUAL_CONV)
 
 
 def launch_counts() -> Dict[str, int]:

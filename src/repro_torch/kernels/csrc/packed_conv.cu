@@ -74,10 +74,17 @@
 //    pack_out each thread sets its 8 bits of a row's word and two
 //    shuffles OR the quad's bits together: no int32 activation reaches
 //    device memory.
+//  - packed_conv_kernel_residual_epilogue (ReActNet's residual
+//    half-step) runs the same block body (conv_block) and, in place of
+//    the threshold, the float epilogue of residual.cuh on its own tile:
+//    the dot goes through the free stage ring in shared memory, never
+//    to device memory, and the block writes the float stream and the
+//    next RSign's words (see the kernel).
 #include <climits>
 
 #include "b1_mma.cuh"
 #include "binary.cuh"
+#include "residual.cuh"
 
 namespace {
 
@@ -131,13 +138,168 @@ struct Geo {
       pack_out, valid_f;
 };
 
-template <int BM, int BN, int AV, int BV>
-__global__ void __launch_bounds__(Cfg<BM, BN, AV, BV>::kThreads)
-packed_conv_kernel(const uint32_t* __restrict__ x,
-                   const uint32_t* __restrict__ w,
-                   const int32_t* __restrict__ tvec, void* out, Geo geo) {
+// The fused residual half-step (ReActNet): packed_conv_kernel's block
+// (conv_block below: the same mainloop), then the epilogue of
+// residual.cuh on the block's own tile, so that the int32 dot never
+// reaches device memory.  Its outputs are those of packed_conv_kernel's
+// dot (kNoThreshold) followed by residual_epilogue_kernel, bit for bit.
+//  - The shortcut, which the conv does not feed, starts on its way
+//    before the mainloop: for an identity or doubling shortcut every
+//    thread asks the L2 for its share of the block's lines of it
+//    (prefetch.global.L2), so that the epilogue's loads hit the L2.
+//    (Its tile copied into shared memory by the TMA engine measured
+//    slower on the H100: one bulk copy a pixel row, and a block that
+//    no longer left room for a third on an SM.  A 2x2 average reads
+//    four lines an output line; prefetching them measured slower too.)
+//  - The -1 padded dot of each (pixel, column) goes from the MMA
+//    fragments into the free stage ring (rows of BN + 8 words: the
+//    quad's 8-byte stores hit 32 banks); then a warp takes 32 columns of
+//    a pixel row at a time, as residual_epilogue_kernel does, so that
+//    the shortcut's loads and the stream's stores are coalesced and the
+//    next RSign's 32 bits are one ballot.  Each thread keeps one channel
+//    for the whole tile (its table column in registers) and loads
+//    kUnroll rows' shortcuts before it computes any of them.
+struct ResGeo {
+  int h_in, w_in, pad, cs, has_corr, write_bits;
+};
+
+// the fused epilogue's operands
+struct Res {
+  const int32_t* corr;
+  const float* table;
+  const float* sc;
+  float* out;
+  uint32_t* bits;
+  ResGeo g;
+};
+
+// the block's valid pixel rows and filter columns (F % 32 == 0); M * F <
+// 2^31 and the shortcut's size too (the wrapper checks)
+template <int BM, int BN>
+__device__ __forceinline__ int2 tile_extent(const Geo& geo) {
+  return make_int2(min(BM, geo.nb * geo.ho * geo.wo - (int)blockIdx.x * BM),
+                   min(BN, geo.f - (int)blockIdx.y * BN));
+}
+
+// L2 prefetches of the 128-byte lines of an identity or doubling
+// shortcut that the block's epilogue reads (cs % 32 == 0: a line is 32
+// channels of one pixel)
+template <int BM, int BN, int SC>
+__device__ __forceinline__ void prefetch_shortcut(const Geo& geo,
+                                                  const Res& res) {
+  if (SC == repro::kAvgPool) return;
+  const int2 ext = tile_extent<BM, BN>(geo);
+  const int segs = ext.y / 32, cs = res.g.cs;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  for (int i = threadIdx.x; i < ext.x * segs; i += blockDim.x) {
+    const int r = i / segs;
+    int col = n0 + 32 * (i - r * segs);
+    if (SC == repro::kDuplicate && col >= cs) col -= cs;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        res.sc + (long long)(m0 + r) * cs + col));
+  }
+}
+
+// the fused epilogue of a block whose mainloop left acc, pc_x (sx) and
+// pc_w (sw), all threads past its barrier
+template <int BM, int BN, int AV, int BV, int SC>
+__device__ __forceinline__ void residual_tile(
+    const int (&acc)[Cfg<BM, BN, AV, BV>::MF][Cfg<BM, BN, AV, BV>::NF][4],
+    const int* sx, const int* sw, uint32_t* smem, const Geo& geo,
+    const Res& res) {
+  using C = Cfg<BM, BN, AV, BV>;
+  constexpr int kPitch = BN + 8;
+  constexpr int kUnroll = 8;
+  static_assert(BM * kPitch <= kStages * C::kStageWords,
+                "the dot tile fits the stage ring");
+  const ResGeo& rg = res.g;
+  int* tile = reinterpret_cast<int*>(smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / C::kWarpsN) * C::WM;
+  const int wn0 = (warp % C::kWarpsN) * C::WN;
+
+  // dot = K - 2*(pc_x + pc_w) + 4*and, per column K - 2*pc_w first
+  int kw2[C::NF][2];
+#pragma unroll
+  for (int j = 0; j < C::NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      kw2[j][e] = geo.k - 2 * sw[wn0 + j * 8 + 2 * t + e];
+#pragma unroll
+  for (int i = 0; i < C::MF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm0 + i * 16 + g + 8 * h;
+      const int sx2 = 2 * sx[r];
+#pragma unroll
+      for (int j = 0; j < C::NF; ++j)
+        *reinterpret_cast<int2*>(tile + r * kPitch + wn0 + j * 8 + 2 * t) =
+            make_int2(kw2[j][0] + 4 * acc[i][j][2 * h] - sx2,
+                      kw2[j][1] + 4 * acc[i][j][2 * h + 1] - sx2);
+    }
+  __syncthreads();
+
+  // warp -> 32 columns of the tile's valid ones and every rstep-th row
+  // from its first
+  const int2 ext = tile_extent<BM, BN>(geo);
+  const int rows = ext.x, chunks = ext.y / 32;
+  const int m0 = blockIdx.x * BM;
+  const int cn = (warp % chunks) * 32 + lane, f = blockIdx.y * BN + cn;
+  const int rstep = C::kWarps / chunks;
+  const repro::ResidualChannel ch =
+      repro::residual_channel(res.table, f, geo.f);
+  const int hw = geo.ho * geo.wo, fw = geo.f / 32;
+  for (int r0 = warp / chunks; r0 < rows; r0 += kUnroll * rstep) {
+    int d[kUnroll];
+    float s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = r0 + u * rstep, p = m0 + r;
+      if (r >= rows) break;                         // uniform over the warp
+      int img = 0, oy = 0, ox = 0;
+      if (rg.has_corr || SC == repro::kAvgPool) {
+        img = p / hw;
+        const int q = p - img * hw;
+        oy = q / geo.wo;
+        ox = q - oy * geo.wo;
+      }
+      d[u] = tile[r * kPitch + cn];
+      if (rg.has_corr)
+        d[u] += res.corr[repro::border_class(oy, ox, geo.stride, rg.pad,
+                                             geo.kh, rg.h_in, rg.w_in) *
+                             geo.f + f];
+      s[u] = repro::shortcut_at<SC>(res.sc, p, f, img, oy, ox, geo.ho,
+                                    geo.wo, rg.cs);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = r0 + u * rstep, p = m0 + r;
+      if (r >= rows) break;
+      const float o = repro::residual_out(d[u], s[u], ch);
+      res.out[p * geo.f + f] = o;
+      if (rg.write_bits) {
+        const uint32_t word =
+            __ballot_sync(REPRO_FULL_MASK, repro::next_sign(o, ch));
+        if (lane == 0) res.bits[p * fw + f / 32] = word;
+      }
+    }
+  }
+}
+
+// One block's work, shared by both kernels: packed_conv_kernel's body,
+// whose epilogue (after the mainloop and the counts) is the threshold's
+// where SC < 0 and the residual half-step's (shortcut SC) otherwise.
+template <int BM, int BN, int AV, int BV, int SC>
+__device__ __forceinline__ void conv_block(const uint32_t* __restrict__ x,
+                                           const uint32_t* __restrict__ w,
+                                           const int32_t* __restrict__ tvec,
+                                           void* out, const Geo& geo,
+                                           const Res& res) {
   using C = Cfg<BM, BN, AV, BV>;
   extern __shared__ __align__(16) uint32_t smem[];
+  if constexpr (SC >= 0) prefetch_shortcut<BM, BN, SC>(geo, res);
   int* sx = reinterpret_cast<int*>(smem + kStages * C::kStageWords);
   int* sw = sx + BM;
   int* table = sw + BN;
@@ -291,6 +453,10 @@ packed_conv_kernel(const uint32_t* __restrict__ x,
     if (j % C::kWarpsM == wr && t == 0) sw[wn0 + j * 8 + g] = v;
   }
   __syncthreads();
+  if constexpr (SC >= 0) {
+    residual_tile<BM, BN, AV, BV, SC>(acc, sx, sw, smem, geo, res);
+    return;
+  }
 
   // per column of this thread: 2*pc_w, and the threshold that 4*and -
   // 2*pc_x is held against (dot >= T  <=>  4*and - 2*pc_x >= T - K +
@@ -340,6 +506,52 @@ packed_conv_kernel(const uint32_t* __restrict__ x,
     }
 }
 
+template <int BM, int BN, int AV, int BV>
+__global__ void __launch_bounds__(Cfg<BM, BN, AV, BV>::kThreads)
+packed_conv_kernel(const uint32_t* __restrict__ x,
+                   const uint32_t* __restrict__ w,
+                   const int32_t* __restrict__ tvec, void* out, Geo geo) {
+  conv_block<BM, BN, AV, BV, -1>(x, w, tvec, out, geo, Res{});
+}
+
+template <int BM, int BN, int AV, int BV, int SC>
+__global__ void __launch_bounds__(Cfg<BM, BN, AV, BV>::kThreads)
+packed_conv_kernel_residual_epilogue(const uint32_t* __restrict__ x,
+                                     const uint32_t* __restrict__ w,
+                                     Geo geo, Res res) {
+  conv_block<BM, BN, AV, BV, SC>(x, w, nullptr, nullptr, geo, res);
+}
+
+// above 48 KB of dynamic shared memory a kernel must opt in: once per
+// kernel and device, to the most a block may have
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&attr_set)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && attr_set[dev])) return err;
+  int most = 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess && dev < 64) attr_set[dev] = true;
+  return err;
+}
+
+// dynamic shared memory of a launch: the fixed part and the gather table
+template <int BM, int BN, int AV, int BV>
+int smem_of_launch(const Geo& geo) {
+  const int k_steps = (geo.kh * geo.kw * geo.c32 + kMmaWords - 1) / kMmaWords;
+  const int stages = (k_steps * kMmaWords + kKS - 1) / kKS;
+  return Cfg<BM, BN, AV, BV>::kFixedBytes + 4 * stages * (kKS / AV);
+}
+
+dim3 grid_of(const Geo& geo, int bm, int bn) {
+  const long long m_total = (long long)geo.nb * geo.ho * geo.wo;
+  return dim3((unsigned)((m_total + bm - 1) / bm), (geo.f + bn - 1) / bn);
+}
+
 struct Args {
   const uint32_t* x;
   const uint32_t* w;
@@ -353,32 +565,33 @@ template <int BM, int BN, int AV, int BV>
 int launch(const Args& a) {
   using C = Cfg<BM, BN, AV, BV>;
   auto kernel = packed_conv_kernel<BM, BN, AV, BV>;
-  const int k_steps =
-      (a.geo.kh * a.geo.kw * a.geo.c32 + kMmaWords - 1) / kMmaWords;
-  const int stages = (k_steps * kMmaWords + kKS - 1) / kKS;
-  const int smem = C::kFixedBytes + 4 * stages * (kKS / AV);
-  // above 48 KB of dynamic shared memory a kernel must opt in: once per
-  // variant and device, to the most a block may have
   static bool attr_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, attr_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !attr_set[dev]) {
-    int most = 0;
-    err = cudaDeviceGetAttribute(&most,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               most);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) attr_set[dev] = true;
-  }
-  const long long m_total = (long long)a.geo.nb * a.geo.ho * a.geo.wo;
-  const dim3 grid((unsigned)((m_total + BM - 1) / BM),
-                  (a.geo.f + BN - 1) / BN);
-  kernel<<<grid, C::kThreads, smem, a.stream>>>(a.x, a.w, a.tvec, a.out,
-                                                 a.geo);
+  kernel<<<grid_of(a.geo, BM, BN), C::kThreads,
+           smem_of_launch<BM, BN, AV, BV>(a.geo), a.stream>>>(
+      a.x, a.w, a.tvec, a.out, a.geo);
+  return (int)cudaGetLastError();
+}
+
+struct ResArgs {
+  const uint32_t* x;
+  const uint32_t* w;
+  Geo geo;
+  Res res;
+  cudaStream_t stream;
+};
+
+template <int BM, int BN, int AV, int SC>
+int launch_residual(const ResArgs& a) {
+  using C = Cfg<BM, BN, AV, 4>;
+  auto kernel = packed_conv_kernel_residual_epilogue<BM, BN, AV, 4, SC>;
+  static bool attr_set[64] = {};
+  const cudaError_t err = allow_smem(kernel, attr_set);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_of(a.geo, BM, BN), C::kThreads,
+           smem_of_launch<BM, BN, AV, 4>(a.geo), a.stream>>>(a.x, a.w, a.geo,
+                                                             a.res);
   return (int)cudaGetLastError();
 }
 
@@ -390,6 +603,27 @@ int launch_tile(int bm, int bn, const Args& a) {
   if (bm == BM && bn == BN) return launch<BM, BN, AV, BV>(a);
   REPRO_CONV_TILES(REPRO_CONV_TILE)
 #undef REPRO_CONV_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int AV, int SC>
+int launch_residual_tile(int bm, int bn, const ResArgs& a) {
+#define REPRO_CONV_TILE(BM, BN) \
+  if (bm == BM && bn == BN) return launch_residual<BM, BN, AV, SC>(a);
+  REPRO_CONV_TILES(REPRO_CONV_TILE)
+#undef REPRO_CONV_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int AV>
+int launch_residual_shortcut(int bm, int bn, int shortcut,
+                             const ResArgs& a) {
+  if (shortcut == repro::kIdentity)
+    return launch_residual_tile<AV, repro::kIdentity>(bm, bn, a);
+  if (shortcut == repro::kAvgPool)
+    return launch_residual_tile<AV, repro::kAvgPool>(bm, bn, a);
+  if (shortcut == repro::kDuplicate)
+    return launch_residual_tile<AV, repro::kDuplicate>(bm, bn, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,6 +673,34 @@ extern "C" int packed_conv2d_launch(const uint32_t* x, const uint32_t* w,
   if (av4) return launch_tile<4, 1>(bm, bn, a);
   if (bv4) return launch_tile<1, 4>(bm, bn, a);
   return launch_tile<1, 1>(bm, bn, a);
+}
+
+// The fused residual half-step: x the RSign's words with the -1 spatial
+// pad applied ([N, H_pad, W_pad, C32]), w [KH*KW*C32, F] tap-major and
+// 16-byte aligned, corr [16, F] or NULL (a conv without a pad), table
+// [9, F], sc the shortcut map ([M, cs], or [N, 2*ho, 2*wo, cs] for the
+// average), out [M, F] float32, bits [M, F/32] or NULL; k = KH*KW*C
+// bits, pad the spatial pad applied, F % 32 == 0; shortcut 0 identity,
+// 1 2x2 average, 2 f mod cs.  (bm, bn) from the wrapper's tile plan.
+extern "C" int packed_conv2d_residual_launch(
+    const uint32_t* x, const uint32_t* w, const int32_t* corr,
+    const float* table, const float* sc, float* out, uint32_t* bits, int nb,
+    int h_pad, int w_pad, int c32, int kh, int kw, int stride, int ho, int wo,
+    int f, int k, int pad, int cs, int shortcut, int bm, int bn,
+    cudaStream_t stream) {
+  if ((long long)nb * ho * wo == 0) return 0;
+  if (f % 32 || f == 0 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  const ResArgs a{x, w,
+                  Geo{nb, h_pad, w_pad, c32, kh, kw, stride, ho, wo, f, k,
+                      repro::kNoThreshold, 0, 0, f},
+                  Res{corr, table, sc, out, bits,
+                      ResGeo{h_pad - 2 * pad, w_pad - 2 * pad, pad, cs,
+                             corr != nullptr, bits != nullptr}},
+                  stream};
+  if (c32 % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_residual_shortcut<4>(bm, bn, shortcut, a);
+  return launch_residual_shortcut<1>(bm, bn, shortcut, a);
 }
 
 // dynamic shared memory of one block of tile (bm, bn) before its gather

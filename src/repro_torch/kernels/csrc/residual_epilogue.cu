@@ -8,25 +8,12 @@
 // padding), the zero-padding correction corr [16, F] (or none for a 1x1
 // conv), the per-channel table [9, F] (alpha, BN mean, 1/sqrt(var+eps),
 // gamma, beta, the RPReLU's bias before and its slope, its bias after,
-// the next RSign's bias) and the shortcut stream.  Per element:
-//     d  = dot + corr[class(pixel), f]       (int32: the 0-padded dot)
-//     v  = ((float(d) * alpha - mean) * inv) * gamma + beta
-//     o  = v + shortcut
-//     o  = o + move_a;  o = o > 0 ? o : o * slope;  o = o + move_b
-//     out[p, f] = o;    bit f of pixel p = (o + b_next) > 0
-// every float operation rounded on its own (__fmul_rn / __fadd_rn are
-// never contracted into an FMA), so the plain version in torch, which
-// runs the same operations in the same order, matches bit for bit.
-//
-// The correction: a padded tap of a -1 padded conv adds -sum_c sign(w)
-// where a 0 padded one adds 0, so dot_0 = dot_-1 + sum over the padded
-// taps of sum_c sign(w[tap, c, f]).  With a pad of 1 a pixel's padded
-// taps are the window's first and/or last row and column; the class
-// (top + 2*bottom) * 4 + (left + 2*right) indexes the 16 rows of corr.
-//
-// The shortcut: identity (x[p, f]), the 2x2 average of the twice larger
-// map (((x00 + x01) + x10) + x11) * 0.25, or, for a half-step that
-// doubles the channels, x[p, f mod C].
+// the next RSign's bias) and the shortcut stream.  It adds the
+// correction, does BN, shortcut and RPReLU in the operations and order
+// of residual.cuh, and writes the float stream and the next RSign's
+// words.  The served path runs the same operations in packed_conv.cu's
+// fused variant, whose int32 dot never leaves the block; this kernel
+// is the chain that variant is held against.
 //
 // stem_conv_bn_sign_kernel.  A real-valued 3x3 conv of float NHWC x
 // over 3 channels with float weights [3, 3, 3, F] and a zero pad,
@@ -44,13 +31,16 @@
 #include <cstdint>
 
 #include "binary.cuh"
+#include "residual.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;          // most threads a block
 constexpr int kIter = 8;               // pixels a thread walks
 
-enum Shortcut { kIdentity = 0, kAvgPool = 1, kDuplicate = 2 };
+using repro::kAvgPool;
+using repro::kDuplicate;
+using repro::kIdentity;
 
 struct Geo {
   int m, ho, wo, f, h_in, w_in, k, stride, pad, cs, has_corr, write_bits;
@@ -76,11 +66,7 @@ residual_epilogue_kernel(const int32_t* __restrict__ dot,
   const int pb = blockDim.x / cb;
   const int f = blockIdx.y * cb + threadIdx.x % cb;
   const int lane = threadIdx.x & 31;
-  const float alpha = table[f], mean = table[g.f + f],
-              inv = table[2 * g.f + f], gamma = table[3 * g.f + f],
-              beta = table[4 * g.f + f], move_a = table[5 * g.f + f],
-              slope = table[6 * g.f + f], move_b = table[7 * g.f + f],
-              b_next = table[8 * g.f + f];
+  const repro::ResidualChannel ch = repro::residual_channel(table, f, g.f);
   const int hw = g.ho * g.wo;
   const int fw = g.f / 32;
   // a warp's lanes share the pixel (cb is a multiple of 32), so every
@@ -98,36 +84,16 @@ residual_epilogue_kernel(const int32_t* __restrict__ dot,
       ox = r - oy * g.wo;
     }
     int d = dot[p * g.f + f];
-    if (g.has_corr) {
-      const int y0 = oy * g.stride - g.pad, x0 = ox * g.stride - g.pad;
-      const int cls = ((y0 < 0) + 2 * (y0 + g.k - 1 >= g.h_in)) * 4 +
-                      (x0 < 0) + 2 * (x0 + g.k - 1 >= g.w_in);
-      d += corr[cls * g.f + f];
-    }
-    float v = __fmul_rn((float)d, alpha);
-    v = __fmul_rn(__fsub_rn(v, mean), inv);
-    v = __fadd_rn(__fmul_rn(v, gamma), beta);
-    float s;
-    if (SC == kIdentity) {
-      s = sc[p * g.cs + f];
-    } else if (SC == kDuplicate) {
-      s = sc[p * g.cs + (f < g.cs ? f : f - g.cs)];
-    } else {
-      const int wi = 2 * g.wo;
-      const int b = ((img * 2 * g.ho + 2 * oy) * wi + 2 * ox) * g.cs + f;
-      const int row = wi * g.cs;
-      s = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(sc[b], sc[b + g.cs]),
-                                        sc[b + row]),
-                              sc[b + row + g.cs]),
-                    0.25f);
-    }
-    float o = __fadd_rn(__fadd_rn(v, s), move_a);
-    o = o > 0.f ? o : __fmul_rn(o, slope);
-    o = __fadd_rn(o, move_b);
+    if (g.has_corr)
+      d += corr[repro::border_class(oy, ox, g.stride, g.pad, g.k, g.h_in,
+                                    g.w_in) * g.f + f];
+    const float o = repro::residual_out(
+        d, repro::shortcut_at<SC>(sc, p, f, img, oy, ox, g.ho, g.wo, g.cs),
+        ch);
     out[p * g.f + f] = o;
     if (g.write_bits) {
       const uint32_t word =
-          __ballot_sync(REPRO_FULL_MASK, __fadd_rn(o, b_next) > 0.f);
+          __ballot_sync(REPRO_FULL_MASK, repro::next_sign(o, ch));
       if (lane == 0) bits[p * fw + f / 32] = word;
     }
   }

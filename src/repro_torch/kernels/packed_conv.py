@@ -40,14 +40,16 @@ H100_SMS = 132
 
 
 def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS,
-              pack_out: bool = False, tuned: bool = True) -> dict:
+              pack_out: bool = False, tuned: bool = True,
+              tiles: Tuple[Tuple[int, int], ...] = TILES) -> dict:
     """The launch plan of a conv with ``m`` output pixels, ``f`` filters
     and ``k32`` = KH*KW*C32 words per window.
 
     The tile is the tuning table's entry for ``("packed_conv[+pack]",
     "cuda", m, f, k32)`` where it has one (``tuned``; ``kernels.autotune``),
-    else the rule: the largest of ``TILES`` whose grid has at least half
-    as many blocks as the card has SMs.  Each tile in ``TILES`` halves
+    else the rule: the largest of ``tiles`` (``TILES``, or a kernel's
+    own subset of them) whose grid has at least half as many blocks as
+    the card has SMs.  Each tile in ``TILES`` halves
     the one before, so the next has twice the blocks: from that point on
     it would not spread the work over more SMs, and the larger tile
     loads each word for more MMAs.  Where no grid is that large (batch
@@ -59,7 +61,7 @@ def tile_plan(m: int, f: int, k32: int, sms: int = H100_SMS,
     hit = autotune.get_table().get(
         ("packed_conv+pack" if pack_out else "packed_conv", "cuda", m, f,
          k32)) if tuned else None
-    for bm, bn in ((hit["bm"], hit["bn"]),) if hit else TILES:
+    for bm, bn in ((hit["bm"], hit["bn"]),) if hit else tiles:
         grid = (-(-m // bm), -(-f // bn))
         if 2 * grid[0] * grid[1] >= sms:
             break

@@ -1,17 +1,20 @@
-"""The float side of a residual binary network (ReActNet): the epilogue
-of a residual half-step and the real-valued stem, each one launch that
-writes the float stream and the packed signs of the next learned-
-threshold sign (``csrc/residual_epilogue.cu``).
+"""The float side of a residual binary network (ReActNet): a residual
+half-step and the real-valued stem, each one launch that writes the
+float stream and the packed signs of the next learned-threshold sign.
 
 A half-step ``out = rprelu(bn(alpha * conv0(sign(x + b_in), sign(w)))
-+ shortcut(x))`` runs as two launches: ``packed_conv2d``'s
-un-thresholded mode (the int32 dot, -1 padding) and
-:func:`residual_epilogue`, which adds the zero-padding correction
-(:func:`zero_pad_correction`) and does the rest.  Every float operation
-is rounded on its own and in the order the docstring of
-:func:`residual_epilogue_plain` spells, so the kernel, its plain
-version and the plain reference (``repro_torch/reference/reactnet.py``)
-give the same bits.
++ shortcut(x))`` runs as one launch, :func:`residual_conv`:
+``packed_conv.cu``'s mainloop (the -1 padded dot on the b1 tensor
+cores) with the residual epilogue on the block's own tile, which adds
+the zero-padding correction (:func:`zero_pad_correction`) and does the
+rest, so that the int32 dot never reaches device memory.  Its plain
+version is the chain of two: ``packed_conv2d``'s un-thresholded mode,
+then :func:`residual_epilogue` (``csrc/residual_epilogue.cu``), which
+stays as the chain the fused kernel is held against.  Every float
+operation is rounded on its own and in the order the docstring of
+:func:`residual_epilogue_plain` spells (``csrc/residual.cuh``), so the
+kernels, their plain versions and the plain reference
+(``repro_torch/reference/reactnet.py``) give the same bits.
 """
 from __future__ import annotations
 
@@ -20,15 +23,34 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.packed import WORD
+from repro_torch.kernels import packed_conv as kconv
+from repro_torch.kernels.packed import WORD, PackedArray
 from repro_torch.kernels.ref import pack_ref
 
-__all__ = ["BN_EPS", "SHORTCUTS", "border_classes", "epilogue_table",
-           "residual_epilogue", "residual_epilogue_plain", "stem_conv",
+__all__ = ["BN_EPS", "RESIDUAL_TILES", "SHORTCUTS", "border_classes",
+           "epilogue_table", "residual_conv", "residual_conv_plain",
+           "residual_epilogue", "residual_epilogue_plain",
+           "residual_tile_plan", "stem_conv",
            "stem_conv_plain", "stem_table", "zero_pad_correction"]
 
 BN_EPS = 1e-5                          # torch's BatchNorm2d default
 SHORTCUTS = ("identity", "avgpool", "duplicate")
+# the fused kernel's tiles, largest first (of packed_conv.TILES)
+RESIDUAL_TILES = ((64, 128), (64, 64))
+
+
+def residual_tile_plan(m: int, f: int, k32: int,
+                       sms: int = kconv.H100_SMS) -> dict:
+    """The fused half-step's launch plan: ``packed_conv.tile_plan``'s
+    rule over :data:`RESIDUAL_TILES`, or over 64x64 alone where F <= 64
+    (no tile wider than the filters).  The tuning table is not read: its
+    ``packed_conv`` entries were timed on the kernel that writes the
+    int32 dot, not on this one.  Timed tile by tile at ReActNet-A's 26
+    half-steps on the H100, 128-row tiles ran slowest: with half as many
+    blocks an SM, one block's epilogue overlaps less of another's
+    mainloop."""
+    tiles = RESIDUAL_TILES if f > 64 else RESIDUAL_TILES[1:]
+    return kconv.tile_plan(m, f, k32, sms, tuned=False, tiles=tiles)
 
 
 def _inv_std(var: torch.Tensor) -> torch.Tensor:
@@ -139,13 +161,13 @@ def residual_epilogue_plain(dot: torch.Tensor, corr: Optional[torch.Tensor],
     return o, words.reshape(n, ho, wo, f // 32)
 
 
-def _check(dot, corr, table, sc, shortcut, k, pad):
-    if dot.ndim != 4 or dot.dtype != WORD:
-        raise ValueError(f"residual_epilogue takes the int32 dot [N, HO, WO, "
-                         f"F], got {dot.dtype} {tuple(dot.shape)}")
-    n, ho, wo, f = dot.shape
+def _check_epilogue(what, shape, device, corr, table, sc, shortcut, k,
+                    pad):
+    """The epilogue's operands around an output of ``shape`` [N, HO,
+    WO, F] on ``device``."""
+    n, ho, wo, f = shape
     if f % 32:
-        raise ValueError(f"residual_epilogue takes F % 32 == 0, got {f}")
+        raise ValueError(f"{what} takes F % 32 == 0, got {f}")
     if shortcut not in SHORTCUTS:
         raise ValueError(f"shortcut must be one of {SHORTCUTS}, got "
                          f"{shortcut!r}")
@@ -161,9 +183,16 @@ def _check(dot, corr, table, sc, shortcut, k, pad):
         raise ValueError("a 3x3 conv with a pad of 1 takes corr [16, F]; a "
                          "conv without a pad takes none")
     for t in (corr, table, sc):
-        if t is not None and t.device != dot.device:
-            raise ValueError(f"residual_epilogue: operands on {t.device} "
-                             f"and {dot.device}")
+        if t is not None and t.device != device:
+            raise ValueError(f"{what}: operands on {t.device} and {device}")
+
+
+def _check(dot, corr, table, sc, shortcut, k, pad):
+    if dot.ndim != 4 or dot.dtype != WORD:
+        raise ValueError(f"residual_epilogue takes the int32 dot [N, HO, WO, "
+                         f"F], got {dot.dtype} {tuple(dot.shape)}")
+    _check_epilogue("residual_epilogue", tuple(dot.shape), dot.device, corr,
+                    table, sc, shortcut, k, pad)
 
 
 def residual_epilogue(dot: torch.Tensor, corr: Optional[torch.Tensor],
@@ -204,6 +233,143 @@ def residual_epilogue(dot: torch.Tensor, corr: Optional[torch.Tensor],
         dot.device, _build.ptr(dot), _build.ptr(corr), _build.ptr(table),
         _build.ptr(sc), _build.ptr(out), _build.ptr(bits), m, ho, wo, f,
         h_in, w_in, k, stride, pad, sc.shape[-1], SHORTCUTS.index(shortcut))
+    return out, bits
+
+
+def _conv_operands(xp: PackedArray, wf: PackedArray, stride: int,
+                   pad: int) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """The conv's words as ``packed_conv2d`` takes them (the RSign's
+    words with the -1 spatial pad, the filters tap-major) and its
+    geometry."""
+    n, h, w, c32 = xp.words.shape
+    k, f = wf.words.shape[0], wf.words.shape[-1]
+    xw = kconv.pad_words_spatial(xp.words, pad, pad).contiguous()
+    ww = wf.words.reshape(k * k * c32, f).contiguous()
+    return xw, ww, dict(kh=k, kw=k, c=xp.length, stride=stride,
+                        ho=kconv.out_size(h, k, stride, pad),
+                        wo=kconv.out_size(w, k, stride, pad))
+
+
+def _check_conv(xp, wf, corr, table, sc, shortcut, stride, pad):
+    if not isinstance(xp, PackedArray) or not isinstance(wf, PackedArray):
+        raise ValueError("residual_conv takes PackedArray signs and filters")
+    if xp.ndim != 4 or xp.axis != -1:
+        raise ValueError(f"residual_conv takes signs [N, H, W, C] packed "
+                         f"on the channel axis, got ndim={xp.ndim} "
+                         f"axis={xp.axis}")
+    if wf.ndim != 4 or wf.axis != -2 or \
+            wf.words.shape[0] != wf.words.shape[1]:
+        raise ValueError(f"residual_conv takes square filters [K, K, C, F] "
+                         f"packed on the channel axis (-2), got "
+                         f"{tuple(wf.words.shape)} axis={wf.axis}")
+    if table.dtype != torch.float32:
+        raise ValueError(f"residual_conv takes a float32 table, got "
+                         f"{table.dtype}")
+    if corr is not None and corr.dtype != WORD:
+        raise ValueError(f"residual_conv takes an int32 correction, got "
+                         f"{corr.dtype}")
+    if xp.length != wf.length or xp.n_words != wf.n_words:
+        raise ValueError(f"channel mismatch: signs C={xp.length} vs "
+                         f"filters C={wf.length}")
+    if wf.words.device != xp.words.device:
+        raise ValueError(f"residual_conv: operands on {wf.words.device} and "
+                         f"{xp.words.device}")
+    n, h, w, _ = xp.words.shape
+    k, f = wf.words.shape[0], wf.words.shape[-1]
+    ho, wo = kconv.out_size(h, k, stride, pad), kconv.out_size(w, k, stride,
+                                                                pad)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"empty output: {h}x{w} conv {k}x{k} stride "
+                         f"{stride} pad {pad}")
+    _check_epilogue("residual_conv", (n, ho, wo, f), xp.words.device, corr,
+                    table, sc, shortcut, k, pad)
+
+
+def residual_conv_plain(xp: PackedArray, wf: PackedArray,
+                        corr: Optional[torch.Tensor], table: torch.Tensor,
+                        sc: torch.Tensor, *, shortcut: str, stride: int,
+                        pad: int, write_bits: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version: the chain of plain versions,
+    ``packed_conv2d_plain``'s -1 padded dot, then
+    :func:`residual_epilogue_plain`."""
+    xw, ww, geo = _conv_operands(xp, wf, stride, pad)
+    n, h, w, _ = xp.words.shape
+    dot = kconv.packed_conv2d_plain(xw, ww, **geo).reshape(
+        n, geo["ho"], geo["wo"], -1)
+    return residual_epilogue_plain(dot, corr, table, sc, shortcut=shortcut,
+                                   k=geo["kh"], stride=stride, pad=pad,
+                                   h_in=h, w_in=w, write_bits=write_bits)
+
+
+def residual_conv(xp: PackedArray, wf: PackedArray,
+                  corr: Optional[torch.Tensor], table: torch.Tensor,
+                  sc: torch.Tensor, *, shortcut: str, stride: int, pad: int,
+                  write_bits: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One residual half-step in one launch: the binary conv of the
+    RSign's signs ``xp`` (int32 words [N, H, W, C] packed on the channel
+    axis) by the filters ``wf`` ([K, K, C, F] packed on axis -2; K = 3
+    with a pad of 1, or 1 with none), then the residual epilogue with
+    the correction ``corr`` [16, F] (3x3 only), the table ``table`` [9,
+    F] (:func:`epilogue_table`) and the float32 shortcut ``sc`` (as
+    :func:`residual_epilogue` takes it).  Returns the float32 stream [N,
+    HO, WO, F] and, with ``write_bits``, the next RSign's int32 words
+    [N, HO, WO, F/32], bit for bit those of ``packed_conv2d`` followed
+    by :func:`residual_epilogue`.  A CPU tensor takes the plain version
+    (:func:`residual_conv_plain`), a CUDA tensor launches
+    ``packed_conv_kernel_residual_epilogue`` with the tile of
+    :func:`residual_tile_plan`; launch count ``"residual_conv"``."""
+    _check_conv(xp, wf, corr, table, sc, shortcut, stride, pad)
+    args = dict(shortcut=shortcut, stride=stride, pad=pad,
+                write_bits=write_bits)
+    if xp.words.device.type == "cpu":
+        return residual_conv_plain(xp, wf, corr, table, sc, **args)
+    _build.require_cuda_tensor(xp.words, "residual_conv")
+    xw, ww, geo = _conv_operands(xp, wf, stride, pad)
+    plan = residual_tile_plan(xp.words.shape[0] * geo["ho"] * geo["wo"],
+                              ww.shape[1], ww.shape[0],
+                              _build.device_sms(xw.device))
+    return _launch_residual_conv(xw, ww, corr, table, sc,
+                                 (plan["bm"], plan["bn"]), geo, **args)
+
+
+def _launch_residual_conv(xw: torch.Tensor, ww: torch.Tensor,
+                          corr: Optional[torch.Tensor], table: torch.Tensor,
+                          sc: torch.Tensor, tile: Tuple[int, int], geo: dict,
+                          *, shortcut: str, stride: int, pad: int,
+                          write_bits: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The fused kernel on CUDA operands that :func:`residual_conv`
+    checked and laid out (``_conv_operands``), with the tile ``(BM,
+    BN)`` given, one of ``packed_conv.TILES``: :func:`residual_conv`
+    passes its plan, and the checks on the card pass every tile."""
+    if tuple(tile) not in kconv.TILES:
+        raise ValueError(f"tile must be one of {kconv.TILES}, got {tile}")
+    n, h_pad, w_pad, c32 = xw.shape
+    f = ww.shape[1]
+    ho, wo = geo["ho"], geo["wo"]
+    m = n * ho * wo
+    if m * f >= 2 ** 31 or sc.numel() >= 2 ** 31:
+        raise ValueError("residual_conv's kernel takes fewer than 2^31 "
+                         "elements")
+    if ww.data_ptr() % 16:
+        ww = ww.clone()                    # 16-byte weight copies
+    sc = sc.contiguous()
+    table = table.contiguous()
+    if corr is not None:
+        corr = corr.contiguous()
+    out = torch.empty((n, ho, wo, f), dtype=torch.float32, device=xw.device)
+    bits = torch.empty((n, ho, wo, f // 32), dtype=WORD,
+                       device=xw.device) if write_bits else None
+    if m == 0:
+        return out, bits
+    _build.RESIDUAL_CONV.launch(
+        xw.device, _build.ptr(xw), _build.ptr(ww), _build.ptr(corr),
+        _build.ptr(table), _build.ptr(sc), _build.ptr(out), _build.ptr(bits),
+        n, h_pad, w_pad, c32, geo["kh"], geo["kw"], stride, ho, wo, f,
+        geo["kh"] * geo["kw"] * geo["c"], pad, sc.shape[-1],
+        SHORTCUTS.index(shortcut), *tile)
     return out, bits
 
 

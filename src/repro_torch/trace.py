@@ -44,13 +44,16 @@ from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
                                        DISPATCHER, LAUNCH, RECOVER, RESOLVE,
                                        SYNC, Span)
 
-# kernel-name fragment -> group: the port's eight kernels by symbol, then
+# kernel-name fragment -> group: the port's nine kernels by symbol (the
+# fused residual half-step before the conv whose name its own holds), then
 # the float entry convs left to cuDNN (the kernels cuDNN chose, with its
 # layout transposes and FFT stages) and torch's own kernels (elementwise,
 # pools, copies); the first fragment a name holds decides
 CUDNN = "cuDNN float convs"
 TORCH = "torch elementwise, pools, copies"
-GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
+GROUPS = (("pack_kernel", "pack"),
+          ("packed_conv_kernel_residual_epilogue", "residual_conv"),
+          ("packed_conv_kernel", "packed_conv2d"),
           ("fused_mlp_kernel", "fused_binary_mlp"),
           ("popcount_gemm_kernel", "popcount_gemm"),
           ("xnor_gemm_kernel", "xnor_gemm"),
@@ -60,7 +63,7 @@ GROUPS = (("pack_kernel", "pack"), ("packed_conv_kernel", "packed_conv2d"),
           ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
           ("xmma_", CUDNN), ("flip_filter", CUDNN),
           ("at::native::", TORCH))
-PORT_GROUPS = GROUPS[:8]          # the port's own kernels
+PORT_GROUPS = GROUPS[:9]          # the port's own kernels
 
 
 def _device_us(e) -> float:

@@ -414,7 +414,7 @@ def test_binarynet_launch_counts_and_logits(cuda):
                                       "popcount_gemm": 1, "xnor_gemm": 0,
                                       "entry_conv": 1,
                                       "residual_epilogue": 0,
-                                      "stem_conv": 0}
+                                      "stem_conv": 0, "residual_conv": 0}
     ref = graph.compile(binarynet_cifar10(), backend="torch").apply(params, x)
     assert torch.equal(logits, ref)
 
@@ -436,7 +436,7 @@ def test_alexnet_launch_counts_and_logits(cuda):
                                       "popcount_gemm": 1, "xnor_gemm": 0,
                                       "entry_conv": 0,
                                       "residual_epilogue": 0,
-                                      "stem_conv": 0}
+                                      "stem_conv": 0, "residual_conv": 0}
     ref = graph.compile(alexnet_imagenet(), backend="torch").apply(params, x)
     assert logits.shape == (2, 1000) and torch.equal(logits, ref)
 

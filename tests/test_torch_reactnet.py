@@ -181,6 +181,89 @@ def test_half_step_is_the_reference_bit_for_bit(c, f, k, stride, shortcut,
     assert torch.equal(bits, PackedArray.pack(want + b_next, axis=-1).words)
 
 
+# the fused half-step's plain path against the chain: (C_in, C_out, K,
+# stride, shortcut, H) an identity 3x3, an average-pool stride-2 3x3, a
+# 1x1 identity and a 1x1 doubling, each with and without the signs
+FUSED_STEPS = [(32, 32, 3, 1, "identity", 6), (64, 64, 3, 2, "avgpool", 6),
+               (64, 64, 1, 1, "identity", 3), (32, 64, 1, 1, "duplicate", 5)]
+
+
+def _fused_operands(c, f, k, stride, shortcut, h, n=2, seed=0):
+    """Signs, filters, correction, table and shortcut of one half-step."""
+    g = torch.Generator().manual_seed(seed + c + f + k + h)
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    p = _half_step_params(c, f, k, seed=h)
+    wf = PackedArray.pack(p["w"], axis=2)
+    xp = PackedArray.pack(torch.randn(n, h, h, c, generator=g), axis=-1)
+    corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if pad \
+        else None
+    table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
+                                p["var"], p["gamma"], p["beta"],
+                                p["move_a"], p["slope"], p["move_b"],
+                                torch.rand(f, generator=g) - 0.5)
+    side = h if shortcut == "avgpool" else ho
+    sc = torch.randn(n, side, side, f // 2 if shortcut == "duplicate" else f,
+                     generator=g) * 2.0
+    return xp, wf, corr, table, sc, dict(shortcut=shortcut, stride=stride,
+                                         pad=pad)
+
+
+@pytest.mark.parametrize("write_bits", [True, False])
+@pytest.mark.parametrize("c,f,k,stride,shortcut,h", FUSED_STEPS)
+def test_fused_half_step_plain_is_the_chain(c, f, k, stride, shortcut, h,
+                                            write_bits):
+    xp, wf, corr, table, sc, kw = _fused_operands(c, f, k, stride,
+                                                  shortcut, h)
+    got = kres.residual_conv(xp, wf, corr, table, sc, write_bits=write_bits,
+                             **kw)
+    dot = ops.binary_conv2d(xp, wf, stride=stride, padding=kw["pad"])
+    want = kres.residual_epilogue_plain(dot, corr, table, sc, k=k, h_in=h,
+                                        w_in=h, write_bits=write_bits, **kw)
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], want[0])
+    if write_bits:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+# (case, how the operands are spoiled, the refusal's words)
+FUSED_BAD = [
+    ("shortcut_dtype", lambda a: a.update(sc=a["sc"].double()),
+     "shortcut is float32"),
+    ("table_dtype", lambda a: a.update(table=a["table"].double()),
+     "float32 table"),
+    ("corr_dtype", lambda a: a.update(corr=a["corr"].long()),
+     "int32 correction"),
+    ("width", lambda a: a.update(wf=PackedArray.pack(
+        torch.randn(3, 3, 32, 48), axis=2)), "F % 32 == 0"),
+    ("filters", lambda a: a.update(wf=PackedArray.pack(
+        torch.randn(3, 1, 32, 32), axis=2)), "square filters"),
+    ("channels", lambda a: a.update(xp=PackedArray.pack(
+        torch.randn(2, 6, 6, 64), axis=-1)), "channel mismatch"),
+    ("shortcut_shape", lambda a: a.update(sc=a["sc"][:, :5]),
+     "shortcut is float32"),
+    ("shortcut_name", lambda a: a.update(shortcut="concat"),
+     "shortcut must be one of"),
+    ("table_shape", lambda a: a.update(table=a["table"][:8]),
+     r"table must be \[9, 32\]"),
+    ("no_correction", lambda a: a.update(corr=None), "takes corr"),
+    ("not_packed", lambda a: a.update(xp=a["xp"].words), "PackedArray")]
+
+
+@pytest.mark.parametrize("case,spoil,message", FUSED_BAD,
+                         ids=[b[0] for b in FUSED_BAD])
+def test_fused_half_step_refuses_what_the_kernel_does_not_take(case, spoil,
+                                                              message):
+    xp, wf, corr, table, sc, kw = _fused_operands(32, 32, 3, 1, "identity",
+                                                  6)
+    a = dict(xp=xp, wf=wf, corr=corr, table=table, sc=sc, **kw)
+    spoil(a)
+    with pytest.raises(ValueError, match=message):
+        kres.residual_conv(a.pop("xp"), a.pop("wf"), a.pop("corr"),
+                           a.pop("table"), a.pop("sc"), **a)
+
+
 def test_stem_is_the_reference_bit_for_bit():
     g = torch.Generator().manual_seed(5)
     x = _images(2, 9, seed=5)
@@ -307,12 +390,13 @@ def test_plan_launches_and_description():
     assert kinds.count("residual_conv") == 26
     assert kinds[0] == "real_conv" and kinds[-3:] == ["global_pool",
                                                       "real_dense", "logits"]
-    assert cb.launch_count() == 53
+    # one fused launch a half-step; the layer-by-layer chain has two
+    assert cb.launch_count() == 27 and cb.legacy_launch_count() == 53
     assert expected_launches(cb, 256) == {"stem_conv": 1,
-                                          "packed_conv2d": 26,
-                                          "residual_epilogue": 26}
+                                          "residual_conv": 26}
     text = cb.describe()
-    assert "residual_epilogue" in text and "stem_conv" in text
+    assert "residual_conv" in text and "stem_conv" in text
+    assert "packed_conv_kernel_residual_epilogue" in text
     sign_next = [s.args["sign_next"] for s in cb.plan
                  if s.kind in ("real_conv", "residual_conv")]
     assert sign_next == [True] * 26 + [False]
@@ -321,8 +405,32 @@ def test_plan_launches_and_description():
         [s.name for s in cb.plan if s.kind in ("real_conv", "residual_conv",
                                                "real_dense")]
     assert len(cb.tuning_keys) == 26
+    # the fused kernel's tiles: no 128-row tile, none wider than F
+    tiles = [s.detail.split("tile ")[1].split(")")[0] for s in cb.plan
+             if s.kind == "residual_conv"]
+    widths = [nd.c_out for nd in cb.spec.residual_nodes]
+    assert tiles == ["64x64" if f <= 64 else "64x128" for f in widths]
     assert cb.tuning_keys_for_batch(32) == graph.compile(
         ir.reactnet_a(), device="cpu", batch=32).tuning_keys
+
+
+def test_fused_plan_reads_no_packed_conv_tuning_entry(monkeypatch):
+    """A tuning-table entry under a half-step's ``packed_conv`` key was
+    timed on the kernel that writes the int32 dot: the unfused conv's
+    plan takes it, the fused half-step's keeps its own rule."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import packed_conv as kconv
+    monkeypatch.delenv(autotune.ENV_TABLE, raising=False)
+    monkeypatch.setattr(autotune, "_TABLE", autotune.TuningTable())
+    cb = graph.compile(ir.reactnet_a(), device="cpu", batch=256)
+    rule = [kres.residual_tile_plan(*k[2:]) for k in cb.tuning_keys]
+    for k in cb.tuning_keys:
+        autotune.get_table().put(k, {"bm": 128, "bn": 128})
+    assert all(kconv.tile_plan(*k[2:])["bm"] == 128 for k in cb.tuning_keys)
+    assert [kres.residual_tile_plan(*k[2:]) for k in cb.tuning_keys] == rule
+    again = graph.compile(ir.reactnet_a(), device="cpu", batch=256)
+    assert [s.detail for s in again.plan] == [s.detail for s in cb.plan]
+    assert [s.args for s in again.plan] == [s.args for s in cb.plan]
 
 
 def test_audit_passes_on_the_small_spec():
@@ -408,6 +516,99 @@ def test_residual_epilogue_kernel_bit_for_bit(cuda, c, f, k, stride,
     assert torch.equal(got[1].cpu(), want[1])
 
 
+def _distinct_half_steps():
+    """ReActNet-A's half-steps by (C_in, C_out, K, stride, shortcut, H,
+    whether the next RSign's words are written), once each."""
+    spec = ir.reactnet_a()
+    res = spec.residual_nodes
+    return sorted({(nd.c_in, nd.c_out, nd.k, nd.stride, nd.shortcut,
+                    nd.h_in, i + 1 < len(res)) for i, nd in enumerate(res)})
+
+
+def _fused_on_card(cuda, c, f, k, stride, shortcut, h, n, seed):
+    """A half-step's operands on the card, drawn there."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    p = _half_step_params(c, f, k, seed=h, device=cuda)
+    wf = PackedArray.pack(p["w"], axis=2)
+    xp = PackedArray.pack(torch.randn(n, h, h, c, generator=g, device=cuda),
+                          axis=-1)
+    corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if pad \
+        else None
+    table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
+                                p["var"], p["gamma"], p["beta"],
+                                p["move_a"], p["slope"], p["move_b"],
+                                torch.rand(f, generator=g, device=cuda) - 0.5)
+    side = h if shortcut == "avgpool" else ho
+    sc = torch.randn(n, side, side, f // 2 if shortcut == "duplicate" else f,
+                     generator=g, device=cuda) * 2.0
+    return xp, wf, corr, table, sc, dict(shortcut=shortcut, stride=stride,
+                                         pad=pad)
+
+
+def _chain_on_card(xp, wf, corr, table, sc, write_bits, kw):
+    """The unfused chain of kernels: packed_conv2d's dot, then
+    residual_epilogue."""
+    dot = ops.binary_conv2d(xp, wf, stride=kw["stride"], padding=kw["pad"])
+    h = xp.words.shape[1]
+    return kres.residual_epilogue(dot, corr, table, sc, k=wf.words.shape[0],
+                                  h_in=h, w_in=h, write_bits=write_bits,
+                                  **kw)
+
+
+def _same_bits(got, want):
+    """Float streams by their bit patterns, and the sign words."""
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert (got[1] is None) == (want[1] is None)
+    if got[1] is not None:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("c,f,k,stride,shortcut,h,write_bits",
+                         _distinct_half_steps())
+def test_fused_half_step_kernel_is_the_chain(cuda, c, f, k, stride, shortcut,
+                                            h, write_bits, rows):
+    """The fused kernel (through its tile plan) against the chain of
+    kernels it replaces, bit for bit, at every ReActNet-A half-step."""
+    xp, wf, corr, table, sc, kw = _fused_on_card(cuda, c, f, k, stride,
+                                                 shortcut, h, rows,
+                                                 seed=c + f + h + rows)
+    want = _chain_on_card(xp, wf, corr, table, sc, write_bits, kw)
+    _build.reset_launch_counts()
+    got = kres.residual_conv(xp, wf, corr, table, sc, write_bits=write_bits,
+                             **kw)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["residual_conv"] == 1 and counts["packed_conv2d"] == 0
+    _same_bits(got, want)
+
+
+# every tile forced: a partial pixel tile, F of one, two and four words
+# of a 128-column tile, C of one word, each shortcut
+TILE_STEPS = [(32, 32, 3, 1, "identity", 9, 3), (32, 64, 1, 1, "duplicate",
+                                                 9, 2),
+              (64, 64, 3, 2, "avgpool", 10, 3), (128, 256, 1, 1,
+                                                 "duplicate", 7, 5),
+              (256, 256, 3, 1, "identity", 7, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,f,k,stride,shortcut,h,rows", TILE_STEPS)
+def test_fused_half_step_kernel_every_tile(cuda, c, f, k, stride, shortcut,
+                                           h, rows):
+    from repro_torch.kernels import packed_conv as kconv
+    xp, wf, corr, table, sc, kw = _fused_on_card(cuda, c, f, k, stride,
+                                                 shortcut, h, rows, seed=5)
+    want = _chain_on_card(xp, wf, corr, table, sc, True, kw)
+    xw, ww, geo = kres._conv_operands(xp, wf, kw["stride"], kw["pad"])
+    for tile in kconv.TILES:
+        _same_bits(kres._launch_residual_conv(xw, ww, corr, table, sc, tile,
+                                              geo, **kw), want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hw,f,stride,pad", [(224, 32, 2, 1),
                                              (17, 96, 2, 0), (19, 64, 1, 1)])
@@ -444,8 +645,9 @@ def test_full_width_graphed_forward_against_the_reference(cuda):
     got = g(x)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    assert counts["residual_epilogue"] == 26 and counts["stem_conv"] == 1
-    assert counts["packed_conv2d"] == 26
+    # one fused kernel a half-step: no dot for a separate epilogue
+    assert counts["residual_conv"] == 26 and counts["stem_conv"] == 1
+    assert counts["residual_epilogue"] == 0 and counts["packed_conv2d"] == 0
     want = reference.logits(table_of(spec), weights_of(raw), x)
     assert float(_gap(got, want).max()) <= reference.LOGIT_REL_TOL
     # the float stream is the eager forward's bit for bit; the head's sums
@@ -458,15 +660,16 @@ def test_full_width_graphed_forward_against_the_reference(cuda):
 
 @pytest.mark.gpu
 def test_audit_on_the_card(cuda):
-    """One eager forward launches exactly the plan's kernels (1 stem, a
-    packed_conv2d and a residual_epilogue a half-step), and the plan's
-    shared memory re-derives."""
+    """One eager forward launches exactly the plan's kernels (1 stem and
+    a fused residual_conv a half-step), no half-step's int32 dot exists
+    on the card, and the plan's shared memory re-derives."""
     cb = graph.compile(ir.reactnet_small(), batch=4)
     report = cb.audit(batch=4, max_batch=8)
     launches = next(c for c in report.checks if c.name == "launches")
     assert report.ok and not launches.skipped
-    assert report.launches == {"stem_conv": 1, "packed_conv2d": 6,
-                               "residual_epilogue": 6}
+    assert report.launches == {"stem_conv": 1, "residual_conv": 6}
+    nd = cb.spec.residual_nodes[0]
+    assert (4, nd.h_out, nd.w_out, nd.c_out) in report.banned_shapes
 
 
 @pytest.mark.gpu
