@@ -67,18 +67,16 @@
    exact zero weights), and timed at batches 256 and 2048 beside its
    FMA bound, its plain version and the two steps it replaces on the
    card (``library_ms``: cuDNN's conv and the pack kernel, device
-   time).  residual_epilogue (ReActNet's half-step epilogue: the
-   zero-pad correction, batch norm, shortcut, RPReLU and the next
-   sign's words) is held bit for bit against its plain version at each
-   of ReActNet-A's 26 half-steps at batches 1, 7 and 256, on the dot and
-   stream of the forward's own chain, the fused half-step residual_conv
-   (packed_conv's mainloop with that epilogue on its tile) against that
-   chain of kernels there, float stream by its bit patterns and sign
-   words, and stem_conv (its 3x3x3 stem, batch norm and signs) at the
-   224x224 stem at those batches and at three other shapes; all three
-   are timed over one forward at batch 256 beside their bound and plain
-   version (the fused one also beside the chain of kernels, the stem
-   beside cuDNN's conv alone, TF32 off).  Before the phases, the
+   time).  The fused half-step residual_conv (packed_conv's mainloop
+   with ReActNet's epilogue on its tile: the zero-pad correction, batch
+   norm, shortcut, RPReLU and the next sign's words) is held bit for
+   bit against its plain version at each of ReActNet-A's 26 half-steps
+   at batches 1, 7 and 256, on the signs and stream of the forward's
+   own kernels, float stream by its bit patterns and sign words, and
+   stem_conv (its 3x3x3 stem, batch norm and signs) at the 224x224 stem
+   at those batches and at three other shapes; both are timed over one
+   forward at batch 256 beside their bound and plain version (the stem
+   also beside cuDNN's conv alone, TF32 off).  Before the phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -1378,21 +1376,19 @@ def check_entry_conv(rnd, rec):
                     library_ms=main["library_ms"], shapes=rows))
 
 
-# ReActNet-A's 26 half-step epilogues are held bit for bit at these
-# batches, on the dot and stream of the forward's own chain, and timed
-# over one forward at BATCH; the stem also at other widths, strides and
-# pads: (N, H, F, stride, pad)
+# ReActNet-A's 26 half-steps are held bit for bit at these batches, on
+# the signs and stream of the forward's own kernels, and timed over one
+# forward at BATCH; the stem also at other widths, strides and pads:
+# (N, H, F, stride, pad)
 RESIDUAL_BATCHES = (1, 7, BATCH)
 STEM_EDGES = [(3, 17, 96, 2, 0), (3, 19, 64, 1, 1), (5, 224, 32, 2, 1)]
 
 
-def residual_chain(cb, params, x):
-    """One eager ReActNet forward of ``x`` as the calls of the unfused
-    chain: the stem's arguments, and each half-step's epilogue arguments
-    (packed_conv2d's dot, the correction, the table, the stream in, the
-    step's options) with the fused kernel's (the RSign's words and the
-    filters), each step fed by the chain's outputs."""
-    from repro_torch.kernels import ops
+def residual_calls(cb, params, x):
+    """One eager ReActNet forward of ``x`` as its kernels' calls: the
+    stem's arguments, and each half-step's (its node, the RSign's words,
+    the filters, the correction, the table, the stream in, the fused
+    kernel's options), each step fed by the kernels' outputs."""
     from repro_torch.kernels import residual as kres
     from repro_torch.kernels.packed import PackedArray
     stem, steps, h, bits = None, [], None, None
@@ -1406,16 +1402,12 @@ def residual_chain(cb, params, x):
         elif step.kind == "residual_conv":
             nd = cb.spec.residual_nodes[a["res_idx"]]
             p = params["res"][a["res_idx"]]
-            signs = PackedArray(bits, length=nd.c_in, axis=-1)
-            dot = ops.binary_conv2d(signs, p["wf"], stride=a["stride"],
-                                    padding=a["pad"])
-            kw = dict(shortcut=a["shortcut"], k=a["k"], stride=a["stride"],
-                      pad=a["pad"], h_in=nd.h_in, w_in=nd.w_in,
-                      write_bits=a["sign_next"])
-            steps.append((nd, dot, p.get("corr"), p["table"], h, kw,
-                          (signs, p["wf"])))
-            h, bits = kres.residual_epilogue(dot, p.get("corr"), p["table"],
-                                             h, **kw)
+            call = (nd, PackedArray(bits, length=nd.c_in, axis=-1), p["wf"],
+                    p.get("corr"), p["table"], h,
+                    dict(shortcut=a["shortcut"], stride=a["stride"],
+                         pad=a["pad"], write_bits=a["sign_next"]))
+            steps.append(call)
+            h, bits = kres.residual_conv(*call[1:6], **call[6])
     return stem, steps
 
 
@@ -1435,58 +1427,40 @@ def epilogue_pair_equal(name, got, want):
     return err
 
 
-def epilogue_bytes(nd, rows, bits, dot=True):
-    """The least bytes of one half-step's epilogue over ``rows`` images:
-    the int32 dot (unless fused: ``dot=False``) and float32 stream of
-    every output element, the shortcut map it reads (the larger input
-    map where it averages, the half-width one where it doubles), and
-    with ``bits`` one bit an output element for the next sign."""
+def epilogue_bytes(nd, rows, bits):
+    """The least bytes of one fused half-step's epilogue over ``rows``
+    images: the float32 stream of every output element, the shortcut
+    map it reads (the larger input map where it averages, the
+    half-width one where it doubles), and with ``bits`` one bit an
+    output element for the next sign."""
     n_out = nd.h_out * nd.w_out * nd.c_out
     sc = {"avgpool": nd.h_in * nd.w_in * nd.c_in,
           "duplicate": nd.h_out * nd.w_out * nd.c_in}.get(nd.shortcut, n_out)
-    return rows * ((8 if dot else 4) * n_out + 4 * sc +
-                   (n_out / 8 if bits else 0))
-
-
-def fused_kwargs(kw):
-    """The fused kernel's options from the epilogue's."""
-    return {k: kw[k] for k in ("shortcut", "stride", "pad", "write_bits")}
+    return rows * (4 * n_out + 4 * sc + (n_out / 8 if bits else 0))
 
 
 def check_residual(rnd, rec):
-    """``residual_epilogue`` at each of ReActNet-A's 26 half-steps and
-    ``stem_conv`` at its stem (and at STEM_EDGES), bit for bit against
-    their plain versions, and the fused half-step ``residual_conv``
-    (``packed_conv_kernel_residual_epilogue``) at the 26 half-steps
-    against its plain version (``residual_conv_plain``) and against the
-    chain of kernels it replaces (packed_conv2d's dot, then
-    residual_epilogue), float stream by its bit patterns and sign words;
-    each timed over one forward at BATCH beside its bound and plain
-    version, the fused one also beside the chain (three records).  The
-    unfused epilogue runs on no forward path (``on_path`` False)."""
+    """The fused half-step ``residual_conv``
+    (``packed_conv_kernel_residual_epilogue``) at ReActNet-A's 26
+    half-steps and ``stem_conv`` at its stem (and at STEM_EDGES), bit
+    for bit against their plain versions (``residual_conv_plain``,
+    ``stem_conv_plain``), float stream by its bit patterns and sign
+    words; each timed over one forward at BATCH beside its bound and
+    plain version (two records)."""
     from repro_torch import graph
     from repro_torch.graph.ir import reactnet_a
     from repro_torch.kernels import residual as kres
     cb = graph.compile(reactnet_a(), device=DEVICE, batch=BATCH)
     params = cb.init(torch.Generator().manual_seed(0))
-    err_e = err_s = err_f = err_c = 0
+    err_s = err_f = 0
     for n in RESIDUAL_BATCHES:
         # unit-variance pixels: the stem's drawn batch norm centres them
-        stem, steps = residual_chain(cb, params, rnd.normal(n, 224, 224, 3))
-        for nd, dot, corr, table, sc, kw, (signs, wf) in steps:
-            chain = kres.residual_epilogue(dot, corr, table, sc, **kw)
-            err_e = max(err_e, epilogue_pair_equal(
-                f"residual_epilogue {nd.name} B={n}", chain,
-                kres.residual_epilogue_plain(dot, corr, table, sc, **kw)))
-            fused = kres.residual_conv(signs, wf, corr, table, sc,
-                                       **fused_kwargs(kw))
+        stem, steps = residual_calls(cb, params, rnd.normal(n, 224, 224, 3))
+        for nd, *call, kw in steps:
             err_f = max(err_f, epilogue_pair_equal(
-                f"residual_conv {nd.name} B={n}", fused,
-                kres.residual_conv_plain(signs, wf, corr, table, sc,
-                                         **fused_kwargs(kw))))
-            err_c = max(err_c, epilogue_pair_equal(
-                f"residual_conv {nd.name} B={n} (fused vs the chain)",
-                fused, chain))
+                f"residual_conv {nd.name} B={n}",
+                kres.residual_conv(*call, **kw),
+                kres.residual_conv_plain(*call, **kw)))
         err_s = max(err_s, epilogue_pair_equal(
             f"stem_conv ReActNet-A B={n}",
             kres.stem_conv(stem[0], stem[1], stem[2], **stem[3]),
@@ -1505,26 +1479,7 @@ def check_residual(rnd, rec):
             f"stem_conv [{n}, {h}, {h}, 3] F={f} s{s} p{pad}",
             kres.stem_conv(x, w, table, **args),
             kres.stem_conv_plain(x, w, table, **args)))
-
-    def epilogues(fn):
-        return lambda: [fn(dot, corr, table, sc, **kw)
-                        for _, dot, corr, table, sc, kw, _ in steps]
-    ms = kernel_ms(epilogues(kres.residual_epilogue),
-                   "residual_epilogue_kernel")
-    plain = time_ms(epilogues(kres.residual_epilogue_plain), 3)
-    nbytes = sum(epilogue_bytes(nd, BATCH, kw["write_bits"])
-                 for nd, *_, kw, _ in steps)
-    b, by = bound(nbytes, 0, FP32_OPS)
-    print(f"residual_epilogue ReActNet-A B={BATCH}, 26 half-steps: "
-          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
-          f"({by}, {nbytes / 2**20:.1f} MiB); {b / ms:.3f} of the bound")
-    rec.append(dict(name="residual_epilogue", route="cuda",
-                    source="src/repro_torch/kernels/csrc/"
-                           "residual_epilogue.cu",
-                    replaces="none (ReActNet is port-only)",
-                    max_abs_err=err_e, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=None, on_path=False))
-    rec.append(fused_residual_record(steps, err_f, err_c))
+    rec.append(fused_residual_record(steps, err_f))
 
     x, w, table, args = stem
     ms = kernel_ms(lambda: kres.stem_conv(x, w, table, **args),
@@ -1549,57 +1504,41 @@ def check_residual(rnd, rec):
           f"alone, float32, TF32 off) bound_ms={b:.5f} ({by}); "
           f"{b / ms:.3f} of the bound")
     rec.append(dict(name="stem_conv", route="cuda",
-                    source="src/repro_torch/kernels/csrc/"
-                           "residual_epilogue.cu",
+                    source="src/repro_torch/kernels/csrc/stem_conv.cu",
                     replaces="none (ReActNet is port-only)",
                     max_abs_err=err_s, ms=ms, plain_ms=plain, bound_ms=b,
                     bound_by=by, library_ms=lib))
 
 
-def fused_residual_record(steps, err, chain_err):
+def fused_residual_record(steps, err):
     """The fused half-step timed over one forward's 26 launches at
-    BATCH: device time beside its bound (the epilogue's bytes without
-    the dot, at the memory's rate, plus the convs' operations at the b1
-    rate), the chain of kernels it replaces (packed_conv2d's dot, then
-    residual_epilogue) and the plain chain.  ``err`` is its largest
-    difference from its plain version, ``chain_err`` from the chain."""
-    from repro_torch.kernels import ops
+    BATCH: device time beside its bound (the epilogue's bytes at the
+    memory's rate plus the convs' operations at the b1 rate) and its
+    plain version.  ``err`` is its largest difference from its plain
+    version."""
     from repro_torch.kernels import residual as kres
 
     def fused(fn):
-        return lambda: [fn(signs, wf, corr, table, sc, **fused_kwargs(kw))
-                        for _, _, corr, table, sc, kw, (signs, wf) in steps]
-
-    def chain():
-        for _, _, corr, table, sc, kw, (signs, wf) in steps:
-            dot = ops.binary_conv2d(signs, wf, stride=kw["stride"],
-                                    padding=kw["pad"])
-            kres.residual_epilogue(dot, corr, table, sc, **kw)
+        return lambda: [fn(*call, **kw) for _, *call, kw in steps]
     ms = kernel_ms(fused(kres.residual_conv),
                    "packed_conv_kernel_residual_epilogue")
-    chain_conv = kernel_ms(chain, "packed_conv_kernel")
-    chain_epi = kernel_ms(chain, "residual_epilogue_kernel")
     plain = time_ms(fused(kres.residual_conv_plain), 1, 0)
-    nbytes = sum(epilogue_bytes(nd, BATCH, kw["write_bits"], dot=False)
-                 for nd, *_, kw, _ in steps)
+    nbytes = sum(epilogue_bytes(nd, BATCH, kw["write_bits"])
+                 for nd, *_, kw in steps)
     ops_n = sum(2 * BATCH * nd.h_out * nd.w_out * nd.c_out * nd.k * nd.k *
                 nd.c_in for nd, *_ in steps)
     b_bytes, b_ops = nbytes / MEM_BPS * 1e3, ops_n / B1_OPS * 1e3
     b = b_bytes + b_ops
     print(f"residual_conv (fused) ReActNet-A B={BATCH}, 26 half-steps: "
-          f"kernel_ms={ms:.4f} chain_ms={chain_conv + chain_epi:.4f} "
-          f"(packed_conv2d {chain_conv:.4f} + residual_epilogue "
-          f"{chain_epi:.4f}) plain_ms={plain:.4f} bound_ms={b:.4f} (bytes "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} (bytes "
           f"{b_bytes:.4f}, {nbytes / BATCH / 1e6:.2f} MB an image, + "
-          f"operations {b_ops:.4f}); {b / ms:.3f} of the bound, "
-          f"{(chain_conv + chain_epi) / ms:.3f}x the chain")
+          f"operations {b_ops:.4f}); {b / ms:.3f} of the bound")
     return dict(name="residual_conv", route="cuda",
                 source="src/repro_torch/kernels/csrc/packed_conv.cu",
                 replaces="none (ReActNet is port-only)", max_abs_err=err,
-                chain_err=chain_err, ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes + "
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes + "
                 "operations", bytes_ms=b_bytes, ops_ms=b_ops,
-                chain_ms=chain_conv + chain_epi, chain_conv_ms=chain_conv,
-                chain_epilogue_ms=chain_epi, library_ms=None)
+                library_ms=None)
 
 
 # ------------------------------------------------------------------ #
@@ -1745,8 +1684,8 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
         # the float entry convs' alpha passes: BinaryNet's conv1 leaves its
         # alpha to the pack, AlexNet's conv1 and conv2 keep theirs; the
         # plan's integer convs that keep theirs must be that many too
-        kept = sum(step.kind == "integer_conv" and not cb._alpha_in_pack(i)
-                   for i, step in enumerate(cb.plan))
+        kept = sum(step.kind == "integer_conv" and
+                   step.args["epilogue"] == "alpha" for step in cb.plan)
         if kept != multiplies:
             raise AssertionError(f"{label} batch {batch}: {kept} integer "
                                  f"convs keep their alpha multiply, "
@@ -5220,9 +5159,7 @@ def main():
         torch.cuda.synchronize()
         for r in rec[first:]:
             print(f"{r['name']}: held against its plain version "
-                  f"(max_abs_err {r['max_abs_err']}"
-                  + (f", against the chain {r['chain_err']}"
-                     if "chain_err" in r else "") + "); kernel_ms="
+                  f"(max_abs_err {r['max_abs_err']}); kernel_ms="
                   f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
                   f"{r['library_ms']} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']})")
@@ -5256,16 +5193,11 @@ def main():
           f"{SESSIONS['empty']} of them saw no device event and were "
           f"asked again")
     for r in rec:
-        # launches on the main paths alone; a kernel kept only as the
-        # chain another is held against (on_path False) has none
+        # launches on the main paths alone
         r["launches"] = launches.get(r["name"], 0)
-        r["on_path"] = r.get("on_path", True)
-        if r["on_path"] and r["launches"] == 0:
+        if r["launches"] == 0:
             raise AssertionError(f"{r['name']} never launched")
-        if not r["on_path"] and r["launches"]:
-            raise AssertionError(f"{r['name']} is off the main paths but "
-                                 f"launched {r['launches']} times there")
-    keys = ("name", "route", "source", "replaces", "launches", "on_path",
+    keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{k: r[k] for k in keys} for r in rec]

@@ -6,11 +6,8 @@ shows and re-derives the plan's own claims:
 
 * **launches** — the launches that ``kernels._build.recording()`` sees
   in one eager ``apply`` equal ``launch_count()``, kernel by kernel
-  (each plan step's kernel: pack, packed_conv2d or its im2col
-  popcount_gemm, fused_binary_mlp, popcount_gemm, entry_conv,
-  stem_conv, and a residual half-step's fused residual_conv).  On the
-  card only;
-  the CPU's wrappers take their plain versions and launch nothing.
+  (the plan steps' ``launches``).  On the card only; the CPU's
+  wrappers take their plain versions and launch nothing.
 * **int32-escape** — under a ``TorchDispatchMode`` that records the
   dtype, shape and device of every tensor ``apply`` creates, no int32
   tensor of a shape from :func:`banned_int32_shapes` (the activations
@@ -37,6 +34,7 @@ shows and re-derives the plan's own claims:
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
@@ -166,37 +164,20 @@ def banned_int32_shapes(compiled: Any, batch: int) -> Set[tuple]:
 
 def expected_launches(compiled: Any, batch: int) -> Dict[str, int]:
     """Kernel name -> launches one ``apply`` of ``batch`` rows makes on
-    the card under this plan (a fused stack that no longer fits one
-    launch at ``batch`` chains one popcount_gemm a layer)."""
+    the card under this plan: its steps' ``launches``, where a fused
+    stack that no longer fits one launch at ``batch`` chains one
+    popcount_gemm a layer."""
     dense = _dense_nodes(compiled.spec)
-    want: Dict[str, int] = {}
-
-    def add(name, n=1):
-        want[name] = want.get(name, 0) + n
-    for i, step in enumerate(compiled.plan):
-        if compiled._entry_packs(i):
-            add("entry_conv")
-        elif step.kind == "binarize":
-            if not (i > 0 and compiled._entry_packs(i - 1)):
-                add("pack")
-        elif step.kind == "binary_conv":
-            add("packed_conv2d" if step.args["impl"] == "direct"
-                else "popcount_gemm")
-        elif step.kind == "dense":
-            add("popcount_gemm")
-        elif step.kind == "real_conv":
-            add("stem_conv")
-        elif step.kind == "residual_conv":
-            add("residual_conv")
-        elif step.kind == "fused_stack":
+    want: Counter = Counter()
+    for step in compiled.plan:
+        if step.kind == "fused_stack":
             nds = [dense[j] for j in step.args["fc_indices"]]
-            sp = fused_mlp.stack_plan(batch, nds[0].n_in,
-                                      [nd.n_out for nd in nds])
-            if sp["fits"]:
-                add("fused_binary_mlp")
-            else:
-                add("popcount_gemm", len(nds))
-    return want
+            if not fused_mlp.stack_plan(batch, nds[0].n_in,
+                                        [nd.n_out for nd in nds])["fits"]:
+                want["popcount_gemm"] += len(nds)
+                continue
+        want.update(step.launches)
+    return dict(want)
 
 
 def _sample_inputs(compiled: Any, batch: int) -> Tuple[Dict[str, Any], Any]:
@@ -296,27 +277,33 @@ def _check_plan_smem(compiled: Any, batch: int) -> AuditCheck:
                     f"{max(smem, sp['smem_bytes'])} B a block (BM="
                     f"{e['bm']}), fits one launch: {sp['fits']}, limit "
                     f"{limit}")
-        elif step.kind in ("binary_conv", "residual_conv") and \
-                step.args.get("impl", "direct") == "direct":
-            res = step.kind == "residual_conv"
-            nd = compiled.spec.residual_nodes[step.args["res_idx"]] if res \
-                else conv_nodes[step.args["conv_idx"]]
-            k = (nd.k, nd.k) if res else (nd.kh, nd.kw)
+        elif step.kind == "binary_conv" and step.args["impl"] == "direct":
+            nd = conv_nodes[step.args["conv_idx"]]
             d = kops.plan_conv_launch(
-                nd.h_in, nd.w_in, nd.c_in, nd.c_out, *k,
+                nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.kh, nd.kw,
                 stride=step.args["stride"], padding=step.args["pad"],
-                pack_out=not res, impl="auto", nb=batch)
-            e = kres.residual_tile_plan(*d["key"][2:],
-                                        autotune._sms(device)) if res \
-                else autotune.resolve(d["key"], device)
-            k32 = k[0] * k[1] * d["c32"]
-            smem = packed_conv.smem_bytes(e["bm"], e["bn"], k32, d["c32"])
+                pack_out=True, impl="auto", nb=batch)
+            e = autotune.resolve(d["key"], device)
+            smem = packed_conv.smem_bytes(e["bm"], e["bn"],
+                                          nd.kh * nd.kw * d["c32"], d["c32"])
             audited += 1
             if d["impl"] != "direct":
                 problems.append(f"{step.name}: plan recorded impl='direct' "
                                 f"but the rule resolves {d['impl']!r} at "
                                 f"batch {batch}")
             elif smem > limit:
+                problems.append(f"{step.name}: tile {e['bm']}x{e['bn']} at "
+                                f"batch {batch} needs {smem} B a block, "
+                                f"over {limit}")
+        elif step.kind == "residual_conv":
+            nd = compiled.spec.residual_nodes[step.args["res_idx"]]
+            c32 = -(-nd.c_in // 32)
+            k32 = nd.k * nd.k * c32
+            e = kres.residual_tile_plan(batch * nd.h_out * nd.w_out,
+                                        nd.c_out, k32, autotune._sms(device))
+            smem = packed_conv.smem_bytes(e["bm"], e["bn"], k32, c32)
+            audited += 1
+            if smem > limit:
                 problems.append(f"{step.name}: tile {e['bm']}x{e['bn']} at "
                                 f"batch {batch} needs {smem} B a block, "
                                 f"over {limit}")

@@ -43,7 +43,8 @@ from repro_torch.graph.ir import (BinaryConv, BinaryDense, BNNSpec,
                                   from_dense_stack, from_workload,
                                   spec_to_workload)
 from repro_torch.graph.passes import (PlanStep, batches_tuning_keys,
-                                      build_plan, plan_tuning_keys)
+                                      build_plan, entry_epilogues,
+                                      plan_tuning_keys)
 from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import residual as kres
@@ -105,35 +106,21 @@ class CompiledBNN:
                          f"(packed_conv_kernel_residual_epilogue: the "
                          f"int32 dot stays on chip); the float stream stays "
                          f"float32, the signs between half-steps 1 bit)")
-        for i, s in enumerate(self.plan):
-            if self._entry_packs(i):
-                lines[i] += (" on the entry_conv kernel, signs packed in "
-                             "its epilogue (the binarize passes them on)")
-            elif s.kind == "integer_conv":
-                lines[i] += " on F.conv2d (cuDNN on the card)"
         return "\n".join([head] + lines)
 
     def launch_count(self) -> int:
-        """Kernel launches per forward pass under this plan: one a
-        binarize, binary conv, dense, fused stack, real (stem) conv and
-        residual half-step (the fused ``residual_conv``) step, where an
-        entry conv that packs its own signs (:meth:`_entry_packs`)
-        launches in place of the binarize after it (a float entry conv
-        on cuDNN, pools, reshapes and the real dense head are no kernels
-        of the port)."""
-        return sum(s.kind in ("binarize", "binary_conv", "dense",
-                              "fused_stack", "real_conv", "residual_conv")
-                   for s in self.plan)
+        """Kernel launches per forward pass under this plan: the sum of
+        its steps' ``launches`` (a float entry conv on cuDNN, pools,
+        reshapes and the real dense head are no kernels of the port)."""
+        return sum(len(s.launches) for s in self.plan)
 
     def legacy_launch_count(self) -> int:
         """Launches of a layer-by-layer chain: every fused_stack
         segment unrolls to one launch per layer, and a residual
-        half-step to two (packed_conv2d, then residual_epilogue)."""
+        half-step to two (the conv, then the epilogue)."""
         return sum(len(s.args["fc_indices"]) if s.kind == "fused_stack"
                    else 2 if s.kind == "residual_conv"
-                   else s.kind in ("binarize", "binary_conv", "dense",
-                                   "real_conv")
-                   for s in self.plan)
+                   else len(s.launches) for s in self.plan)
 
     def tuning_keys_for_batch(self, batch: int) -> Tuple[tuple, ...]:
         """The tuning keys this plan's launches resolve to at another
@@ -173,13 +160,17 @@ class CompiledBNN:
         before it, the tail the rest, so ``tail.apply(params,
         head.apply(params, x))`` is ``apply(params, x)``.  Cutting at
         the first binarize step separates the float entry layers, whose
-        sums depend on the order, from the exact binary tail."""
+        sums depend on the order, from the exact binary tail.  Each half
+        takes its entry epilogues again (``passes.entry_epilogues``): a
+        head that ends at an entry conv keeps its alpha multiply."""
         names = [s.name for s in self.plan]
         if step not in names:
             raise ValueError(f"no plan step {step!r}; steps: {names}")
         i = names.index(step)
-        return tuple(CompiledBNN(self.spec, plan, self.backend, self.device,
-                                 self.batch)
+        return tuple(CompiledBNN(self.spec,
+                                 entry_epilogues(self.spec, plan,
+                                                 self.backend),
+                                 self.backend, self.device, self.batch)
                      for plan in (self.plan[:i], self.plan[i:]))
 
     def with_backend(self, backend: Optional[str]) -> "CompiledBNN":
@@ -347,36 +338,6 @@ class CompiledBNN:
                        for p in params["head"]]
         return out
 
-    def _alpha_in_pack(self, i: int) -> bool:
-        """Whether the integer conv at plan step ``i`` leaves its alpha
-        multiply to the pack of the next step: only where that step is
-        a binarize without a flatten (the scale is per channel, the
-        packed axis), so ``x * alpha > 0`` is the same float32 product
-        the separate pass would have formed, and one pass over the
-        activation is saved.  A float pool after the conv (AlexNet), or
-        no next step (a head cut off by ``split``), keeps the multiply."""
-        nxt = self.plan[i + 1] if i + 1 < len(self.plan) else None
-        return nxt is not None and nxt.kind == "binarize" \
-            and not nxt.args["flatten"]
-
-    def _entry_packs(self, i: int) -> bool:
-        """Whether the integer conv at plan step ``i`` runs as the
-        ``entry_conv`` kernel, which packs its signs (alpha taken in)
-        in its epilogue, so that the binarize after it has nothing
-        left to do: on a kernel backend, where the alpha would go to
-        the pack anyway (:meth:`_alpha_in_pack`) and the kernel takes
-        the conv's shape.  BinaryNet's conv1 does; AlexNet's entry
-        convs (a float pool follows), a head cut off by ``split`` and
-        the "torch" backend keep cuDNN and the pack."""
-        step = self.plan[i]
-        if step.kind != "integer_conv" or not self._alpha_in_pack(i) \
-                or not get_backend(self.backend).uses_kernels:
-            return False
-        nd = self.spec.conv_nodes[step.args["conv_idx"]]
-        return kentry.supports((1, nd.h_in, nd.w_in, nd.c_in),
-                               (nd.kh, nd.kw, nd.c_in, nd.c_out),
-                               step.args["stride"], step.args["pad"])
-
     # -------------------------------------------------------------- #
     def apply(self, params: Dict[str, Any], x: Any,
               valid_rows: Optional[int] = None) -> Any:
@@ -390,10 +351,9 @@ class CompiledBNN:
         ``apply(params, x)[:valid_rows]``."""
         be = self.backend
         h: Any = x if valid_rows is None else kops.mask_rows(x, valid_rows)
-        scale = None         # an entry conv's alpha, left to the pack
         bits = None          # the next half-step's RSign words
         plain = not get_backend(be).uses_kernels
-        for i, step in enumerate(self.plan):
+        for step in self.plan:
             a = step.args
             if step.kind == "real_conv":
                 p = params["stem"][a["stem_idx"]]
@@ -418,16 +378,15 @@ class CompiledBNN:
                     h = F.linear(h, p["w"], p["b"])
             elif step.kind == "integer_conv":
                 p = params["conv"][a["conv_idx"]]
-                if self._entry_packs(i):
+                if a["epilogue"] == "entry_conv":
                     h = PackedArray(
                         kentry.entry_conv(h, p["w"], p["alpha"],
                                           stride=a["stride"],
                                           padding=a["pad"]),
                         length=p["w"].shape[3], axis=-1)
-                elif self._alpha_in_pack(i):
+                elif a["epilogue"] == "alpha_to_pack":
                     h = sign_weight_conv(h, p["w"], stride=a["stride"],
                                          padding=a["pad"])
-                    scale = p["alpha"]
                 else:
                     h = binary_weight_conv(h, p["w"], stride=a["stride"],
                                            padding=a["pad"],
@@ -435,12 +394,13 @@ class CompiledBNN:
             elif step.kind == "float_pool":
                 h = _maxpool_float(h, a["window"], a["stride"])
             elif step.kind == "binarize":
-                if i > 0 and self._entry_packs(i - 1):
+                if a["packed"]:
                     continue                   # entry_conv packed it
                 if a["flatten"]:
                     h = h.reshape(h.shape[0], -1)
+                scale = None if a["scale_conv"] is None \
+                    else params["conv"][a["scale_conv"]]["alpha"]
                 h = kops.binarize_pack(h, backend=be, scale=scale)
-                scale = None
             elif step.kind == "binary_conv":
                 p = params["conv"][a["conv_idx"]]
                 h = binary_conv(h, p["wf"], fold=p["t"],

@@ -22,35 +22,49 @@ lowering pipeline over a validated spec and returns a tuple of
       next half-step's RSign (``sign_next``), so no int32 dot reaches
       device memory and no pack runs between half-steps;
 
-  (5) tuning keys — every planned kernel launch records the key its
-      launch plan is looked up under in the tuning table
-      (``kernels.autotune``): ``plan_dense_launch`` / ``plan_conv_launch``
-      give the GEMM and conv keys, a fused stack keys as
-      ``("fused_binary_mlp", "cuda", m, k0, ns)``.
+  (5) tuning keys — every planned kernel launch whose plan is looked
+      up in the tuning table (``kernels.autotune``) records its key:
+      ``plan_dense_launch`` / ``plan_conv_launch`` give the GEMM and
+      conv keys, a fused stack keys as ``("fused_binary_mlp", "cuda",
+      m, k0, ns)``; the stem and the half-steps take their rule alone
+      and record none;
+
+  (6) entry epilogues (:func:`entry_epilogues`, run last, and again by
+      ``CompiledBNN.split`` over each half) — an integer conv followed
+      by a binarize without a flatten hands its alpha on: to the
+      ``entry_conv`` kernel, which packs the signs in its epilogue, on
+      a kernel backend where the kernel takes the shape (the binarize
+      then launches nothing), else to that binarize's pack; any other
+      integer conv (a float pool follows, or the plan ends) keeps its
+      alpha multiply.
 
 Every step carries a human-readable ``detail`` string, shown by
-``CompiledBNN.describe()``.  The plan is computed for a ``batch`` row
-hint; the fused-stack fit is re-checked at run time with the actual
-rows, and both outcomes are bit-identical.  Fused stacks and direct
-convs record the shared memory a block of their launch claims
-(``args["smem_bytes"]``), which ``CompiledBNN.audit`` re-derives.
+``CompiledBNN.describe()``, and ``launches``: the launch counts of
+``kernels._build`` its launch adds on a kernel backend at the plan's
+batch.  The plan is computed for a ``batch`` row hint; the fused-stack
+fit is re-checked at run time with the actual rows, and both outcomes
+are bit-identical.  Fused stacks and direct convs record the shared
+memory a block of their launch claims (``args["smem_bytes"]``), which
+``CompiledBNN.audit`` re-derives.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, GlobalAvgPool,
                                   IntegerEntry, Logits, MaxPool, RealConv,
                                   RealDense, ResidualBinaryConv)
+from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels.fused_mlp import stack_plan
 from repro_torch.kernels.ops import plan_conv_launch, plan_dense_launch
+from repro_torch.kernels.packed import get_backend
 from repro_torch.kernels.packed_conv import smem_bytes as conv_smem_bytes
 from repro_torch.kernels.residual import residual_tile_plan
 
 __all__ = ["PlanStep", "batches_tuning_keys", "build_plan",
-           "fused_key", "plan_tuning_keys"]
+           "entry_epilogues", "fused_key", "plan_tuning_keys"]
 
 
 @dataclass(frozen=True)
@@ -61,13 +75,16 @@ class PlanStep:
           packed_pool | flatten | fused_stack | dense | logits |
           real_conv | residual_conv | global_pool | real_dense
     args: static operands for the executor (param indices, geometry,
-          impl choices);  keys: the tuning keys of the step's launch.
+          impl choices);  keys: the tuning keys of the step's launch;
+    launches: the ``kernels._build`` launch counts the step adds on a
+          kernel backend at the plan's batch, one name a launch.
     """
     kind: str
     name: str
     args: dict = field(default_factory=dict)
     detail: str = ""
     keys: Tuple[tuple, ...] = ()
+    launches: Tuple[str, ...] = ()
 
     def __str__(self) -> str:
         return f"{self.kind:<13s} {self.name:<18s} {self.detail}"
@@ -107,7 +124,7 @@ def _segment_dense_run(run, k0: int, batch: int):
                 "dense", nd.name,
                 {"fc_idx": fc_idx, "thresholded": True, "pack_out": True},
                 f"{nd.n_in}->{nd.n_out} popcount_gemm launch ({why}; "
-                f"threshold->pack fused)", (d["key"],)))
+                f"threshold->pack fused)", (d["key"],), ("popcount_gemm",)))
             k0 = nd.n_out
             i += 1
         else:
@@ -122,7 +139,7 @@ def _segment_dense_run(run, k0: int, batch: int):
                 f"words and exchange activations through distributed "
                 f"shared memory ({_fmt_kb(sp['smem_bytes'])} shared "
                 f"memory per block), 1 launch vs {j - i} chained",
-                (fused_key(batch, k0, ns),)))
+                (fused_key(batch, k0, ns),), ("fused_binary_mlp",)))
             k0 = run[j - 1][1].n_out
             i = j
     return steps
@@ -163,20 +180,7 @@ def plan_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
             nds = [dn[j] for j in s.args["fc_indices"]]
             keys.append(fused_key(batch, nds[0].n_in,
                                   [nd.n_out for nd in nds]))
-        elif s.kind == "residual_conv":
-            keys.append(_residual_launch(spec.residual_nodes[s.args["res_idx"]],
-                                         backend, batch)["key"])
     return tuple(keys)
-
-
-def _residual_launch(nd: ResidualBinaryConv, backend: Optional[str],
-                     batch: int) -> dict:
-    """The half-step's conv geometry and key (the direct kernel's
-    ``packed_conv`` key; the fused kernel's plan, ``residual_tile_plan``,
-    takes its rule and reads no entry of the tuning table)."""
-    return plan_conv_launch(nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.k, nd.k,
-                            stride=nd.stride, padding=nd.pad,
-                            backend=backend, pack_out=False, nb=batch)
 
 
 def batches_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
@@ -199,7 +203,7 @@ def batches_tuning_keys(spec: BNNSpec, plan: Tuple[PlanStep, ...],
 def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                batch: int = 1,
                conv_impl: str = "auto") -> Tuple[PlanStep, ...]:
-    """Run passes 2-5 over a validated spec (see module docstring)."""
+    """Run passes 2-6 over a validated spec (see module docstring)."""
     if conv_impl not in ("auto", "direct", "im2col"):
         raise ValueError(f"conv_impl must be 'auto', 'direct', or "
                          f"'im2col', got {conv_impl!r}")
@@ -211,20 +215,15 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
     i = 0
     while i < len(nodes):
         nd = nodes[i]
-        if isinstance(nd, IntegerEntry):
+        if isinstance(nd, IntegerEntry):      # detail, launches: pass 6
             steps.append(PlanStep(
                 "integer_conv", nd.name,
-                {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad},
-                f"float NHWC conv {nd.c_in}->{nd.c_out} k{nd.kh} "
-                f"s{nd.stride} p{nd.pad}, alpha*sign(w) (full float32, "
-                f"real zero padding)"))
+                {"conv_idx": conv_i, "stride": nd.stride, "pad": nd.pad}))
             conv_i += 1
             h, w = nd.h_out, nd.w_out
-        elif isinstance(nd, Binarize):
-            steps.append(PlanStep(
-                "binarize", nd.name, {"flatten": nd.flatten},
-                "flatten + sign+pack to 1 bit/value" if nd.flatten else
-                "sign+pack NHWC channels to 1 bit/value"))
+        elif isinstance(nd, Binarize):          # detail, launches: pass 6
+            steps.append(PlanStep("binarize", nd.name,
+                                  {"flatten": nd.flatten}))
             domain = "packed_flat" if nd.flatten else "packed_conv"
         elif isinstance(nd, BinaryConv):
             d = plan_conv_launch(
@@ -247,7 +246,8 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 f"packed conv {nd.c_in}->{nd.c_out} k{nd.kh} "
                 f"s{nd.stride} p{nd.pad}, impl={d['impl']} ({why}); "
                 f"{thr.name} folded into the threshold->pack epilogue",
-                (d["key"],)))
+                (d["key"],), ("packed_conv2d" if d["impl"] == "direct"
+                              else "popcount_gemm",)))
             conv_i += 1
             h, w = nd.h_out, nd.w_out
             i += 1                     # consume the fused BNThreshold
@@ -292,7 +292,8 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                     {"fc_idx": fc_i, "thresholded": False,
                      "pack_out": False},
                     f"{tail.n_in}->{tail.n_out} popcount_gemm int32 dot "
-                    f"(no threshold: classifier head)", (d["key"],)))
+                    f"(no threshold: classifier head)", (d["key"],),
+                    ("popcount_gemm",)))
                 fc_i += 1
                 i += 1
             continue                   # i already advanced past the run
@@ -311,12 +312,12 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 f"p{nd.pad} (zero pad, taps summed in a fixed order) + BN "
                 f"on the stem_conv kernel"
                 + ("; writes the next RSign's packed signs" if sign_next
-                   else "")))
+                   else ""), launches=("stem_conv",)))
             stem_i += 1
             h, w = nd.h_out, nd.w_out
         elif isinstance(nd, ResidualBinaryConv):
-            d = _residual_launch(nd, backend, batch)
-            k32 = nd.k * nd.k * d["c32"]
+            c32 = -(-nd.c_in // 32)
+            k32 = nd.k * nd.k * c32
             tiles = residual_tile_plan(batch * nd.h_out * nd.w_out,
                                        nd.c_out, k32)
             sign_next = i + 1 < len(nodes) and \
@@ -327,7 +328,7 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                  "pad": nd.pad, "shortcut": nd.shortcut,
                  "sign_next": sign_next,
                  "smem_bytes": conv_smem_bytes(tiles["bm"], tiles["bn"],
-                                               k32, d["c32"])},
+                                               k32, c32)},
                 f"packed conv {nd.c_in}->{nd.c_out} k{nd.k} s{nd.stride} "
                 f"p{nd.pad} (b1 tensor-core implicit GEMM, tile "
                 f"{tiles['bm']}x{tiles['bn']}) with the residual epilogue "
@@ -335,7 +336,7 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 f"{'zero-pad correction, ' if nd.pad else ''}BN, "
                 f"{nd.shortcut} shortcut, RPReLU"
                 + (", the next RSign's packed signs" if sign_next else ""),
-                (d["key"],)))
+                launches=("residual_conv",)))
             res_i += 1
             h, w = nd.h_out, nd.w_out
         elif isinstance(nd, GlobalAvgPool):
@@ -355,4 +356,64 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 if isinstance(nodes[i - 1], BinaryDense) else
                 f"float32 logits [{nd.classes}]"))
         i += 1
-    return tuple(steps)
+    return entry_epilogues(spec, steps, backend)
+
+
+# pass 6: an integer conv's epilogue -> how its detail ends
+_ENTRY_NOTES = {
+    "entry_conv": "on the entry_conv kernel: alpha*sign(w), signs packed "
+                  "in its epilogue (the binarize passes them on)",
+    "alpha_to_pack": "sign(w) on F.conv2d (cuDNN on the card), alpha left "
+                     "to the pack",
+    "alpha": "alpha*sign(w) on F.conv2d (cuDNN on the card)",
+}
+
+
+def entry_epilogues(spec: BNNSpec, steps: Sequence[PlanStep],
+                    backend: Optional[str] = None) -> Tuple[PlanStep, ...]:
+    """Pass 6 over ``steps`` as they stand (a whole plan, or a part of
+    one): each integer_conv step's ``args["epilogue"]``, from the step
+    after it (see module docstring), and each binarize step's
+    ``args["packed"]`` (the entry_conv kernel before it packed the
+    signs) and ``args["scale_conv"]`` (the index of the conv whose
+    alpha its pack takes, or None), from the step before it; both
+    kinds' detail and launches follow.  Other steps are kept."""
+    uses_kernels = get_backend(backend).uses_kernels
+    out = []
+    for i, s in enumerate(steps):
+        if s.kind == "integer_conv":
+            nd = spec.conv_nodes[s.args["conv_idx"]]
+            nxt = steps[i + 1] if i + 1 < len(steps) else None
+            to_pack = nxt is not None and nxt.kind == "binarize" \
+                and not nxt.args["flatten"]
+            if to_pack and uses_kernels and kentry.supports(
+                    (1, nd.h_in, nd.w_in, nd.c_in),
+                    (nd.kh, nd.kw, nd.c_in, nd.c_out), nd.stride, nd.pad):
+                ep = "entry_conv"
+            else:
+                ep = "alpha_to_pack" if to_pack else "alpha"
+            s = replace(s, args={**s.args, "epilogue": ep},
+                        detail=f"float NHWC conv {nd.c_in}->{nd.c_out} "
+                               f"k{nd.kh} s{nd.stride} p{nd.pad} (full "
+                               f"float32, real zero padding), "
+                               + _ENTRY_NOTES[ep],
+                        launches=("entry_conv",) if ep == "entry_conv"
+                        else ())
+        elif s.kind == "binarize":
+            prev = out[-1] if out and out[-1].kind == "integer_conv" \
+                else None
+            ep = prev.args["epilogue"] if prev else "alpha"
+            scale = prev.args["conv_idx"] if ep == "alpha_to_pack" else None
+            if ep == "entry_conv":
+                detail = f"nothing to launch: {prev.name} packed the signs"
+            elif s.args["flatten"]:
+                detail = "flatten + sign+pack to 1 bit/value"
+            else:
+                detail = "sign+pack NHWC channels to 1 bit/value" + (
+                    f", {prev.name}'s alpha taken in" if scale is not None
+                    else "")
+            s = replace(s, args={**s.args, "packed": ep == "entry_conv",
+                                 "scale_conv": scale}, detail=detail,
+                        launches=() if ep == "entry_conv" else ("pack",))
+        out.append(s)
+    return tuple(out)

@@ -19,15 +19,14 @@ plain torch versions.
   residual.py       ReActNet: a residual half-step in one launch, the
                     binary conv with its epilogue (zero-pad correction,
                     BN, shortcut, RPReLU, the next sign's bits) on the
-                    tile (csrc/packed_conv.cu), the epilogue alone
-                    (csrc/residual_epilogue.cu, the unfused chain's) and
-                    the real stem conv with its BN and signs
+                    tile (csrc/packed_conv.cu), and the real stem conv
+                    with its BN and signs (csrc/stem_conv.cu)
   ops.py            public wrappers, dispatch through the registry
   _build.py         nvcc build, ctypes binding and launch counts
   csrc/binary.cuh   device helpers: threshold modes, ballot pack
   csrc/b1_mma.cuh   cp.async, ldmatrix and the b1 AND-popcount mma.sync
-  csrc/residual.cuh a residual half-step's float epilogue, shared by
-                    the fused and the unfused kernels
+  csrc/residual.cuh a residual half-step's float epilogue, on the
+                    fused kernel's tile
 
 No module builds or loads a kernel when it is imported: the libraries
 are compiled on first launch.

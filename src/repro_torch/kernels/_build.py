@@ -40,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm",
-           "entry_conv", "residual_epilogue")
+           "entry_conv", "stem_conv")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
@@ -193,15 +193,11 @@ ENTRY_CONV = Kernel("entry_conv", "entry_conv", "entry_conv_launch",
                     [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
                      I, I])
 
-RESIDUAL_EPILOGUE = Kernel("residual_epilogue", "residual_epilogue",
-                           "residual_epilogue_launch",
-                           [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                            I])
-STEM_CONV = Kernel("stem_conv", "residual_epilogue", "stem_conv_launch",
+STEM_CONV = Kernel("stem_conv", "stem_conv", "stem_conv_launch",
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I])
 
 KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM,
-           ENTRY_CONV, RESIDUAL_EPILOGUE, STEM_CONV, RESIDUAL_CONV)
+           ENTRY_CONV, STEM_CONV, RESIDUAL_CONV)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -142,7 +142,8 @@ struct Geo {
 // (conv_block below: the same mainloop), then the epilogue of
 // residual.cuh on the block's own tile, so that the int32 dot never
 // reaches device memory.  Its outputs are those of packed_conv_kernel's
-// dot (kNoThreshold) followed by residual_epilogue_kernel, bit for bit.
+// dot (kNoThreshold) followed by that epilogue, bit for bit (the plain
+// version: residual_conv_plain in kernels/residual.py).
 //  - The shortcut, which the conv does not feed, starts on its way
 //    before the mainloop: for an identity or doubling shortcut every
 //    thread asks the L2 for its share of the block's lines of it
@@ -154,9 +155,9 @@ struct Geo {
 //  - The -1 padded dot of each (pixel, column) goes from the MMA
 //    fragments into the free stage ring (rows of BN + 8 words: the
 //    quad's 8-byte stores hit 32 banks); then a warp takes 32 columns of
-//    a pixel row at a time, as residual_epilogue_kernel does, so that
-//    the shortcut's loads and the stream's stores are coalesced and the
-//    next RSign's 32 bits are one ballot.  Each thread keeps one channel
+//    a pixel row at a time, so that the shortcut's loads and the
+//    stream's stores are coalesced and the next RSign's 32 bits are one
+//    ballot.  Each thread keeps one channel
 //    for the whole tile (its table column in registers) and loads
 //    kUnroll rows' shortcuts before it computes any of them.
 struct ResGeo {

@@ -1,7 +1,7 @@
-// The float side of one residual half-step (ReActNet), shared by
-// residual_epilogue_kernel (residual_epilogue.cu) and packed_conv's
-// fused variant (packed_conv.cu), so that both run the same float32
-// operations in the same order.  Per output element:
+// The float side of one residual half-step (ReActNet): the epilogue of
+// packed_conv's fused variant (packed_conv.cu), which runs these float32
+// operations in this order, as residual_epilogue_plain in
+// kernels/residual.py does.  Per output element:
 //     d  = dot + corr[class(pixel), f]       (int32: the 0-padded dot)
 //     v  = ((float(d) * alpha - mean) * inv) * gamma + beta
 //     o  = v + shortcut

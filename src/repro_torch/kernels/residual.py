@@ -8,10 +8,10 @@ A half-step ``out = rprelu(bn(alpha * conv0(sign(x + b_in), sign(w)))
 cores) with the residual epilogue on the block's own tile, which adds
 the zero-padding correction (:func:`zero_pad_correction`) and does the
 rest, so that the int32 dot never reaches device memory.  Its plain
-version is the chain of two: ``packed_conv2d``'s un-thresholded mode,
-then :func:`residual_epilogue` (``csrc/residual_epilogue.cu``), which
-stays as the chain the fused kernel is held against.  Every float
-operation is rounded on its own and in the order the docstring of
+version, :func:`residual_conv_plain`, is ``packed_conv2d_plain``'s -1
+padded dot, then :func:`residual_epilogue_plain`.  The stem is
+:func:`stem_conv` (``csrc/stem_conv.cu``).  Every float operation is
+rounded on its own and in the order the docstring of
 :func:`residual_epilogue_plain` spells (``csrc/residual.cuh``), so the
 kernels, their plain versions and the plain reference
 (``repro_torch/reference/reactnet.py``) give the same bits.
@@ -29,8 +29,7 @@ from repro_torch.kernels.ref import pack_ref
 
 __all__ = ["BN_EPS", "RESIDUAL_TILES", "SHORTCUTS", "border_classes",
            "epilogue_table", "residual_conv", "residual_conv_plain",
-           "residual_epilogue", "residual_epilogue_plain",
-           "residual_tile_plan", "stem_conv",
+           "residual_epilogue_plain", "residual_tile_plan", "stem_conv",
            "stem_conv_plain", "stem_table", "zero_pad_correction"]
 
 BN_EPS = 1e-5                          # torch's BatchNorm2d default
@@ -61,7 +60,7 @@ def _inv_std(var: torch.Tensor) -> torch.Tensor:
 
 def epilogue_table(alpha, mean, var, gamma, beta, move_a, slope, move_b,
                    b_next: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The per-channel table [9, F] float32 of :func:`residual_epilogue`:
+    """The per-channel table [9, F] float32 of :func:`residual_conv`:
     alpha, BN mean, 1/sqrt(var + eps), gamma, beta, the RPReLU's bias
     before, its slope, its bias after, and the next RSign's bias (0
     where no sign follows)."""
@@ -138,10 +137,12 @@ def residual_epilogue_plain(dot: torch.Tensor, corr: Optional[torch.Tensor],
                             shortcut: str, k: int, stride: int, pad: int,
                             h_in: int, w_in: int, write_bits: bool = True
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The plain version, in the kernel's order: ``d = dot +
-    corr[class]``; ``v = ((float(d) * alpha - mean) * inv) * gamma +
-    beta``; ``o = v + shortcut``; ``o = o + move_a``; ``o = where(o > 0,
-    o, o * slope)``; ``o = o + move_b``; bits ``o + b_next > 0``."""
+    """The half-step's epilogue on ``packed_conv2d_plain``'s -1 padded
+    int32 dot [N, HO, WO, F], in the fused kernel's order
+    (``csrc/residual.cuh``): ``d = dot + corr[class]``; ``v = ((float(d)
+    * alpha - mean) * inv) * gamma + beta``; ``o = v + shortcut``; ``o =
+    o + move_a``; ``o = where(o > 0, o, o * slope)``; ``o = o +
+    move_b``; bits ``o + b_next > 0``."""
     n, ho, wo, f = dot.shape
     d = dot
     if corr is not None:
@@ -159,81 +160,6 @@ def residual_epilogue_plain(dot: torch.Tensor, corr: Optional[torch.Tensor],
         return o, None
     words = pack_ref((o + b_next).reshape(-1, f))
     return o, words.reshape(n, ho, wo, f // 32)
-
-
-def _check_epilogue(what, shape, device, corr, table, sc, shortcut, k,
-                    pad):
-    """The epilogue's operands around an output of ``shape`` [N, HO,
-    WO, F] on ``device``."""
-    n, ho, wo, f = shape
-    if f % 32:
-        raise ValueError(f"{what} takes F % 32 == 0, got {f}")
-    if shortcut not in SHORTCUTS:
-        raise ValueError(f"shortcut must be one of {SHORTCUTS}, got "
-                         f"{shortcut!r}")
-    want = {"identity": (n, ho, wo, f), "avgpool": (n, 2 * ho, 2 * wo, f),
-            "duplicate": (n, ho, wo, f // 2)}[shortcut]
-    if tuple(sc.shape) != want or sc.dtype != torch.float32:
-        raise ValueError(f"a {shortcut} shortcut is float32 {want}, got "
-                         f"{sc.dtype} {tuple(sc.shape)}")
-    if tuple(table.shape) != (9, f):
-        raise ValueError(f"table must be [9, {f}], got {tuple(table.shape)}")
-    if (corr is None) != (pad == 0) or (corr is not None and (
-            tuple(corr.shape) != (16, f) or pad != 1 or k != 3)):
-        raise ValueError("a 3x3 conv with a pad of 1 takes corr [16, F]; a "
-                         "conv without a pad takes none")
-    for t in (corr, table, sc):
-        if t is not None and t.device != device:
-            raise ValueError(f"{what}: operands on {t.device} and {device}")
-
-
-def _check(dot, corr, table, sc, shortcut, k, pad):
-    if dot.ndim != 4 or dot.dtype != WORD:
-        raise ValueError(f"residual_epilogue takes the int32 dot [N, HO, WO, "
-                         f"F], got {dot.dtype} {tuple(dot.shape)}")
-    _check_epilogue("residual_epilogue", tuple(dot.shape), dot.device, corr,
-                    table, sc, shortcut, k, pad)
-
-
-def residual_epilogue(dot: torch.Tensor, corr: Optional[torch.Tensor],
-                      table: torch.Tensor, sc: torch.Tensor, *,
-                      shortcut: str, k: int, stride: int, pad: int,
-                      h_in: int, w_in: int, write_bits: bool = True
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """dot int32 [N, HO, WO, F] (packed_conv2d's -1 padded dot); corr
-    int32 [16, F] for a 3x3 conv with a pad of 1, else None; table
-    float32 [9, F] (:func:`epilogue_table`); sc the float32 shortcut
-    (identity [N, HO, WO, F], avgpool [N, 2HO, 2WO, F], duplicate [N, HO,
-    WO, F/2]); ``h_in``, ``w_in`` the conv's input extent.  Returns the
-    float32 stream [N, HO, WO, F] and, with ``write_bits``, the next
-    RSign's int32 words [N, HO, WO, F/32].  A CPU tensor takes the plain
-    version, a CUDA tensor launches the kernel."""
-    _check(dot, corr, table, sc, shortcut, k, pad)
-    args = dict(shortcut=shortcut, k=k, stride=stride, pad=pad, h_in=h_in,
-                w_in=w_in, write_bits=write_bits)
-    if dot.device.type == "cpu":
-        return residual_epilogue_plain(dot, corr, table, sc, **args)
-    _build.require_cuda_tensor(dot, "residual_epilogue")
-    n, ho, wo, f = dot.shape
-    m = n * ho * wo
-    if m * f >= 2 ** 31 or sc.numel() >= 2 ** 31:
-        raise ValueError("residual_epilogue's kernel takes fewer than 2^31 "
-                         "elements")
-    dot = dot.contiguous()
-    sc = sc.contiguous()
-    table = table.to(torch.float32).contiguous()
-    if corr is not None:
-        corr = corr.to(WORD).contiguous()
-    out = torch.empty((n, ho, wo, f), dtype=torch.float32, device=dot.device)
-    bits = torch.empty((n, ho, wo, f // 32), dtype=WORD,
-                       device=dot.device) if write_bits else None
-    if m == 0:
-        return out, bits
-    _build.RESIDUAL_EPILOGUE.launch(
-        dot.device, _build.ptr(dot), _build.ptr(corr), _build.ptr(table),
-        _build.ptr(sc), _build.ptr(out), _build.ptr(bits), m, ho, wo, f,
-        h_in, w_in, k, stride, pad, sc.shape[-1], SHORTCUTS.index(shortcut))
-    return out, bits
 
 
 def _conv_operands(xp: PackedArray, wf: PackedArray, stride: int,
@@ -281,8 +207,26 @@ def _check_conv(xp, wf, corr, table, sc, shortcut, stride, pad):
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output: {h}x{w} conv {k}x{k} stride "
                          f"{stride} pad {pad}")
-    _check_epilogue("residual_conv", (n, ho, wo, f), xp.words.device, corr,
-                    table, sc, shortcut, k, pad)
+    if f % 32:
+        raise ValueError(f"residual_conv takes F % 32 == 0, got {f}")
+    if shortcut not in SHORTCUTS:
+        raise ValueError(f"shortcut must be one of {SHORTCUTS}, got "
+                         f"{shortcut!r}")
+    want = {"identity": (n, ho, wo, f), "avgpool": (n, 2 * ho, 2 * wo, f),
+            "duplicate": (n, ho, wo, f // 2)}[shortcut]
+    if tuple(sc.shape) != want or sc.dtype != torch.float32:
+        raise ValueError(f"a {shortcut} shortcut is float32 {want}, got "
+                         f"{sc.dtype} {tuple(sc.shape)}")
+    if tuple(table.shape) != (9, f):
+        raise ValueError(f"table must be [9, {f}], got {tuple(table.shape)}")
+    if (corr is None) != (pad == 0) or (corr is not None and (
+            tuple(corr.shape) != (16, f) or pad != 1 or k != 3)):
+        raise ValueError("a 3x3 conv with a pad of 1 takes corr [16, F]; a "
+                         "conv without a pad takes none")
+    for t in (corr, table, sc):
+        if t is not None and t.device != xp.words.device:
+            raise ValueError(f"residual_conv: operands on {t.device} and "
+                             f"{xp.words.device}")
 
 
 def residual_conv_plain(xp: PackedArray, wf: PackedArray,
@@ -312,12 +256,12 @@ def residual_conv(xp: PackedArray, wf: PackedArray,
     axis) by the filters ``wf`` ([K, K, C, F] packed on axis -2; K = 3
     with a pad of 1, or 1 with none), then the residual epilogue with
     the correction ``corr`` [16, F] (3x3 only), the table ``table`` [9,
-    F] (:func:`epilogue_table`) and the float32 shortcut ``sc`` (as
-    :func:`residual_epilogue` takes it).  Returns the float32 stream [N,
-    HO, WO, F] and, with ``write_bits``, the next RSign's int32 words
-    [N, HO, WO, F/32], bit for bit those of ``packed_conv2d`` followed
-    by :func:`residual_epilogue`.  A CPU tensor takes the plain version
-    (:func:`residual_conv_plain`), a CUDA tensor launches
+    F] (:func:`epilogue_table`) and the float32 shortcut ``sc``
+    (identity [N, HO, WO, F], avgpool [N, 2HO, 2WO, F], duplicate [N,
+    HO, WO, F/2]).  Returns the float32 stream [N, HO, WO, F] and, with
+    ``write_bits``, the next RSign's int32 words [N, HO, WO, F/32].  A
+    CPU tensor takes the plain version (:func:`residual_conv_plain`,
+    bit for bit the kernel's), a CUDA tensor launches
     ``packed_conv_kernel_residual_epilogue`` with the tile of
     :func:`residual_tile_plan`; launch count ``"residual_conv"``."""
     _check_conv(xp, wf, corr, table, sc, shortcut, stride, pad)

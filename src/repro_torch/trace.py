@@ -44,7 +44,7 @@ from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
                                        DISPATCHER, LAUNCH, RECOVER, RESOLVE,
                                        SYNC, Span)
 
-# kernel-name fragment -> group: the port's nine kernels by symbol (the
+# kernel-name fragment -> group: the port's eight kernels by symbol (the
 # fused residual half-step before the conv whose name its own holds), then
 # the float entry convs left to cuDNN (the kernels cuDNN chose, with its
 # layout transposes and FFT stages) and torch's own kernels (elementwise,
@@ -58,12 +58,11 @@ GROUPS = (("pack_kernel", "pack"),
           ("popcount_gemm_kernel", "popcount_gemm"),
           ("xnor_gemm_kernel", "xnor_gemm"),
           ("entry_convolve_bits_kernel", "entry_conv"),
-          ("residual_epilogue_kernel", "residual_epilogue"),
           ("stem_conv_", "stem_conv"),
           ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
           ("xmma_", CUDNN), ("flip_filter", CUDNN),
           ("at::native::", TORCH))
-PORT_GROUPS = GROUPS[:9]          # the port's own kernels
+PORT_GROUPS = GROUPS[:8]          # the port's own kernels
 
 
 def _device_us(e) -> float:

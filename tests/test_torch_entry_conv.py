@@ -13,6 +13,7 @@ a host without a CUDA device; run them on a GPU host with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_entry_conv.py
 """
 import itertools
+from collections import Counter
 
 import pytest
 
@@ -186,7 +187,7 @@ def test_apply_keeps_the_two_steps_elsewhere(monkeypatch, case):
     alpha = params["conv"][0]["alpha"]
     if case == "split_head":
         cb, _ = cb.split("binarize@conv2")
-    assert not any(cb._entry_packs(i) for i in range(len(cb.plan)))
+    assert not any(s.args.get("epilogue") == "entry_conv" for s in cb.plan)
     fused, packs = _record(monkeypatch)
     if case == "split_head":
         h = cb.apply(params, x)
@@ -211,10 +212,34 @@ def test_launches_and_plan_are_unchanged(workload, launches, packs_entry):
     cb = graph.compile(workload(), device="cpu", batch=4)
     assert expected_launches(cb, 4) == launches
     assert cb.launch_count() == sum(launches.values())
-    assert [cb._entry_packs(i) for i, s in enumerate(cb.plan)
-            if s.kind == "integer_conv"][0] is packs_entry
+    assert ([s.args["epilogue"] for s in cb.plan
+             if s.kind == "integer_conv"][0] == "entry_conv") is packs_entry
     assert "integer_conv" in [s.kind for s in cb.plan]
     assert ("entry_conv kernel" in cb.describe()) is packs_entry
+
+
+@pytest.mark.parametrize("case,epilogues,binarize", [
+    ("binarynet_cuda", ["entry_conv"], (True, None, ())),
+    ("binarynet_torch", ["alpha_to_pack"], (False, 0, ("pack",))),
+    ("alexnet", ["alpha", "alpha"], (False, None, ("pack",))),
+    ("split_head", ["alpha"], None)])
+def test_build_plan_records_the_entry_epilogue(case, epilogues, binarize):
+    """The plan decides each integer conv's epilogue once, and the
+    first binarize's (packed, scale_conv, launches) with it; the audit's
+    expected launches are the steps' ``launches`` counted."""
+    workload = alexnet_imagenet if case == "alexnet" else binarynet_cifar10
+    cb = graph.compile(workload(), backend="torch" if case ==
+                       "binarynet_torch" else "cuda", device="cpu", batch=4)
+    if case == "split_head":
+        cb, _ = cb.split("binarize@conv2")
+    assert [s.args["epilogue"] for s in cb.plan
+            if s.kind == "integer_conv"] == epilogues
+    first = [(s.args["packed"], s.args["scale_conv"], s.launches)
+             for s in cb.plan if s.kind == "binarize"][:1]
+    assert first == ([binarize] if binarize else [])
+    launches = Counter(name for s in cb.plan for name in s.launches)
+    assert expected_launches(cb, 4) == launches
+    assert cb.launch_count() == sum(launches.values())
 
 
 def test_train_eval_forward_runs_the_serving_entry_conv(monkeypatch):

@@ -186,7 +186,8 @@ def test_split_head_keeps_the_alpha_multiply(small_ref):
     jparams, x, _ = small_ref
     cb = tgraph.compile(_small_spec(tgraph), device="cpu", batch=5)
     head, _ = cb.split("binarize@conv2")
-    assert not head._alpha_in_pack(0) and cb._alpha_in_pack(0)
+    assert head.plan[0].args["epilogue"] == "alpha"
+    assert cb.plan[0].args["epilogue"] != "alpha"
     h = head.apply(params_from_numpy(np_tree(jparams), "cpu"),
                    torch.from_numpy(x))
     p0 = jparams["conv"][0]
@@ -241,7 +242,7 @@ def test_apply_hands_the_entry_alpha_to_the_pack(small_ref, monkeypatch,
 
 
 def test_which_entry_convs_leave_their_alpha_to_the_pack():
-    """Decided from the plan, with no step kind of its own: BinaryNet's
+    """Decided in the plan, with no step kind of its own: BinaryNet's
     conv1 (a binarize follows) leaves it; AlexNet's conv1 and conv2 (a
     float pool follows each) keep theirs; kinds, names and launch
     counts are unchanged."""
@@ -249,7 +250,7 @@ def test_which_entry_convs_leave_their_alpha_to_the_pack():
                                      (alexnet_imagenet(), [False, False],
                                       6)):
         cb = tgraph.compile(workload, device="cpu")
-        got = [cb._alpha_in_pack(i) for i, s in enumerate(cb.plan)
+        got = [s.args["epilogue"] != "alpha" for s in cb.plan
                if s.kind == "integer_conv"]
         assert got == want and cb.launch_count() == launches
         assert "integer_conv" in [s.kind for s in cb.plan]

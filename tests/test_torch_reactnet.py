@@ -149,19 +149,20 @@ HALF_STEPS = [(32, 32, 3, 1, "identity", 6), (64, 64, 3, 2, "avgpool", 6),
 
 
 def _port_half_step(x, p, c, f, k, stride, shortcut, h, backend, b_next):
+    """The half-step as a compiled plan runs it: ``residual_conv`` on a
+    kernel backend, ``residual_conv_plain`` on "torch"."""
     pad = (k - 1) // 2
     wf = PackedArray.pack(p["w"], axis=2)
     a = PackedArray.pack(x + p["b_in"], axis=-1)
-    dot = ops.binary_conv2d(a, wf, stride=stride, padding=pad,
-                            backend=backend)
     corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if pad \
         else None
     table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
                                 p["var"], p["gamma"], p["beta"],
                                 p["move_a"], p["slope"], p["move_b"], b_next)
-    return kres.residual_epilogue(dot, corr, table, x, shortcut=shortcut,
-                                  k=k, stride=stride, pad=pad, h_in=h,
-                                  w_in=h)
+    conv = kres.residual_conv if backend == "cuda" else \
+        kres.residual_conv_plain
+    return conv(a, wf, corr, table, x, shortcut=shortcut, stride=stride,
+                pad=pad)
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
@@ -404,7 +405,8 @@ def test_plan_launches_and_description():
     assert [ly["name"] for ly in t["layers"]] == \
         [s.name for s in cb.plan if s.kind in ("real_conv", "residual_conv",
                                                "real_dense")]
-    assert len(cb.tuning_keys) == 26
+    # the half-steps take their tile rule alone: no tuning key
+    assert len(cb.tuning_keys) == 0
     # the fused kernel's tiles: no 128-row tile, none wider than F
     tiles = [s.detail.split("tile ")[1].split(")")[0] for s in cb.plan
              if s.kind == "residual_conv"]
@@ -415,19 +417,23 @@ def test_plan_launches_and_description():
 
 
 def test_fused_plan_reads_no_packed_conv_tuning_entry(monkeypatch):
-    """A tuning-table entry under a half-step's ``packed_conv`` key was
-    timed on the kernel that writes the int32 dot: the unfused conv's
-    plan takes it, the fused half-step's keeps its own rule."""
+    """A ``packed_conv`` tuning-table entry at a half-step's geometry
+    (timed on the kernel that writes the int32 dot) changes that conv's
+    own tile plan and none of the half-step's plan."""
     from repro_torch.kernels import autotune
     from repro_torch.kernels import packed_conv as kconv
     monkeypatch.delenv(autotune.ENV_TABLE, raising=False)
     monkeypatch.setattr(autotune, "_TABLE", autotune.TuningTable())
     cb = graph.compile(ir.reactnet_a(), device="cpu", batch=256)
-    rule = [kres.residual_tile_plan(*k[2:]) for k in cb.tuning_keys]
-    for k in cb.tuning_keys:
+    keys = [ops.plan_conv_launch(nd.h_in, nd.w_in, nd.c_in, nd.c_out, nd.k,
+                                 nd.k, stride=nd.stride, padding=nd.pad,
+                                 pack_out=False, nb=256)["key"]
+            for nd in cb.spec.residual_nodes]
+    rule = [kres.residual_tile_plan(*k[2:]) for k in keys]
+    for k in keys:
         autotune.get_table().put(k, {"bm": 128, "bn": 128})
-    assert all(kconv.tile_plan(*k[2:])["bm"] == 128 for k in cb.tuning_keys)
-    assert [kres.residual_tile_plan(*k[2:]) for k in cb.tuning_keys] == rule
+    assert all(kconv.tile_plan(*k[2:])["bm"] == 128 for k in keys)
+    assert [kres.residual_tile_plan(*k[2:]) for k in keys] == rule
     again = graph.compile(ir.reactnet_a(), device="cpu", batch=256)
     assert [s.detail for s in again.plan] == [s.detail for s in cb.plan]
     assert [s.args for s in again.plan] == [s.args for s in cb.plan]
@@ -482,40 +488,6 @@ def _reactnet_a_steps():
             for nd in spec.residual_nodes]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("c,f,k,stride,shortcut,h",
-                         sorted(set(_reactnet_a_steps())))
-def test_residual_epilogue_kernel_bit_for_bit(cuda, c, f, k, stride,
-                                              shortcut, h):
-    g = torch.Generator().manual_seed(c + f + h)
-    n = 2
-    ho = (h - 1) // stride + 1
-    dot = torch.randint(-9 * c, 9 * c + 1, (n, ho, ho, f), generator=g,
-                        dtype=torch.int32)
-    wf = PackedArray.pack(torch.randn(k, k, c, f, generator=g), axis=2)
-    corr = kres.zero_pad_correction(wf.unpack(torch.float32)) if k == 3 \
-        else None
-    p = _half_step_params(c, f, k, seed=h)
-    table = kres.epilogue_table(p["w"].abs().mean(dim=(0, 1, 2)), p["mean"],
-                                p["var"], p["gamma"], p["beta"],
-                                p["move_a"], p["slope"], p["move_b"],
-                                torch.rand(f, generator=g) - 0.5)
-    sc_c = f // 2 if shortcut == "duplicate" else f
-    sc = torch.randn(n, h if shortcut == "avgpool" else ho,
-                     h if shortcut == "avgpool" else ho, sc_c, generator=g)
-    args = dict(shortcut=shortcut, k=k, stride=stride, pad=(k - 1) // 2,
-                h_in=h, w_in=h)
-    want = kres.residual_epilogue_plain(dot, corr, table, sc, **args)
-    _build.reset_launch_counts()
-    got = kres.residual_epilogue(
-        dot.to(cuda), None if corr is None else corr.to(cuda),
-        table.to(cuda), sc.to(cuda), **args)
-    torch.cuda.synchronize()
-    assert _build.launch_counts()["residual_epilogue"] == 1
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
-
-
 def _distinct_half_steps():
     """ReActNet-A's half-steps by (C_in, C_out, K, stride, shortcut, H,
     whether the next RSign's words are written), once each."""
@@ -547,16 +519,6 @@ def _fused_on_card(cuda, c, f, k, stride, shortcut, h, n, seed):
                                          pad=pad)
 
 
-def _chain_on_card(xp, wf, corr, table, sc, write_bits, kw):
-    """The unfused chain of kernels: packed_conv2d's dot, then
-    residual_epilogue."""
-    dot = ops.binary_conv2d(xp, wf, stride=kw["stride"], padding=kw["pad"])
-    h = xp.words.shape[1]
-    return kres.residual_epilogue(dot, corr, table, sc, k=wf.words.shape[0],
-                                  h_in=h, w_in=h, write_bits=write_bits,
-                                  **kw)
-
-
 def _same_bits(got, want):
     """Float streams by their bit patterns, and the sign words."""
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
@@ -569,14 +531,17 @@ def _same_bits(got, want):
 @pytest.mark.parametrize("rows", [1, 7, 256])
 @pytest.mark.parametrize("c,f,k,stride,shortcut,h,write_bits",
                          _distinct_half_steps())
-def test_fused_half_step_kernel_is_the_chain(cuda, c, f, k, stride, shortcut,
-                                            h, write_bits, rows):
-    """The fused kernel (through its tile plan) against the chain of
-    kernels it replaces, bit for bit, at every ReActNet-A half-step."""
+def test_fused_half_step_kernel_is_its_plain_version(cuda, c, f, k, stride,
+                                                    shortcut, h, write_bits,
+                                                    rows):
+    """The fused kernel (through its tile plan) against its plain
+    version, ``residual_conv_plain`` on the card, bit for bit, at every
+    ReActNet-A half-step."""
     xp, wf, corr, table, sc, kw = _fused_on_card(cuda, c, f, k, stride,
                                                  shortcut, h, rows,
                                                  seed=c + f + h + rows)
-    want = _chain_on_card(xp, wf, corr, table, sc, write_bits, kw)
+    want = kres.residual_conv_plain(xp, wf, corr, table, sc,
+                                    write_bits=write_bits, **kw)
     _build.reset_launch_counts()
     got = kres.residual_conv(xp, wf, corr, table, sc, write_bits=write_bits,
                              **kw)
@@ -602,7 +567,7 @@ def test_fused_half_step_kernel_every_tile(cuda, c, f, k, stride, shortcut,
     from repro_torch.kernels import packed_conv as kconv
     xp, wf, corr, table, sc, kw = _fused_on_card(cuda, c, f, k, stride,
                                                  shortcut, h, rows, seed=5)
-    want = _chain_on_card(xp, wf, corr, table, sc, True, kw)
+    want = kres.residual_conv_plain(xp, wf, corr, table, sc, **kw)
     xw, ww, geo = kres._conv_operands(xp, wf, kw["stride"], kw["pad"])
     for tile in kconv.TILES:
         _same_bits(kres._launch_residual_conv(xw, ww, corr, table, sc, tile,
@@ -647,7 +612,7 @@ def test_full_width_graphed_forward_against_the_reference(cuda):
     counts = _build.launch_counts()
     # one fused kernel a half-step: no dot for a separate epilogue
     assert counts["residual_conv"] == 26 and counts["stem_conv"] == 1
-    assert counts["residual_epilogue"] == 0 and counts["packed_conv2d"] == 0
+    assert counts["packed_conv2d"] == 0
     want = reference.logits(table_of(spec), weights_of(raw), x)
     assert float(_gap(got, want).max()) <= reference.LOGIT_REL_TOL
     # the float stream is the eager forward's bit for bit; the head's sums
