@@ -74,9 +74,11 @@
    at batches 1, 7 and 256, on the signs and stream of the forward's
    own kernels, float stream by its bit patterns and sign words, and
    stem_conv (its 3x3x3 stem, batch norm and signs) at the 224x224 stem
-   at those batches and at three other shapes; both are timed over one
-   forward at batch 256 beside their bound and plain version (the stem
-   also beside cuDNN's conv alone, TF32 off).  Before the phases, the
+   at those batches and at the 14 shapes of STEM_EDGES; both are timed
+   over one forward at batch 256 beside their bound and plain version
+   (the stem beside both its bounds, bytes and its products and sums
+   unfused at the non-FMA rate, and beside cuDNN's conv alone, TF32
+   off).  Before the phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -361,6 +363,9 @@ INT8_OPS = 1979e12         # H100 SXM int8 tensor-core peak, dense ops/s
 B1_OPS = 8 * INT8_OPS
 BF16_OPS = 989e12          # H100 SXM bf16 tensor-core peak, dense FLOP/s
 FP32_OPS = 67e12           # H100 SXM float32 outside the tensor cores
+# float32 products or sums on their own (no FMA): one an instruction,
+# 132 SMs x 128 lanes x 1.98 GHz, half the FMA rate's operations
+FP32_UNFUSED_OPS = FP32_OPS / 2
 BATCH = 256                # the batch kernel shapes are taken at
 BATCHES = (1, 32, 256)     # the batches the forwards run at
 DEVICE = "cuda"
@@ -1378,10 +1383,19 @@ def check_entry_conv(rnd, rec):
 
 # ReActNet-A's 26 half-steps are held bit for bit at these batches, on
 # the signs and stream of the forward's own kernels, and timed over one
-# forward at BATCH; the stem also at other widths, strides and pads:
-# (N, H, F, stride, pad)
+# forward at BATCH; the stem also at other sizes, widths, strides and
+# pads (N, H, W, F, stride, pad): batches 1 and 7 at 224, an output
+# height no tile divides and an odd width, F of 64, 96 and 128 at stride
+# 1 and 2, pad 0 and 1, stride 3, three tiles across a row, and 300
+# one-tile images (a block walks tiles across images)
 RESIDUAL_BATCHES = (1, 7, BATCH)
-STEM_EDGES = [(3, 17, 96, 2, 0), (3, 19, 64, 1, 1), (5, 224, 32, 2, 1)]
+STEM_EDGES = [(3, 17, 17, 96, 2, 0), (3, 19, 19, 64, 1, 1),
+              (5, 224, 224, 32, 2, 1), (1, 224, 224, 32, 2, 1),
+              (7, 224, 224, 32, 2, 1), (2, 45, 37, 32, 2, 1),
+              (2, 30, 29, 64, 1, 0), (2, 31, 33, 64, 2, 1),
+              (2, 23, 23, 96, 1, 1), (2, 21, 19, 128, 2, 1),
+              (2, 20, 20, 128, 1, 0), (2, 25, 26, 32, 3, 2),
+              (1, 40, 300, 32, 1, 1), (300, 9, 9, 32, 1, 1)]
 
 
 def residual_calls(cb, params, x):
@@ -1465,8 +1479,8 @@ def check_residual(rnd, rec):
             f"stem_conv ReActNet-A B={n}",
             kres.stem_conv(stem[0], stem[1], stem[2], **stem[3]),
             kres.stem_conv_plain(stem[0], stem[1], stem[2], **stem[3])))
-    for n, h, f, s, pad in STEM_EDGES:
-        x = rnd.ints(0, 256, n, h, h, 3).to(torch.float32)
+    for n, h, wi, f, s, pad in STEM_EDGES:
+        x = rnd.ints(0, 256, n, h, wi, 3).to(torch.float32)
         w = rnd.normal(3, 3, 3, f)
 
         def u(lo, hi):
@@ -1476,7 +1490,7 @@ def check_residual(rnd, rec):
                                 u(0.5, 1.5), u(-0.5, 0.5), u(-0.5, 0.5))
         args = dict(stride=s, pad=pad)
         err_s = max(err_s, epilogue_pair_equal(
-            f"stem_conv [{n}, {h}, {h}, 3] F={f} s{s} p{pad}",
+            f"stem_conv [{n}, {h}, {wi}, 3] F={f} s{s} p{pad}",
             kres.stem_conv(x, w, table, **args),
             kres.stem_conv_plain(x, w, table, **args)))
     rec.append(fused_residual_record(steps, err_f))
@@ -1498,16 +1512,23 @@ def check_residual(rnd, rec):
     st = cb.spec.stem_nodes[0]
     out = BATCH * st.h_out * st.w_out * st.c_out
     nbytes = 4 * x.numel() + 4 * out + out / 8
-    b, by = bound(nbytes, 2 * st.kh * st.kw * st.c_in * out, FP32_OPS)
+    # each output's taps: a product and a sum each, unfused (hazard 2b)
+    ops = 2 * st.kh * st.kw * st.c_in * out
+    b, by = bound(nbytes, ops, FP32_UNFUSED_OPS)
+    b_bytes, b_ops = nbytes / MEM_BPS * 1e3, ops / FP32_UNFUSED_OPS * 1e3
     print(f"stem_conv ReActNet-A B={BATCH}: kernel_ms={ms:.4f} "
-          f"plain_ms={plain:.4f} library_ms={lib:.4f} (cuDNN's conv "
-          f"alone, float32, TF32 off) bound_ms={b:.5f} ({by}); "
-          f"{b / ms:.3f} of the bound")
+          f"bound_bytes_ms={b_bytes:.5f} ({nbytes / 1e6:.1f} MB at "
+          f"{MEM_BPS / 1e12:.2f} TB/s) bound_ops_ms={b_ops:.5f} "
+          f"({ops / 1e9:.2f} G products and sums unfused at "
+          f"{FP32_UNFUSED_OPS / 1e12:.1f} T/s) plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} (cuDNN's conv alone, float32, TF32 off); "
+          f"{b / ms:.3f} of the bound ({by})")
     rec.append(dict(name="stem_conv", route="cuda",
                     source="src/repro_torch/kernels/csrc/stem_conv.cu",
                     replaces="none (ReActNet is port-only)",
                     max_abs_err=err_s, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=lib))
+                    bound_by=by, bound_bytes_ms=b_bytes,
+                    bound_ops_ms=b_ops, library_ms=lib))
 
 
 def fused_residual_record(steps, err):

@@ -194,7 +194,7 @@ ENTRY_CONV = Kernel("entry_conv", "entry_conv", "entry_conv_launch",
                      I, I])
 
 STEM_CONV = Kernel("stem_conv", "stem_conv", "stem_conv_launch",
-                   [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I])
+                   [P, P, P, P, P] + [I] * 15)
 
 KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM,
            ENTRY_CONV, STEM_CONV, RESIDUAL_CONV)

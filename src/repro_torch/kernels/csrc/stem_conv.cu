@@ -1,124 +1,305 @@
 // The real-valued stem of a residual binary network (ReActNet),
 // stem_conv_bn_sign_kernel: a 3x3 conv of float NHWC x over 3 channels
-// with float weights [3, 3, 3, F] and a zero pad, summed in the fixed
-// order (kh, kw, c) from 0 with one rounding a product and one a sum,
-// then the batch norm ((acc - mean) * inv) * gamma + beta; writes the
-// float map and the packed signs (v + b_next) > 0 of the next
-// learned-threshold sign (RSign).  Table [5, F]: mean, inv, gamma,
-// beta, b_next.
+// with float weights [3, 3, 3, F] and a zero pad, then the batch norm
+// ((acc - mean) * inv) * gamma + beta; writes the float map and the
+// packed signs (v + b_next) > 0 of the next learned-threshold sign
+// (RSign).  Table [5, F]: mean, inv, gamma, beta, b_next.
 //
-// Bound: memory.  Each thread owns one channel for the whole call, so
-// its weights and per-channel constants sit in registers, and walks
-// kIter pixels; a warp covers 32 consecutive channels of one pixel, so
-// the loads and the float store are coalesced and the next RSign's
-// word is one ballot.
-#include <cstdint>
-
+// Replaces no pallas_call: ReActNet is port-only (the JAX package has no
+// residual family), so there is no TPU kernel behind it.
+//
+// Arithmetic (ROADMAP hazard 2b): every output sums its 27 taps in the
+// order (kh, kw, c) from 0, each product and each sum rounded on its own
+// (__fmul_rn / __fadd_rn, never an FMA), and the batch norm and the
+// next sign are stem_bn below, so the map and the words equal
+// stem_conv_plain's bit for bit.  The order is part of the model's
+// stated precision: a float32 stem in another order, or with FMAs,
+// fails the benchmark's check.
+//
+// Bounds on the H100, at ReActNet-A's stem (224x224x3 -> 112x112x32,
+// stride 2): bytes, 2.26 MB an image (the 0.60 MB image in, the 1.61 MB
+// float map and 0.05 MB of words out), 0.1726 ms a forward of 256 rows
+// at 3.35 TB/s; operations, 27 products and 27 sums unfused an output,
+// 5.55 G a forward of 256 rows, 0.166 ms at 33.5 T non-FMA float32
+// operations/s (132 SMs x 128 lanes x 1.98 GHz).  The two are about
+// equal, so the design spends its instructions on the products and sums
+// and keeps the loads few:
+//  - A block owns a tile of output pixels (`rows` x `cols`, from the
+//    wrapper's plan, stem_plan) and a slab of 32, 64 or 128 channels.
+//    It stages the tile's input rows in shared memory once, as three
+//    copies shifted by the tap column kw ([row][kw][pos][c], pos the
+//    output column): the taps of kPix neighbouring outputs at one
+//    (kh, kw) are then 3 * kPix consecutive floats at an aligned address
+//    whatever the stride, three 16-byte loads.  The copies are 4-byte
+//    cp.async, zero-filled outside the image (the zero pad comes from the
+//    staging, no tap is tested): a 16-byte copy cannot both read a row
+//    at its 12-byte pixel offset and land it aligned for the 16-byte tap
+//    loads (and an odd width puts a row off 16 bytes in device memory).
+//    Blocks are persistent and double-buffered: the next tile's copy is
+//    in flight while this one is summed.  Two blocks of 4 warps an SM
+//    (the weights take the registers, 228 a thread), not one of 8, so
+//    that one block's copies and stores overlap the other's sums.
+//  - A thread owns kPix = 4 neighbouring pixels of a row and kCh = 4
+//    channels: its 27 x 4 weights sit in registers, each tap it loads
+//    serves 4 outputs' sums, each weight 4 pixels', and its 16 outputs
+//    keep 16 independent accumulator chains that overlap (27 16-byte
+//    loads for 16 outputs, against 27 scalar loads an output before).
+//  - Epilogue: each thread stores a pixel's 4 channels as one 16-byte
+//    store (8 threads cover one 32-channel word of a pixel, so a warp's
+//    stores fill whole 128-byte lines); the next sign's nibbles are
+//    ORed into the word by three shuffles across those 8 threads.
+// Measured (H100 80GB HBM3 at 700 W, ReActNet-A's stem at 256 rows,
+// tiles of 4 x 112 outputs): 0.36 ms, against 1.37 ms for the kernel it
+// replaced (a warp a pixel, 27 bounds-tested scalar loads a lane, one
+// serial chain).  Tried on the way, all slower (0.40-0.54 ms): one block
+// of 8 or 12 warps, four of 2; tiles of 2, 5, 6 or 8 rows; 2 channels a
+// thread; the weights in shared memory (3 blocks an SM); staging by
+// consecutive floats, or by (r, kw, pos) triples in turn; streaming
+// stores.
+// Offsets into x, out and bits are 64-bit; the wrapper checks that
+// element counts stay below 2^31.
+#include "b1_mma.cuh"
 #include "binary.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;          // most threads a block
-constexpr int kIter = 8;               // pixels a thread walks
+using repro::cp_async;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::smem_addr;
 
-// threads of a block along the channels (a multiple of 32 dividing F)
-// and along the pixels
-__host__ __device__ inline int block_channels(int f) {
-  int cb = 256;
-  while (f % cb) cb /= 2;
-  return cb < 32 ? 32 : cb;
-}
+constexpr int kThreads = 128;    // a block
+constexpr int kBlocks = 2;       // blocks an SM
+constexpr int kPix = 4;          // neighbouring pixels of a row a thread
+constexpr int kCh = 4;           // channels a thread
+constexpr int kTaps = 27;        // 3 x 3 x 3, summed in this order
 
 struct StemGeo {
-  int n, h, w, c, f, kh, kw, stride, pad, ho, wo, write_bits;
+  int h, w, f, stride, pad, ho, wo;
+  int slab;      // channels a block owns: 128, 64 or 32 (dividing F)
+  int lanes;     // threads of a pixel group: slab / kCh
+  int groups;    // pixel groups of one pass of the block's threads
+  int rows, cols;       // the tile of output pixels (cols % kPix == 0)
+  int gcols;            // pixel groups along a tile row: cols / kPix
+  int prow;             // staged input rows: (rows - 1) * stride + 3
+  int passes;           // of the block's threads over a tile
+  int patch;            // floats of one staged tile: prow * 9 * cols
+  int tiles_y, tiles_x, tiles;
+  int smem;             // two staged tiles, bytes
 };
 
-// the stem's epilogue: batch norm, the float map, the next RSign's word
-__device__ __forceinline__ void stem_store(float acc, const float* t, int f,
-                                           int ldf, int p, int fw,
-                                           int lane, float* out,
-                                           uint32_t* bits, int write_bits) {
-  float v = __fmul_rn(__fsub_rn(acc, t[0]), t[1]);
-  v = __fadd_rn(__fmul_rn(v, t[2]), t[3]);
-  out[p * ldf + f] = v;
-  if (write_bits) {
-    const uint32_t word =
-        __ballot_sync(REPRO_FULL_MASK, __fadd_rn(v, t[4]) > 0.f);
-    if (lane == 0) bits[p * fw + f / 32] = word;
-  }
+struct Tile {
+  int img, oy0, ox0;
+};
+
+__device__ __forceinline__ Tile tile_at(const StemGeo& g, int tl) {
+  const int per_img = g.tiles_y * g.tiles_x;
+  const int img = tl / per_img, rem = tl - img * per_img;
+  const int ty = rem / g.tiles_x;
+  return Tile{img, ty * g.rows, (rem - ty * g.tiles_x) * g.cols};
 }
 
-// the taps known at compile time: the thread's column of weights lives
-// in registers and the taps unroll
-template <int KH, int KW, int C>
-__global__ void __launch_bounds__(kThreads)
+// the stem's batch norm: ((acc - mean) * inv) * gamma + beta
+__device__ __forceinline__ float stem_bn(float acc, float mean, float inv,
+                                         float gamma, float beta) {
+  const float v = __fmul_rn(__fsub_rn(acc, mean), inv);
+  return __fadd_rn(__fmul_rn(v, gamma), beta);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
 stem_conv_bn_sign_kernel(const float* __restrict__ x,
                          const float* __restrict__ wt,
                          const float* __restrict__ table,
                          float* __restrict__ out,
                          uint32_t* __restrict__ bits, StemGeo g) {
-  const int cb = block_channels(g.f);
-  const int pb = blockDim.x / cb;
-  const int f = blockIdx.y * cb + threadIdx.x % cb;
-  float wr[KH * KW * C];
+  extern __shared__ __align__(16) float xs[];   // 2 x [prow][3][cols][3]
+  const int tid = threadIdx.x;
+  const int q = tid % g.lanes, grp = tid / g.lanes;
+  const int ch = blockIdx.y * g.slab + kCh * q;   // first of 4 channels
+  int tile = blockIdx.x;
+  if (tile >= g.tiles) return;
+
+  // tile `tl`'s input rows into buffer `buf`, once for each kw: element
+  // (r, kw, pos, c) is x[iy0 + r][(ox0 + pos) * stride + kw - pad][c],
+  // zero outside the image
+  auto stage = [&](int tl, int buf) {
+    const Tile t = tile_at(g, tl);
+    const int iy0 = t.oy0 * g.stride - g.pad;
+    const float* xi = x + (size_t)t.img * g.h * g.w * 3;
+    const uint32_t dst0 = smem_addr(xs + buf * g.patch);
+    const int step = 4 * 9 * g.cols;              // bytes of a staged row
+    for (int e = tid; e < 3 * g.cols; e += kThreads) {
+      const int kw = e / g.cols, pos = e - kw * g.cols;
+      const int ix = (t.ox0 + pos) * g.stride + kw - g.pad;
+      const bool col_ok = ix >= 0 && ix < g.w;
+      const float* src_col = xi + (size_t)(col_ok ? ix : 0) * 3;
+      uint32_t dst = dst0 + 4 * 3 * e;
+      for (int r = 0; r < g.prow; ++r, dst += step) {
+        const int iy = iy0 + r;
+        const bool ok = col_ok && iy >= 0 && iy < g.h;
+        const float* src = ok ? src_col + (size_t)iy * g.w * 3 : x;
 #pragma unroll
-  for (int t = 0; t < KH * KW * C; ++t) wr[t] = wt[t * g.f + f];
-  const float t5[5] = {table[f], table[g.f + f], table[2 * g.f + f],
-                       table[3 * g.f + f], table[4 * g.f + f]};
-  const int lane = threadIdx.x & 31;
-  const int hw = g.ho * g.wo;
-  const int m = g.n * hw;          // m * f < 2^31 (the wrapper checks)
-  const int p0 = blockIdx.x * pb * kIter + threadIdx.x / cb;
-  for (int it = 0; it < kIter; ++it) {
-    const int p = p0 + it * pb;
-    if (p >= m) break;
-    const int img = p / hw, r = p - img * hw;
-    const int oy = r / g.wo, ox = r - oy * g.wo;
-    const int y0 = oy * g.stride - g.pad, x0 = ox * g.stride - g.pad;
-    const float* xi = x + img * g.h * g.w * C;
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < KH; ++i) {
-      const int iy = y0 + i;
-#pragma unroll
-      for (int j = 0; j < KW; ++j) {
-        const int ix = x0 + j;
-        const bool in = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
-        const float* px = xi + (in ? (iy * g.w + ix) * C : 0);
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc = __fadd_rn(acc, __fmul_rn(in ? px[c] : 0.f,
-                                         wr[(i * KW + j) * C + c]));
+        for (int c = 0; c < 3; ++c)
+          cp_async<4>(dst + 4 * c, src + (ok ? c : 0), ok);
       }
     }
-    stem_store(acc, t5, f, g.f, p, g.f / 32, lane, out, bits, g.write_bits);
-  }
-}
+  };
 
-dim3 grid_of(long long m, int f) {
-  const int cb = block_channels(f);
-  const int pb = kThreads / cb;
-  return dim3((unsigned)((m + (long long)pb * kIter - 1) / (pb * kIter)),
-              f / cb);
+  // the thread's weights: tap t, channel ch + k
+  float wr[kTaps][kCh];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    const float4 v =
+        __ldg(reinterpret_cast<const float4*>(wt + (size_t)t * g.f + ch));
+    wr[t][0] = v.x; wr[t][1] = v.y; wr[t][2] = v.z; wr[t][3] = v.w;
+  }
+  const float4* tb = reinterpret_cast<const float4*>(table + ch);
+  const int t4 = g.f / 4;                         // a table row in float4s
+  const int fw = g.f / 32;
+  const int shift = kCh * (q & 7);                // the nibble's place
+
+  stage(tile, 0);
+  cp_async_commit();
+  for (int i = 0; tile < g.tiles; ++i) {
+    const int next = tile + gridDim.x;
+    if (next < g.tiles) stage(next, (i + 1) & 1);
+    cp_async_commit();           // an empty group where there is no next
+    cp_async_wait<1>();          // this tile's rows have landed
+    __syncthreads();
+
+    const Tile t = tile_at(g, tile);
+    const float* patch = xs + (i & 1) * g.patch;
+#pragma unroll 1
+    for (int pass = 0; pass < g.passes; ++pass) {
+      const int pg = pass * g.groups + grp;
+      const bool live = pg < g.rows * g.gcols;
+      const int pgc = live ? pg : 0;   // a spare thread sums a real group
+      const int ry = pgc / g.gcols, gx = pgc - ry * g.gcols;
+      const float* xt = patch + ry * g.stride * 9 * g.cols + 3 * kPix * gx;
+      float acc[kPix][kCh];
+#pragma unroll
+      for (int j = 0; j < kPix; ++j)
+#pragma unroll
+        for (int k = 0; k < kCh; ++k) acc[j][k] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 9; ++kk) {            // (kh, kw)
+        const int kh = kk / 3, kw = kk % 3;
+        const float4* p4 = reinterpret_cast<const float4*>(
+            xt + (kh * 3 + kw) * 3 * g.cols);
+        const float4 a = p4[0], b = p4[1], c4 = p4[2];
+        // pixel j's channel c: xv[3 * j + c]
+        const float xv[3 * kPix] = {a.x,  a.y,  a.z,  a.w,  b.x,  b.y,
+                                    b.z,  b.w,  c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int j = 0; j < kPix; ++j)
+#pragma unroll
+            for (int k = 0; k < kCh; ++k)
+              acc[j][k] = __fadd_rn(
+                  acc[j][k], __fmul_rn(xv[3 * j + c], wr[3 * kk + c][k]));
+      }
+
+      const float4 mean = __ldg(tb), inv = __ldg(tb + t4),
+                   gamma = __ldg(tb + 2 * t4), beta = __ldg(tb + 3 * t4),
+                   bn = __ldg(tb + 4 * t4);
+      const int oy = t.oy0 + ry;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        const int ox = t.ox0 + kPix * gx + j;
+        const bool keep = live && oy < g.ho && ox < g.wo;
+        const size_t p = ((size_t)t.img * g.ho + oy) * g.wo + ox;
+        const float4 v = make_float4(
+            stem_bn(acc[j][0], mean.x, inv.x, gamma.x, beta.x),
+            stem_bn(acc[j][1], mean.y, inv.y, gamma.y, beta.y),
+            stem_bn(acc[j][2], mean.z, inv.z, gamma.z, beta.z),
+            stem_bn(acc[j][3], mean.w, inv.w, gamma.w, beta.w));
+        if (keep) *reinterpret_cast<float4*>(out + p * g.f + ch) = v;
+        if (bits != nullptr) {          // the same for the whole block
+          uint32_t word =
+              ((uint32_t)(__fadd_rn(v.x, bn.x) > 0.f) |
+               (uint32_t)(__fadd_rn(v.y, bn.y) > 0.f) << 1 |
+               (uint32_t)(__fadd_rn(v.z, bn.z) > 0.f) << 2 |
+               (uint32_t)(__fadd_rn(v.w, bn.w) > 0.f) << 3)
+              << shift;
+          // the 8 threads of one word are 8 consecutive lanes
+          word |= __shfl_xor_sync(REPRO_FULL_MASK, word, 1);
+          word |= __shfl_xor_sync(REPRO_FULL_MASK, word, 2);
+          word |= __shfl_xor_sync(REPRO_FULL_MASK, word, 4);
+          if (keep && (q & 7) == 0) bits[p * fw + ch / 32] = word;
+        }
+      }
+    }
+    __syncthreads();             // before this buffer is staged again
+    tile = next;
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
 
 // x [n, h, w, 3] float NHWC, wt [3, 3, 3, f], table [5, f], out
-// [n*ho*wo, f], bits [n*ho*wo, f/32] or NULL
+// [n*ho*wo, f], bits [n*ho*wo, f/32] or NULL; (rows, cols, slab) is the
+// wrapper's plan (residual.stem_plan).  A shape or plan the kernel does
+// not take is refused (cudaErrorInvalidValue), as is a plan whose shared
+// memory exceeds what a block may have.
 extern "C" int stem_conv_launch(const float* x, const float* wt,
                                 const float* table, float* out,
                                 uint32_t* bits, int n, int h, int w, int c,
                                 int f, int kh, int kw, int stride, int pad,
-                                int ho, int wo, cudaStream_t stream) {
+                                int ho, int wo, int rows, int cols,
+                                int slab, int sms, cudaStream_t stream) {
   if ((long long)n * ho * wo == 0) return 0;
-  if (f % 32 || f == 0 || kh != 3 || kw != 3 || c != 3)
+  if (f % 32 || f <= 0 || kh != 3 || kw != 3 || c != 3 || n < 0 ||
+      stride < 1 || ho < 1 || wo < 1 || rows < 1 || cols < kPix ||
+      cols % kPix || (slab != 32 && slab != 64 && slab != 128) ||
+      f % slab || sms < 1)
     return (int)cudaErrorInvalidValue;
-  const StemGeo g{n, h, w, c, f, kh, kw, stride, pad, ho, wo,
-                  bits != nullptr};
-  stem_conv_bn_sign_kernel<3, 3, 3>
-      <<<grid_of((long long)n * ho * wo, f),
-         (kThreads / block_channels(f)) * block_channels(f), 0, stream>>>(
-          x, wt, table, out, bits, g);
+  StemGeo g{};
+  g.h = h; g.w = w; g.f = f; g.stride = stride; g.pad = pad;
+  g.ho = ho; g.wo = wo; g.rows = rows; g.cols = cols; g.slab = slab;
+  g.lanes = g.slab / kCh;
+  g.groups = kThreads / g.lanes;
+  g.gcols = cols / kPix;
+  g.prow = (rows - 1) * stride + 3;
+  g.passes = (rows * g.gcols + g.groups - 1) / g.groups;
+  g.patch = g.prow * 9 * cols;
+  g.tiles_y = (ho + rows - 1) / rows;
+  g.tiles_x = (wo + cols - 1) / cols;
+  const long long tiles = (long long)n * g.tiles_y * g.tiles_x;
+  const long long smem = 2LL * 4 * g.prow * 9 * cols;
+  if (tiles >= (1LL << 31) || smem >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  g.tiles = (int)tiles;
+  g.smem = (int)smem;
+  auto kernel = stem_conv_bn_sign_kernel;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int most = 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  if (g.smem > most) return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory a kernel must opt in: once per
+  // device, to the most a block may have
+  static bool attr_set[64] = {};
+  if (dev >= 64 || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) attr_set[dev] = true;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const int slabs = f / g.slab;
+  const long long fill = (long long)per_sm * sms / slabs;  // a wave
+  const long long blocks = fill < 1 ? 1 : fill < tiles ? fill : tiles;
+  const dim3 grid((unsigned)blocks, (unsigned)slabs);
+  kernel<<<grid, kThreads, g.smem, stream>>>(x, wt, table, out, bits, g);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,7 @@ LayerThreshold = Union[int, torch.Tensor]
 
 # the kernel's constants (csrc/fused_mlp.cu)
 SMEM_BYTES = 232448          # shared memory one H100 block may use
+SM_SMEM_BYTES = 233472       # shared memory of one H100 SM, its blocks' sum
 MAX_LAYERS = 8               # layers one launch takes
 ROW_TILES = (64, 32, 16)     # BM, rows per cluster, largest first
 CLUSTERS = (16, 8)           # CS, blocks per cluster

@@ -18,24 +18,33 @@ kernels, their plain versions and the plain reference
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import packed_conv as kconv
+from repro_torch.kernels.fused_mlp import SM_SMEM_BYTES, SMEM_BYTES
 from repro_torch.kernels.packed import WORD, PackedArray
 from repro_torch.kernels.ref import pack_ref
 
 __all__ = ["BN_EPS", "RESIDUAL_TILES", "SHORTCUTS", "border_classes",
            "epilogue_table", "residual_conv", "residual_conv_plain",
            "residual_epilogue_plain", "residual_tile_plan", "stem_conv",
-           "stem_conv_plain", "stem_table", "zero_pad_correction"]
+           "stem_conv_plain", "stem_plan", "stem_smem", "stem_table",
+           "zero_pad_correction"]
 
 BN_EPS = 1e-5                          # torch's BatchNorm2d default
 SHORTCUTS = ("identity", "avgpool", "duplicate")
 # the fused kernel's tiles, largest first (of packed_conv.TILES)
 RESIDUAL_TILES = ((64, 128), (64, 64))
+# the stem kernel (csrc/stem_conv.cu): STEM_BLOCKS blocks an SM of
+# STEM_THREADS, a thread STEM_PIX neighbouring pixels of a row x STEM_CH
+# channels
+STEM_THREADS, STEM_BLOCKS, STEM_PIX, STEM_CH = 128, 2, 4, 4
+STEM_PASSES = 8            # most passes of a block's threads over a tile
+STEM_COLS = 128            # most output columns a tile
 
 
 def residual_tile_plan(m: int, f: int, k32: int,
@@ -346,6 +355,53 @@ def stem_conv_plain(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
     return v, words.reshape(n, ho, wo, f // 32)
 
 
+def stem_smem(rows: int, cols: int, stride: int) -> int:
+    """Shared-memory bytes of the stem kernel's two staged tiles: each
+    ``(rows - 1) * stride + 3`` input rows, a row three copies (one a
+    tap column) of ``cols`` pixels x 3 float32 channels."""
+    return 2 * 4 * ((rows - 1) * stride + 3) * 9 * cols
+
+
+@functools.lru_cache(maxsize=256)
+def stem_plan(n: int, h: int, w: int, f: int, stride: int, pad: int,
+              sms: int = kconv.H100_SMS) -> dict:
+    """The stem kernel's launch plan for x [n, h, w, 3] and F filters.
+    ``slab``: channels a block owns (the largest of 128, 64, 32 dividing
+    F); ``cols``: output columns a tile (a multiple of STEM_PIX, at most
+    STEM_COLS, the tiles of a row as even as that allows); ``rows``:
+    output rows a tile, the one whose waves of tiles over STEM_BLOCKS
+    blocks an SM (``STEM_BLOCKS * sms`` / slabs blocks) cost the fewest
+    passes, a tile counted as its passes plus one for its staging, up to
+    STEM_PASSES passes and the shared memory of one of STEM_BLOCKS
+    blocks on an SM (ties: the taller tile); ``passes``, ``tiles`` and
+    ``smem`` (bytes) follow.  Timed at ReActNet-A's stem, 4-row tiles
+    ran faster than 2, 5, 6 or 8 rows."""
+    ho = (h + 2 * pad - 3) // stride + 1
+    wo = (w + 2 * pad - 3) // stride + 1
+    slab = next(s for s in (128, 64, 32) if f % s == 0)
+    groups = STEM_THREADS * STEM_CH // slab     # pixel groups of a pass
+    # the shared memory of a block, STEM_BLOCKS of them an SM (1 KB
+    # reserved a block)
+    most = min(SMEM_BYTES, SM_SMEM_BYTES // STEM_BLOCKS - 1024)
+    tiles_x = -(-wo // STEM_COLS)
+    cols = STEM_PIX * -(-wo // (tiles_x * STEM_PIX))
+    gcols = cols // STEM_PIX
+    blocks = max(1, STEM_BLOCKS * sms // max(1, f // slab))
+    best = None
+    for rows in range(1, ho + 1):
+        passes = -(-rows * gcols // groups)
+        smem = stem_smem(rows, cols, stride)
+        if passes > STEM_PASSES or smem > most:
+            break
+        tiles = n * -(-ho // rows) * tiles_x
+        cost = -(-tiles // min(blocks, tiles)) * (passes + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, dict(ho=ho, wo=wo, slab=slab, rows=rows,
+                               cols=cols, passes=passes, tiles=tiles,
+                               smem=smem))
+    return best[1]
+
+
 def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
               stride: int, pad: int, write_bits: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -353,7 +409,8 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
     weights), table float32 [5, F] (:func:`stem_table`).  Returns the
     batch-normed float32 map [N, HO, WO, F] and, with ``write_bits``,
     the next RSign's int32 words [N, HO, WO, F/32].  A CPU tensor takes
-    the plain version, a CUDA tensor launches the kernel."""
+    the plain version, a CUDA tensor launches the kernel on the tiles of
+    :func:`stem_plan`."""
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"stem_conv takes x [N, H, W, C] and w [KH, KW, C, "
                          f"F], got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -375,13 +432,19 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
     x = x.to(torch.float32).contiguous()
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
     table = table.to(device=x.device, dtype=torch.float32).contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()                      # 16-byte loads of 4 channels
+    if table.data_ptr() % 16:
+        table = table.clone()
     out = torch.empty((n, ho, wo, f), dtype=torch.float32, device=x.device)
     bits = torch.empty((n, ho, wo, f // 32), dtype=WORD,
                        device=x.device) if write_bits else None
-    if n == 0:
+    if n * ho * wo == 0:
         return out, bits
+    sms = _build.device_sms(x.device)
+    p = stem_plan(n, h, wi, f, stride, pad, sms)
     _build.STEM_CONV.launch(
         x.device, _build.ptr(x), _build.ptr(w), _build.ptr(table),
         _build.ptr(out), _build.ptr(bits), n, h, wi, c, f, kh, kw, stride,
-        pad, ho, wo)
+        pad, ho, wo, p["rows"], p["cols"], p["slab"], sms)
     return out, bits

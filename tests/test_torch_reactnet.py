@@ -283,6 +283,182 @@ def test_stem_is_the_reference_bit_for_bit():
     assert torch.equal(bits, PackedArray.pack(want + b_next, axis=-1).words)
 
 
+# the stem kernel's tiles (csrc/stem_conv.cu), written out in torch:
+# (N, H, W, F, stride, pad): ReActNet's stem at 16 and 224 rows, several
+# passes a tile, an odd width, an output height the tile does not divide,
+# a slab of 64 and of 128 channels and three of 32 (F = 96), stride 1 to
+# 3, pad 0 to 2, three tiles across a row
+STEM_TILE_CASES = [(2, 16, 16, 32, 2, 1), (1, 224, 224, 32, 2, 1),
+                   (3, 48, 48, 32, 2, 1), (2, 45, 37, 32, 2, 1),
+                   (2, 17, 17, 96, 2, 0), (2, 19, 19, 64, 1, 1),
+                   (1, 23, 21, 128, 1, 0), (2, 25, 26, 32, 3, 2),
+                   (1, 12, 300, 32, 1, 1)]
+
+
+def _stem_tiles_emulated(x, w, table, stride, pad, p):
+    """What the stem kernel computes on the plan ``p``, tile by tile: the
+    tile's input rows staged as [row][kw][pos][c] (zero outside the
+    image), each pass's pixel groups reading their taps as 12 floats at
+    ``ry * stride * 9 * cols + 12 * gx`` plus ``(kh * 3 + kw) * 3 *
+    cols``, the 16 sums in the order (kh, kw, c), the batch norm, the
+    words from 4-bit nibbles.  Returns the map, the words and how often
+    each output pixel was written."""
+    n, h, wi, _ = x.shape
+    f = w.shape[-1]
+    rows, cols, ho, wo = p["rows"], p["cols"], p["ho"], p["wo"]
+    pix = kres.STEM_PIX
+    gcols = cols // pix
+    groups = kres.STEM_THREADS * kres.STEM_CH // p["slab"]
+    prow = (rows - 1) * stride + 3
+    tiles_y, tiles_x = -(-ho // rows), -(-wo // cols)
+    assert p["tiles"] == n * tiles_y * tiles_x
+    out = torch.full((n, ho, wo, f), float("nan"))
+    words = torch.zeros(n, ho, wo, f // 32, dtype=torch.int64)
+    hits = torch.zeros(n, ho, wo, dtype=torch.int64)
+    wr = w.reshape(27, f)
+    mean, inv, gamma, beta, b_next = table
+    pg = torch.arange(p["passes"] * groups)
+    live = pg < rows * gcols
+    pgc = torch.where(live, pg, 0)          # a spare thread sums group 0
+    ry, gx = pgc // gcols, pgc % gcols
+    base = ry * stride * 9 * cols + 3 * pix * gx
+    place = torch.tensor([1 << b for b in range(32)], dtype=torch.int64)
+    for tl in range(p["tiles"]):
+        img, rem = divmod(tl, tiles_y * tiles_x)
+        ty, tx = divmod(rem, tiles_x)
+        oy0, ox0 = ty * rows, tx * cols
+        iy = oy0 * stride - pad + torch.arange(prow)
+        ix = ((ox0 + torch.arange(cols)) * stride - pad
+              + torch.arange(3)[:, None])                   # [kw, pos]
+        ok = ((iy >= 0) & (iy < h))[:, None, None] & \
+            ((ix >= 0) & (ix < wi))[None]
+        patch = x[img][iy.clamp(0, h - 1)[:, None, None],
+                       ix.clamp(0, wi - 1)[None]]          # [r, kw, pos, c]
+        flat = torch.where(ok[..., None], patch, 0.0).reshape(-1)
+        acc = torch.zeros(len(pg), pix, f)
+        for kk in range(9):
+            kh, kw = divmod(kk, 3)
+            xv = flat[base[:, None] + (kh * 3 + kw) * 3 * cols
+                      + torch.arange(3 * pix)]
+            for c in range(3):
+                for j in range(pix):
+                    acc[:, j] = acc[:, j] + xv[:, 3 * j + c, None] * \
+                        wr[3 * kk + c]
+        v = (acc - mean) * inv
+        v = v * gamma + beta
+        bit = ((v + b_next) > 0).to(torch.int64).reshape(len(pg), pix,
+                                                         f // 32, 32)
+        oy = oy0 + ry
+        ox = ox0 + pix * gx[:, None] + torch.arange(pix)
+        keep = live[:, None] & (oy < ho)[:, None] & (ox < wo)
+        gi, ji = keep.nonzero(as_tuple=True)
+        at = (torch.full_like(gi, img), oy[gi], ox[gi, ji])
+        out[at] = v[gi, ji]
+        words[at] = (bit[gi, ji] * place).sum(dim=-1)
+        hits.index_put_(at, torch.ones(len(gi), dtype=torch.int64),
+                        accumulate=True)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return out, words.to(torch.int32), hits
+
+
+def _stem_operands(n, h, w, f, seed, device="cpu"):
+    """Integer pixels, normal weights and a batch norm that centres the
+    sums, as the card tests draw them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (n, h, w, 3), generator=g).to(torch.float32)
+    wt = torch.randn(3, 3, 3, f, generator=g)
+    table = kres.stem_table(torch.randn(f, generator=g) * 100,
+                            torch.rand(f, generator=g) * 1e5 + 1e4,
+                            torch.rand(f, generator=g) + 0.5,
+                            torch.rand(f, generator=g) - 0.5,
+                            torch.rand(f, generator=g) - 0.5)
+    return x.to(device), wt.to(device), table.to(device)
+
+
+@pytest.mark.parametrize("n,h,w,f,stride,pad", STEM_TILE_CASES)
+@pytest.mark.parametrize("sms", [132, 1])
+def test_stem_kernel_tiles_are_the_plain_version(n, h, w, f, stride, pad,
+                                                 sms):
+    """The kernel's staging layout, tap addresses and pass mapping on
+    :func:`kres.stem_plan`'s tiles give ``stem_conv_plain``'s map and
+    words bit for bit, each output pixel written once (one SM: tall
+    tiles of several passes, the last with spare threads)."""
+    x, wt, table = _stem_operands(n, h, w, f, seed=h + w + f)
+    p = kres.stem_plan(n, h, w, f, stride, pad, sms)
+    got, words, hits = _stem_tiles_emulated(x, wt, table, stride, pad, p)
+    want = kres.stem_conv_plain(x, wt, table, stride=stride, pad=pad)
+    assert bool((hits == 1).all())
+    assert torch.equal(got.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(words, want[1])
+
+
+@pytest.mark.parametrize("n,h,w,f,stride,pad", STEM_TILE_CASES + [
+    (256, 224, 224, 32, 2, 1), (7, 224, 224, 32, 2, 1),
+    (300, 9, 9, 32, 1, 1), (1, 40, 1001, 256, 1, 1),
+    (2, 64, 64, 160, 2, 1), (1, 9, 9, 32, 5, 4), (4, 3, 3, 32, 1, 0)])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_stem_plan_fits_and_covers_every_pixel_once(n, h, w, f, stride, pad,
+                                                    sms):
+    """The plan's tiles: at most STEM_COLS columns, a multiple of
+    STEM_PIX; at most STEM_PASSES passes; two staged tiles within a
+    block's share of the SM (at most the 227 KB a block may have); the
+    tiles of every image and the live pixel groups of their passes cover
+    each output pixel exactly once."""
+    p = kres.stem_plan(n, h, w, f, stride, pad, sms)
+    ho = (h + 2 * pad - 3) // stride + 1
+    wo = (w + 2 * pad - 3) // stride + 1
+    assert (p["ho"], p["wo"]) == (ho, wo)
+    assert f % p["slab"] == 0 and p["slab"] in (32, 64, 128)
+    assert p["cols"] % kres.STEM_PIX == 0 and p["cols"] <= kres.STEM_COLS
+    assert 1 <= p["passes"] <= kres.STEM_PASSES
+    assert p["smem"] == kres.stem_smem(p["rows"], p["cols"], stride)
+    # two blocks an SM: within half an SM's 228 KB, 1 KB reserved a block
+    assert p["smem"] <= 233472 // kres.STEM_BLOCKS - 1024 <= 232448
+    rows, cols = p["rows"], p["cols"]
+    gcols = cols // kres.STEM_PIX
+    groups = kres.STEM_THREADS * kres.STEM_CH // p["slab"]
+    assert p["passes"] == -(-rows * gcols // groups)
+    tiles_y, tiles_x = -(-ho // rows), -(-wo // cols)
+    assert p["tiles"] == n * tiles_y * tiles_x
+    # one image's tiles (every image's are the same)
+    pg = torch.arange(p["passes"] * groups)
+    pg = pg[pg < rows * gcols]
+    ty, tx = torch.arange(tiles_y), torch.arange(tiles_x)
+    oy = ty[:, None, None, None] * rows + (pg // gcols)[None, None, :, None]
+    ox = tx[None, :, None, None] * cols + \
+        (kres.STEM_PIX * (pg % gcols))[None, None, :, None] + \
+        torch.arange(kres.STEM_PIX)
+    oy, ox = torch.broadcast_tensors(oy, ox)
+    keep = (oy < ho) & (ox < wo)
+    hits = torch.bincount((oy[keep] * wo + ox[keep]).reshape(-1),
+                          minlength=ho * wo)
+    assert bool((hits == 1).all())
+
+
+STEM_BAD = [
+    ("x 3-d", lambda a: a.update(x=a["x"][0]), "takes x"),
+    ("channels differ", lambda a: a.update(x=a["x"][..., :2]), "takes x"),
+    ("5x5 taps", lambda a: a.update(w=torch.zeros(5, 5, 3, 32)),
+     "takes w"),
+    ("4 channels", lambda a: a.update(
+        x=torch.zeros(1, 8, 8, 4), w=torch.zeros(3, 3, 4, 32)), "takes w"),
+    ("F = 48", lambda a: a.update(w=torch.zeros(3, 3, 3, 48),
+                                  table=torch.zeros(5, 48)), "takes w"),
+    ("table [4, F]", lambda a: a.update(table=a["table"][:4]), "takes w"),
+]
+
+
+@pytest.mark.parametrize("case,spoil,message", STEM_BAD,
+                         ids=[b[0] for b in STEM_BAD])
+def test_stem_conv_refuses_what_the_kernel_does_not_take(case, spoil,
+                                                         message):
+    x, wt, table = _stem_operands(1, 8, 8, 32, seed=3)
+    a = dict(x=x, w=wt, table=table)
+    spoil(a)
+    with pytest.raises(ValueError, match=message):
+        kres.stem_conv(a["x"], a["w"], a["table"], stride=2, pad=1)
+
+
 # ------------------------------------------------------------------ #
 # the small spec end to end                                            #
 # ------------------------------------------------------------------ #
@@ -574,28 +750,35 @@ def test_fused_half_step_kernel_every_tile(cuda, c, f, k, stride, shortcut,
                                               geo, **kw), want)
 
 
+# (N, H, W, F, stride, pad, write the words): ReActNet's stem at 3, 1
+# and 7 rows; an output height no tile divides and an odd width; F of
+# 64, 96, 128 at stride 1 and 2, pad 0 and 1; stride 3 with pad 2; three
+# tiles across a row; 300 images of one tile each, so that a block
+# walks tiles across images; the map alone
+STEM_CARD_CASES = [
+    (3, 224, 224, 32, 2, 1, True), (3, 17, 17, 96, 2, 0, True),
+    (3, 19, 19, 64, 1, 1, True), (1, 224, 224, 32, 2, 1, True),
+    (7, 224, 224, 32, 2, 1, True), (2, 45, 37, 32, 2, 1, True),
+    (2, 30, 29, 64, 1, 0, True), (2, 31, 33, 64, 2, 1, True),
+    (2, 23, 23, 96, 1, 1, True), (2, 21, 19, 128, 2, 1, True),
+    (2, 20, 20, 128, 1, 0, True), (2, 25, 26, 32, 3, 2, True),
+    (1, 40, 300, 32, 1, 1, True), (300, 9, 9, 32, 1, 1, True),
+    (2, 45, 37, 32, 2, 1, False)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hw,f,stride,pad", [(224, 32, 2, 1),
-                                             (17, 96, 2, 0), (19, 64, 1, 1)])
-def test_stem_kernel_bit_for_bit(cuda, hw, f, stride, pad):
-    """ReActNet's stem, and other widths, strides and pads."""
-    k, c = 3, 3
-    g = torch.Generator().manual_seed(11)
-    x = torch.randint(0, 256, (3, hw, hw, c), generator=g).to(torch.float32)
-    w = torch.randn(k, k, c, f, generator=g)
-    table = kres.stem_table(torch.randn(f, generator=g) * 100,
-                            torch.rand(f, generator=g) * 1e5 + 1e4,
-                            torch.rand(f, generator=g) + 0.5,
-                            torch.rand(f, generator=g) - 0.5,
-                            torch.rand(f, generator=g) - 0.5)
-    want = kres.stem_conv_plain(x, w, table, stride=stride, pad=pad)
+@pytest.mark.parametrize("n,h,w,f,stride,pad,write_bits", STEM_CARD_CASES)
+def test_stem_kernel_bit_for_bit(cuda, n, h, w, f, stride, pad, write_bits):
+    """ReActNet's stem, and other batches, sizes, widths, strides and
+    pads: the map by its bit patterns and the words, one launch."""
+    x, wt, table = _stem_operands(n, h, w, f, seed=11)
+    args = dict(stride=stride, pad=pad, write_bits=write_bits)
+    want = kres.stem_conv_plain(x, wt, table, **args)
     _build.reset_launch_counts()
-    got = kres.stem_conv(x.to(cuda), w.to(cuda), table.to(cuda),
-                         stride=stride, pad=pad)
+    got = kres.stem_conv(x.to(cuda), wt.to(cuda), table.to(cuda), **args)
     torch.cuda.synchronize()
     assert _build.launch_counts()["stem_conv"] == 1
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    _same_bits(tuple(t if t is None else t.cpu() for t in got), want)
 
 
 @pytest.mark.gpu
