@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi``), torch and CUDA versions, and builds
-   the six Hopper kernels from ``src/repro_torch/kernels/csrc`` with
+   the eight Hopper kernel libraries of ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together (timed);
 2. holds each kernel — pack, packed_conv2d, fused_binary_mlp,
    popcount_gemm, xnor_gemm, entry_conv — against its plain torch
@@ -78,7 +78,15 @@
    over one forward at batch 256 beside their bound and plain version
    (the stem beside both its bounds, bytes and its products and sums
    unfused at the non-FMA rate, and beside cuDNN's conv alone, TF32
-   off).  Before the phases, the
+   off).  Bi-Real Net-18's kernels of its own, stem_conv's pooled
+   kernel (the 7x7 stride-2 stem, batch norm, 3x3 max pool and signs;
+   record ``stem_conv_pool``) and shortcut_conv (its three projections:
+   2x2 average, float 1x1 conv, batch norm), are held bit for bit
+   against their plain versions at batches 1, 7 and 256 on 8-bit pixels
+   and the forward's own streams (its 16 fused half-steps too), and
+   timed over one forward at batch 256 beside their bounds, plain
+   versions and cuDNN's conv or torch's pool and matmul.  Before the
+   phases, the
    ``mma.sync`` ceilings of bf16, s8 and b1 from registers are printed;
 3. runs full-width BinaryNet CIFAR-10 through the port's entry points
    (``graph.compile(...).init/apply``) at batches 1, 32 and 256, with
@@ -105,7 +113,12 @@
    the ``"cuda"`` logits equal the ``"torch"``
    backend's on the card, and every logit lies within 1e-4 of the
    image's largest logit of the plain reference
-   (``repro_torch.reference.reactnet``);
+   (``repro_torch.reference.reactnet``); full-width Bi-Real Net-18
+   (``graph.ir.bireal_net18``) the same way on 8-bit pixels against
+   ``repro_torch.reference.bireal``, 1 stem_conv, 3 shortcut_conv and
+   16 residual_conv a forward, and at batch 256 also replayed from a
+   CUDA graph (counts reset just before the replay), its logits equal
+   to eager ``apply``'s;
 5. replays both models at batches 1, 32 and 256 from one CUDA graph
    per forward (``graph.replay.GraphedApply``): the replayed logits
    must equal eager ``apply``'s bit for bit, and a replay must run 8
@@ -1399,30 +1412,37 @@ STEM_EDGES = [(3, 17, 17, 96, 2, 0), (3, 19, 19, 64, 1, 1),
 
 
 def residual_calls(cb, params, x):
-    """One eager ReActNet forward of ``x`` as its kernels' calls: the
-    stem's arguments, and each half-step's (its node, the RSign's words,
-    the filters, the correction, the table, the stream in, the fused
-    kernel's options), each step fed by the kernels' outputs."""
+    """One eager forward of a residual network (ReActNet, Bi-Real Net)
+    of ``x`` as its kernels' calls: the stem's arguments, each
+    half-step's (its node, the sign's words, the filters, the
+    correction, the table, the shortcut map, the fused kernel's
+    options) and each projection's (its node, the stream, the 1x1
+    weights, the table), each fed by the kernels' outputs."""
     from repro_torch.kernels import residual as kres
     from repro_torch.kernels.packed import PackedArray
-    stem, steps, h, bits = None, [], None, None
+    stem, steps, projs, h, bits = None, [], [], None, None
     for step in cb.plan:
         a = step.args
         if step.kind == "real_conv":
             p = params["stem"][a["stem_idx"]]
             stem = (x, p["w"], p["table"], dict(
-                stride=a["stride"], pad=a["pad"], write_bits=a["sign_next"]))
+                stride=a["stride"], pad=a["pad"], pool=a["pool"],
+                write_bits=a["sign_next"]))
             h, bits = kres.stem_conv(stem[0], stem[1], stem[2], **stem[3])
         elif step.kind == "residual_conv":
             nd = cb.spec.residual_nodes[a["res_idx"]]
             p = params["res"][a["res_idx"]]
+            sc, shortcut = h, a["shortcut"]
+            if shortcut == "projection":
+                projs.append((nd, h, p["proj_w"], p["proj_table"]))
+                sc, shortcut = kres.shortcut_conv(*projs[-1][1:]), "identity"
             call = (nd, PackedArray(bits, length=nd.c_in, axis=-1), p["wf"],
-                    p.get("corr"), p["table"], h,
-                    dict(shortcut=a["shortcut"], stride=a["stride"],
+                    p.get("corr"), p["table"], sc,
+                    dict(shortcut=shortcut, stride=a["stride"],
                          pad=a["pad"], write_bits=a["sign_next"]))
             steps.append(call)
             h, bits = kres.residual_conv(*call[1:6], **call[6])
-    return stem, steps
+    return stem, steps, projs
 
 
 def float_bits_equal(name, got, want):
@@ -1469,7 +1489,8 @@ def check_residual(rnd, rec):
     err_s = err_f = 0
     for n in RESIDUAL_BATCHES:
         # unit-variance pixels: the stem's drawn batch norm centres them
-        stem, steps = residual_calls(cb, params, rnd.normal(n, 224, 224, 3))
+        stem, steps, _ = residual_calls(cb, params,
+                                        rnd.normal(n, 224, 224, 3))
         for nd, *call, kw in steps:
             err_f = max(err_f, epilogue_pair_equal(
                 f"residual_conv {nd.name} B={n}",
@@ -1499,16 +1520,7 @@ def check_residual(rnd, rec):
     ms = kernel_ms(lambda: kres.stem_conv(x, w, table, **args),
                    "stem_conv_bn_sign_kernel")
     plain = time_ms(lambda: kres.stem_conv_plain(x, w, table, **args), 3)
-    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        # cuDNN's conv alone (no batch norm, no signs): every kernel
-        lib = kernel_ms(lambda: torch.nn.functional.conv2d(
-            xc, wc, stride=args["stride"], padding=args["pad"]), "")
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    lib = cudnn_conv_ms(x, w, args)
     st = cb.spec.stem_nodes[0]
     out = BATCH * st.h_out * st.w_out * st.c_out
     nbytes = 4 * x.numel() + 4 * out + out / 8
@@ -1529,6 +1541,125 @@ def check_residual(rnd, rec):
                     max_abs_err=err_s, ms=ms, plain_ms=plain, bound_ms=b,
                     bound_by=by, bound_bytes_ms=b_bytes,
                     bound_ops_ms=b_ops, library_ms=lib))
+
+
+def cudnn_conv_ms(x, w, args):
+    """Device ms of cuDNN's float32 conv alone (TF32 off; no batch norm,
+    pool or signs: every kernel it runs) on a stem's NHWC ``x`` and
+    [K, K, C, F] ``w``."""
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return kernel_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, stride=args["stride"], padding=args["pad"]), "")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def check_bireal(rnd, rec):
+    """Bi-Real Net-18's kernels of its own, ``stem_conv``'s pooled kernel
+    (``stem_conv_pool_kernel``: the 7x7 stride-2 conv, batch norm, 3x3
+    max pool and signs) and ``shortcut_conv`` (its three projections),
+    bit for bit against their plain versions at RESIDUAL_BATCHES on
+    8-bit pixels and the forward's own streams (its 16 fused half-steps
+    too), float maps by their bit patterns and sign words; each timed
+    over one forward at BATCH (two records, ``stem_conv_pool`` and
+    ``shortcut_conv``)."""
+    from repro_torch import graph
+    from repro_torch.graph.ir import bireal_net18
+    from repro_torch.kernels import residual as kres
+    cb = graph.compile(bireal_net18(), device=DEVICE, batch=BATCH)
+    params = cb.bind(cb.draw_residual(torch.Generator().manual_seed(0)))
+    err_s = err_p = 0
+    for n in RESIDUAL_BATCHES:
+        x = rnd.ints(0, 256, n, 224, 224, 3).to(torch.float32)
+        stem, steps, projs = residual_calls(cb, params, x)
+        err_s = max(err_s, epilogue_pair_equal(
+            f"stem_conv Bi-Real Net-18 B={n}",
+            kres.stem_conv(stem[0], stem[1], stem[2], **stem[3]),
+            kres.stem_conv_plain(stem[0], stem[1], stem[2], **stem[3])))
+        for nd, *call in projs:
+            err_p = max(err_p, float_bits_equal(
+                f"shortcut_conv {nd.name} B={n}",
+                kres.shortcut_conv(*call), kres.shortcut_conv_plain(*call)))
+        for nd, *call, kw in steps:
+            epilogue_pair_equal(f"residual_conv {nd.name} B={n}",
+                                kres.residual_conv(*call, **kw),
+                                kres.residual_conv_plain(*call, **kw))
+    rec.append(pooled_stem_record(cb.spec.stem_nodes[0], stem, err_s))
+    rec.append(shortcut_record(projs, err_p))
+
+
+def pooled_stem_record(st, stem, err):
+    """The pooled stem kernel on ``stem``'s arguments (one forward's stem
+    at BATCH) beside its bounds (bytes: the pixels in, the pooled map
+    and the words out; operations: the conv's products and sums
+    unfused, as its stated precision has them, and at the FMA peak), its
+    plain version and cuDNN's conv alone."""
+    from repro_torch.kernels import residual as kres
+    x, w, table, args = stem
+    ms = kernel_ms(lambda: kres.stem_conv(x, w, table, **args),
+                   "stem_conv_pool_kernel")
+    plain = time_ms(lambda: kres.stem_conv_plain(x, w, table, **args), 1, 1)
+    lib = cudnn_conv_ms(x, w, args)
+    ho, wo = st.conv_hw()
+    out = BATCH * st.h_out * st.w_out * st.c_out
+    nbytes = 4 * x.numel() + 4 * out + out / 8
+    ops = 2 * st.kh * st.kw * st.c_in * BATCH * ho * wo * st.c_out
+    b, by = bound(nbytes, ops, FP32_UNFUSED_OPS)
+    b_bytes, b_ops = nbytes / MEM_BPS * 1e3, ops / FP32_UNFUSED_OPS * 1e3
+    b_fma = ops / FP32_OPS * 1e3
+    print(f"stem_conv_pool Bi-Real Net-18 B={BATCH}: kernel_ms={ms:.4f} "
+          f"bound_bytes_ms={b_bytes:.5f} ({nbytes / 1e6:.1f} MB) "
+          f"bound_ops_ms={b_ops:.5f} ({ops / 1e9:.2f} G products and sums "
+          f"unfused at {FP32_UNFUSED_OPS / 1e12:.1f} T/s) bound_fma_ms="
+          f"{b_fma:.5f} (at {FP32_OPS / 1e12:.0f} TFLOP/s) plain_ms="
+          f"{plain:.4f} library_ms={lib:.4f} (cuDNN's conv alone, float32, "
+          f"TF32 off); {b / ms:.3f} of the bound ({by}), {b_fma / ms:.3f} "
+          f"of the FMA bound")
+    return dict(name="stem_conv_pool", route="cuda",
+                source="src/repro_torch/kernels/csrc/stem_conv.cu",
+                replaces="none (Bi-Real Net is port-only)",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, bound_bytes_ms=b_bytes, bound_ops_ms=b_ops,
+                bound_fma_ms=b_fma, library_ms=lib)
+
+
+def shortcut_record(projs, err):
+    """shortcut_conv over one forward's three projections at BATCH beside
+    its bound (each projection's larger of its maps' bytes and its 1x1
+    conv's products and sums unfused, summed), its plain version and
+    torch's 2x2 average and matmul (TF32 off, no batch norm)."""
+    from repro_torch.kernels import residual as kres
+
+    def each(fn):
+        return lambda: [fn(*call) for _, *call in projs]
+
+    def library(x, w, table):
+        a = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 2)
+        return torch.matmul(a.permute(0, 2, 3, 1), w)
+    ms = kernel_ms(each(kres.shortcut_conv), "shortcut_conv_kernel")
+    plain = time_ms(each(kres.shortcut_conv_plain), 1, 1)
+    lib = kernel_ms(each(library), "")
+    b, bys, parts = 0.0, [], []
+    for nd, x, w, _ in projs:
+        n, h, wi, c = x.shape
+        out = n * (h // 2) * (wi // 2) * w.shape[1]
+        b_i, by = bound(4 * x.numel() + 4 * out, 2 * out * c,
+                        FP32_UNFUSED_OPS)
+        b, bys = b + b_i, bys + [by]
+        parts.append(f"{nd.name} {b_i:.5f} ({by})")
+    print(f"shortcut_conv Bi-Real Net-18 B={BATCH}, 3 projections: "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"(avg_pool2d + matmul, TF32 off) bound_ms={b:.5f} "
+          f"({', '.join(parts)}); {b / ms:.3f} of the bound")
+    return dict(name="shortcut_conv", route="cuda",
+                source="src/repro_torch/kernels/csrc/shortcut_conv.cu",
+                replaces="none (Bi-Real Net is port-only)",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=" + ".join(bys), library_ms=lib)
 
 
 def fused_residual_record(steps, err):
@@ -1741,16 +1872,26 @@ def forward_path(label, workload, per_forward, n_classes, vs_cpu,
 # one ReActNet-A forward: the stem, then one fused residual_conv a
 # half-step; the pool and the fc are torch's
 REACTNET_PER_FORWARD = {"stem_conv": 1, "residual_conv": 26}
+# one Bi-Real Net-18 forward: the pooled stem, a projection before each
+# of the three half-steps that double the width, one fused residual_conv
+# a half-step
+BIREAL_PER_FORWARD = {"stem_conv": 1, "shortcut_conv": 3,
+                      "residual_conv": 16}
 
 
-def reactnet_table(spec):
-    """A ReActNet spec as the reference's layer table."""
+def residual_table(spec):
+    """A residual spec (ReActNet, Bi-Real Net) as its plain reference's
+    layer table (a stem's max pool a row of its own)."""
     from repro_torch.graph import ir
     rows = []
     for nd in spec.nodes:
         if isinstance(nd, ir.RealConv):
             rows.append({"op": "real_conv", "k": nd.kh, "stride": nd.stride,
-                         "pad": nd.pad, "out_hw": nd.h_out})
+                         "pad": nd.pad, "out_hw": nd.conv_hw()[0]})
+            if nd.pool:
+                window, stride, pad = ir.STEM_POOL
+                rows.append({"op": "maxpool", "window": window,
+                             "stride": stride, "pad": pad})
         elif isinstance(nd, ir.ResidualBinaryConv):
             rows.append({"op": "conv", "kind": "binary", "name": nd.name,
                          "stride": nd.stride, "pad": nd.pad,
@@ -1762,21 +1903,36 @@ def reactnet_table(spec):
     return rows
 
 
-def reactnet_path(launches):
-    """Full-width ReActNet-A through ``graph.compile(...).bind/apply`` at
+def residual_path(label, spec, reference, per_forward, pixels, launches,
+                  graphed=False, stem_key="stem_conv"):
+    """Full-width ``spec`` through ``graph.compile(...).bind/apply`` at
     batches 1, 32 and 256, published-form weights from a seeded
-    generator, unit-variance float pixels: each forward launches exactly
-    REACTNET_PER_FORWARD (counts reset just before it), its logits equal
-    the ``"torch"`` backend's on the card and lie within the plain
-    reference's ``LOGIT_REL_TOL`` of its largest logit; prints
+    generator, ``pixels(batch, generator)`` in: each forward launches
+    exactly ``per_forward`` (counts reset just before it), its logits
+    equal the ``"torch"`` backend's on the card and lie within the plain
+    ``reference``'s ``LOGIT_REL_TOL`` of its largest logit; with
+    ``graphed``, at BATCH also through ``GraphedApply``: the capture
+    records ``per_forward``, a replay launches it (counts reset just
+    before it) and its logits equal eager ``apply``'s bit for bit.  The
+    stem's launches add to ``launches`` under ``stem_key``.  Prints
     images/s, ms per forward and peak device memory."""
     from repro_torch import graph
-    from repro_torch.graph.ir import reactnet_a
+    from repro_torch.graph.replay import GraphedApply
     from repro_torch.kernels import _build
-    from repro_torch.reference import reactnet as reference
-    spec = reactnet_a()
-    table = reactnet_table(spec)
+    table = residual_table(spec)
     out = {}
+
+    def counted(what, fn):
+        _build.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        expect_launches(what, counts, per_forward)
+        for k, v in counts.items():
+            k = stem_key if k == "stem_conv" else k
+            launches[k] = launches.get(k, 0) + v
+        return got, counts
+
     for batch in BATCHES:
         cb = graph.compile(spec, device=DEVICE, batch=batch)
         if batch == 1:
@@ -1785,32 +1941,25 @@ def reactnet_path(launches):
             params = cb.bind(raw)
             weights = list(raw["stem"]) + list(raw["res"]) + \
                 list(raw["head"])
-        if cb.launch_count() != sum(REACTNET_PER_FORWARD.values()):
-            raise AssertionError(f"ReActNet-A: plan has "
+        if cb.launch_count() != sum(per_forward.values()):
+            raise AssertionError(f"{label}: plan has "
                                  f"{cb.launch_count()} launches")
-        x = torch.randn(batch, 224, 224, 3, generator=torch.Generator(
-            ).manual_seed(batch)).to(DEVICE)
-        _build.reset_launch_counts()
-        logits = cb.apply(params, x)
-        torch.cuda.synchronize()
-        counts = _build.launch_counts()
-        expect_launches(f"ReActNet-A batch {batch}", counts,
-                        REACTNET_PER_FORWARD)
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        x = pixels(batch, torch.Generator().manual_seed(batch)).to(DEVICE)
+        logits, counts = counted(f"{label} batch {batch}",
+                                 lambda: cb.apply(params, x))
         if logits.shape != (batch, 1000) or not torch.isfinite(logits).all():
-            raise AssertionError(f"ReActNet-A: bad logits "
+            raise AssertionError(f"{label}: bad logits "
                                  f"{tuple(logits.shape)}")
         plain = graph.compile(spec, backend="torch", device=DEVICE
                               ).apply(params, x)
         if not torch.equal(logits, plain):
-            raise AssertionError(f"ReActNet-A batch {batch}: cuda logits "
+            raise AssertionError(f"{label} batch {batch}: cuda logits "
                                  f"differ from the torch backend's")
         want = reference.logits(table, weights, x)
         gap = float(((logits - want).abs().amax(dim=1) /
                      want.abs().amax(dim=1)).max())
         if not gap <= reference.LOGIT_REL_TOL:
-            raise AssertionError(f"ReActNet-A batch {batch}: a logit "
+            raise AssertionError(f"{label} batch {batch}: a logit "
                                  f"{gap:.3g} of the image's largest off "
                                  f"the reference's")
         iters = 20 if batch < 256 else 10
@@ -1827,12 +1976,55 @@ def reactnet_path(launches):
                           ms_per_forward=dt / iters * 1e3,
                           peak_mem_bytes=peak, max_rel_gap=gap,
                           launches_per_forward=sum(counts.values()))
-        print(f"ReActNet-A B={batch}: {batch * iters / dt:.1f} images/s, "
+        print(f"{label} B={batch}: {batch * iters / dt:.1f} images/s, "
               f"{dt / iters * 1e3:.3f} ms/forward, peak device memory "
               f"{peak / 2**20:.1f} MiB, launches {counts}, logits equal to "
               f"the torch backend, {gap:.3g} of the largest logit off the "
               f"reference")
+        if not (graphed and batch == BATCH):
+            continue
+        g = GraphedApply(cb, params, batch)
+        if g.launches != per_forward:
+            raise AssertionError(f"{label} B={batch}: the capture "
+                                 f"recorded {g.launches}")
+        got, counts = counted(f"{label} graphed B={batch}", lambda: g(x))
+        if not torch.equal(got, logits):
+            raise AssertionError(f"{label} B={batch}: replayed logits "
+                                 f"differ from eager apply's")
+        ms = wall_ms(lambda: g(x), 20)
+        out[batch].update(graphed_ms=ms, graphed_images_per_s=batch / ms *
+                          1e3)
+        print(f"{label} graphed B={batch}: {ms:.4f} ms/forward "
+              f"({batch / ms * 1e3:.1f} images/s) replayed, launches "
+              f"{counts} per replay, replayed logits equal eager apply's")
     return out
+
+
+def reactnet_path(launches):
+    """ReActNet-A on unit-variance float pixels (``residual_path``)."""
+    from repro_torch.graph.ir import reactnet_a
+    from repro_torch.reference import reactnet
+
+    def pixels(batch, gen):
+        return torch.randn(batch, 224, 224, 3, generator=gen)
+    return residual_path("ReActNet-A", reactnet_a(), reactnet,
+                         REACTNET_PER_FORWARD, pixels, launches)
+
+
+def bireal_path(launches):
+    """Bi-Real Net-18 on 8-bit pixels, eager and replayed at BATCH
+    (``residual_path``).  Its stem launches are the pooled kernel's: the
+    kernels line counts them as ``stem_conv_pool``, apart from
+    ReActNet-A's 3x3 stem."""
+    from repro_torch.graph.ir import bireal_net18
+    from repro_torch.reference import bireal
+
+    def pixels(batch, gen):
+        return torch.randint(0, 256, (batch, 224, 224, 3),
+                             generator=gen).to(torch.float32)
+    return residual_path("Bi-Real Net-18", bireal_net18(), bireal,
+                         BIREAL_PER_FORWARD, pixels, launches, graphed=True,
+                         stem_key="stem_conv_pool")
 
 
 def dense_path(rnd, launches):
@@ -5174,7 +5366,8 @@ def main():
     rec = []
     rnd = Rand(1234, DEVICE)
     for phase in (check_pack, check_conv, check_fused, check_gemm,
-                  check_xnor, check_entry_conv, check_residual):
+                  check_xnor, check_entry_conv, check_residual,
+                  check_bireal):
         first = len(rec)
         phase(rnd, rec)
         torch.cuda.synchronize()
@@ -5195,6 +5388,7 @@ def main():
                            ALEXNET_PER_FORWARD, 1000, alexnet_vs_cpu,
                            (1, 32), launches, 2)
     reactnet = reactnet_path(launches)
+    bireal = bireal_path(launches)
     graphed = graphed_path(launches)
     served = serving_path(launches)
     stack_race = fused_vs_chained(rnd)
@@ -5233,6 +5427,7 @@ def main():
             for part in ("shapes", "sums") if part in r},
          "mma_sync_tops": peak,
          "binarynet": perf, "alexnet": alexnet, "reactnet": reactnet,
+         "bireal": bireal,
          "binary_dense": dense,
          "graphed": graphed, "served": served,
          "fused_vs_chained_replayed": stack_race, "train": trained,

@@ -115,6 +115,8 @@ _SIGN_SITES = {
     # written from the published equations (it imports nothing of the
     # port, so it spells the pack convention itself)
     "reference/reactnet.py": (ast.Gt,),
+    # the plain Bi-Real Net reference's sign, likewise
+    "reference/bireal.py": (ast.Gt,),
     "core/binarize.py": (ast.Gt, ast.GtE),
     "core/bnn_layers.py": (ast.Gt, ast.GtE),
     "core/threshold.py": (ast.Gt, ast.GtE),

@@ -16,6 +16,7 @@ from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, GlobalAvgPool,
                                   IntegerEntry, Logits, MaxPool, RealConv,
                                   RealDense, ResidualBinaryConv,
+                                  bireal_net18, bireal_small,
                                   from_dense_stack, from_workload,
                                   reactnet_a, reactnet_small,
                                   spec_to_workload)
@@ -25,7 +26,8 @@ from repro_torch.graph.replay import GraphedApply
 __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
            "BNThreshold", "CompiledBNN", "GlobalAvgPool", "GraphedApply",
            "IntegerEntry", "Logits", "MaxPool", "PlanStep", "RealConv",
-           "RealDense", "ResidualBinaryConv", "build_plan", "compile",
+           "RealDense", "ResidualBinaryConv", "bireal_net18",
+           "bireal_small", "build_plan", "compile",
            "compile_dense_stack", "from_dense_stack", "from_workload",
            "reactnet_a", "reactnet_small", "serve_folded_stack",
            "spec_to_workload"]

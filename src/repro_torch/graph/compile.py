@@ -11,10 +11,11 @@ across).
 ``tulip_mapping`` / ``table3_rows`` bridge the spec into the TULIP-PE
 mapping model (``core/mapping.py``), as the reference's do.
 
-The residual family (ReActNet: ``RealConv``, ``ResidualBinaryConv``,
-``GlobalAvgPool``, ``RealDense``) has params in its published form
-(float latent weights, batch-norm statistics, RSign and RPReLU biases,
-PReLU slopes), which :meth:`CompiledBNN.bind` turns once into what the
+The residual family (ReActNet, Bi-Real Net: ``RealConv``,
+``ResidualBinaryConv``, ``GlobalAvgPool``, ``RealDense``) has params in
+its published form (float latent weights, batch-norm statistics, RSign
+and RPReLU biases, PReLU slopes, projection shortcuts' float 1x1
+weights), which :meth:`CompiledBNN.bind` turns once into what the
 kernels read: packed signs, the zero-padding correction and the
 per-channel tables of ``kernels.residual``.  ``init`` draws and binds.
 
@@ -102,7 +103,9 @@ class CompiledBNN:
         lines = [f"  {s}" for s in self.plan]
         if self.spec.residual_nodes:
             lines.append(f"  ({len(self.spec.residual_nodes)} half-steps, "
-                         f"one residual_conv launch each "
+                         f"one residual_conv launch each, after a "
+                         f"shortcut_conv launch where the shortcut is a "
+                         f"projection "
                          f"(packed_conv_kernel_residual_epilogue: the "
                          f"int32 dot stays on chip); the float stream stays "
                          f"float32, the signs between half-steps 1 bit)")
@@ -117,9 +120,10 @@ class CompiledBNN:
     def legacy_launch_count(self) -> int:
         """Launches of a layer-by-layer chain: every fused_stack
         segment unrolls to one launch per layer, and a residual
-        half-step to two (the conv, then the epilogue)."""
+        half-step's conv and epilogue are two (after its projection
+        shortcut's, if any)."""
         return sum(len(s.args["fc_indices"]) if s.kind == "fused_stack"
-                   else 2 if s.kind == "residual_conv"
+                   else len(s.launches) + 1 if s.kind == "residual_conv"
                    else len(s.launches) for s in self.plan)
 
     def tuning_keys_for_batch(self, batch: int) -> Tuple[tuple, ...]:
@@ -245,7 +249,9 @@ class CompiledBNN:
         random inputs, times U[0.5, 2]; mean: U[-0.5, 0.5] of its
         standard deviation); gamma U[0.5, 1.5], beta U[-0.5, 0.5]; the
         RSign and RPReLU biases U[-0.2, 0.2], PReLU slopes U[0.05,
-        0.35]; a head of normals over sqrt(n_in) with a bias U[-0.1,
+        0.35] (half-steps with ``rprelu`` only); a projection shortcut's
+        ``proj`` (``w`` [C_in, C_out] and its batch norm, over unit
+        inputs); a head of normals over sqrt(n_in) with a bias U[-0.1,
         0.1]."""
         gdev = generator.device
 
@@ -274,12 +280,17 @@ class CompiledBNN:
         for nd in self.spec.residual_nodes:
             w = normal(nd.k, nd.k, nd.c_in, nd.c_out)
             alpha = w.abs().mean(dim=(0, 1, 2))
-            out["res"].append({"b_in": uniform(nd.c_in, -0.2, 0.2), "w": w,
-                               **bn(nd.c_out,
-                                    alpha * alpha * nd.k * nd.k * nd.c_in),
-                               "move_a": uniform(nd.c_out, -0.2, 0.2),
-                               "slope": uniform(nd.c_out, 0.05, 0.35),
-                               "move_b": uniform(nd.c_out, -0.2, 0.2)})
+            p = {"b_in": uniform(nd.c_in, -0.2, 0.2)} if nd.rprelu else {}
+            p.update(w=w, **bn(nd.c_out, alpha * alpha * nd.k * nd.k *
+                               nd.c_in))
+            if nd.rprelu:
+                p.update(move_a=uniform(nd.c_out, -0.2, 0.2),
+                         slope=uniform(nd.c_out, 0.05, 0.35),
+                         move_b=uniform(nd.c_out, -0.2, 0.2))
+            if nd.shortcut == "projection":
+                pw = normal(nd.c_in, nd.c_out)
+                p["proj"] = {"w": pw, **bn(nd.c_out, (pw * pw).sum(dim=0))}
+            out["res"].append(p)
         for nd in self.spec.head_nodes:
             out["head"].append({"w": normal(nd.n_out, nd.n_in) /
                                 float(nd.n_in) ** 0.5,
@@ -301,14 +312,21 @@ class CompiledBNN:
           channel axis), ``corr`` (the zero-padding correction; a 1x1
           conv has none) and ``table`` [9, F]
           (``kernels.residual.epilogue_table``: alpha = mean |w| of each
-          output channel, the next half-step's RSign bias);
+          output channel, the next half-step's RSign bias); a half-step
+          without ``rprelu`` (Bi-Real Net) has no RSign or RPReLU
+          params and takes the neutral ones
+          (``kernels.residual.neutral_table``); a projection shortcut's
+          ``proj`` (``w`` [C_in, C_out], BN ``mean``, ``var``,
+          ``gamma``, ``beta``) -> ``proj_w`` and ``proj_table`` [4, F]
+          (``kernels.residual.shortcut_table``);
         * ``head[i]``: ``w`` [N_out, N_in], ``b`` [N_out], as they are.
 
         Other specs' params are returned as they are."""
         res_nodes = self.spec.residual_nodes
         if not res_nodes and not self.spec.stem_nodes:
             return params
-        b_in = [p["b_in"] for p in params["res"]]
+        b_in = [p["b_in"] if nd.rprelu else None
+                for nd, p in zip(res_nodes, params["res"])]
 
         def next_bias(nd):
             """The RSign bias of the half-step after ``nd``, if one is."""
@@ -327,9 +345,20 @@ class CompiledBNN:
             w = p["w"].to(torch.float32)
             wf = PackedArray.pack(w, axis=2)
             alpha = w.abs().mean(dim=(0, 1, 2))
-            q = {"wf": wf, "table": kres.epilogue_table(
-                alpha, p["mean"], p["var"], p["gamma"], p["beta"],
-                p["move_a"], p["slope"], p["move_b"], next_bias(nd))}
+            if nd.rprelu:
+                table = kres.epilogue_table(
+                    alpha, p["mean"], p["var"], p["gamma"], p["beta"],
+                    p["move_a"], p["slope"], p["move_b"], next_bias(nd))
+            else:
+                table = kres.neutral_table(alpha, p["mean"], p["var"],
+                                           p["gamma"], p["beta"],
+                                           next_bias(nd))
+            q = {"wf": wf, "table": table}
+            if nd.shortcut == "projection":
+                pr = p["proj"]
+                q["proj_w"] = pr["w"].to(torch.float32).contiguous()
+                q["proj_table"] = kres.shortcut_table(
+                    pr["mean"], pr["var"], pr["gamma"], pr["beta"])
             if nd.pad:
                 q["corr"] = kres.zero_pad_correction(wf.unpack(torch.float32))
             out["res"].append(q)
@@ -359,16 +388,23 @@ class CompiledBNN:
                 p = params["stem"][a["stem_idx"]]
                 stem = kres.stem_conv_plain if plain else kres.stem_conv
                 h, bits = stem(h, p["w"], p["table"], stride=a["stride"],
-                               pad=a["pad"], write_bits=a["sign_next"])
+                               pad=a["pad"], pool=a["pool"],
+                               write_bits=a["sign_next"])
             elif step.kind == "residual_conv":
                 nd = self.spec.residual_nodes[a["res_idx"]]
                 p = params["res"][a["res_idx"]]
                 signs = PackedArray(bits, length=nd.c_in, axis=-1)
-                kw = dict(shortcut=a["shortcut"], stride=a["stride"],
+                sc, shortcut = h, a["shortcut"]
+                if shortcut == "projection":
+                    proj = kres.shortcut_conv_plain if plain \
+                        else kres.shortcut_conv
+                    sc = proj(h, p["proj_w"], p["proj_table"])
+                    shortcut = "identity"
+                kw = dict(shortcut=shortcut, stride=a["stride"],
                           pad=a["pad"], write_bits=a["sign_next"])
                 conv = kres.residual_conv_plain if plain \
                     else kres.residual_conv
-                h, bits = conv(signs, p["wf"], p.get("corr"), p["table"], h,
+                h, bits = conv(signs, p["wf"], p.get("corr"), p["table"], sc,
                                **kw)
             elif step.kind == "global_pool":
                 h = h.mean(dim=(1, 2))
@@ -473,8 +509,10 @@ class CompiledBNN:
         half-step reads the signs and the packed weights, reads the
         shortcut and writes the stream and the next signs (its int32
         dot stays in the fused kernel's shared memory); the head reads
-        the stream and float weights.  The bf16 baseline keeps every
-        activation in bf16."""
+        the stream and float weights; a projection shortcut reads the
+        stream and its float weights and writes its map, which the
+        half-step reads.  The bf16 baseline keeps every activation in
+        bf16."""
         layers = []
         for nd in self.spec.stem_nodes:
             n_in = batch * nd.h_in * nd.w_in * nd.c_in
@@ -489,6 +527,8 @@ class CompiledBNN:
             n_out = batch * nd.h_out * nd.w_out * nd.c_out
             n_w = nd.k * nd.k * nd.c_in * nd.c_out
             n_sc = n_in if nd.shortcut == "avgpool" else \
+                n_in + nd.c_in * nd.c_out + 2 * n_out \
+                if nd.shortcut == "projection" else \
                 n_out // (2 if nd.shortcut == "duplicate" else 1)
             layers.append({"name": nd.name,
                            "packed_bytes": n_in // 8 + n_w // 8

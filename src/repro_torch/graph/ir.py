@@ -17,13 +17,17 @@ Node set:
   Logits         int32 dot (or a real dense's float) -> float32
                  logits (the classifier output)
 
-and the residual family (ReActNet), whose activations are a float
-stream that each half-step leaves and re-enters the packed domain from:
-  RealConv             real-valued conv + eval batch norm (the stem)
-  ResidualBinaryConv   one residual half-step: learned-threshold sign
-                       (RSign), binary conv (0 padding), batch norm, a
-                       shortcut (identity, 2x2 average or duplicated
-                       channels) and the shifted PReLU (RPReLU)
+and the residual family (ReActNet, Bi-Real Net), whose activations are
+a float stream that each half-step leaves and re-enters the packed
+domain from:
+  RealConv             real-valued conv + eval batch norm (the stem),
+                       optionally followed by a float max pool
+  ResidualBinaryConv   one residual half-step: a sign (ReActNet's has a
+                       learned threshold, RSign), binary conv (0
+                       padding), batch norm, a shortcut (identity, 2x2
+                       average, duplicated channels or a 2x2 average
+                       through a float 1x1 conv and batch norm) and, in
+                       ReActNet, the shifted PReLU (RPReLU)
   GlobalAvgPool        mean over the spatial axes
   RealDense            real-valued dense layer with a bias (the head)
 
@@ -58,6 +62,7 @@ __all__ = ["Binarize", "BinaryConv", "BinaryDense", "BNNSpec",
            "BNThreshold", "GlobalAvgPool", "IntegerEntry", "Logits",
            "MaxPool", "RealConv", "RealDense", "ResidualBinaryConv",
            "fc_entry_size", "from_dense_stack", "from_workload",
+           "bireal_net18", "bireal_small", "bireal_spec",
            "infer_conv_geometry", "infer_pool", "reactnet_a",
            "reactnet_small", "spec_to_workload"]
 
@@ -185,10 +190,23 @@ class Logits:
     classes: int
 
 
+# the max pool after a ResNet-style stem (Bi-Real Net's): window 3,
+# stride 2, a pad of 1 that counts as -inf; the one conv it follows:
+# kernel 7, stride 2, pad 3 (the stems the stem kernels take, see
+# _check_stem)
+STEM_POOL = (3, 2, 1)
+POOLED_STEM = (7, 2, 3)
+
+
 @dataclass(frozen=True)
 class RealConv:
-    """Real-valued 3x3 conv over 3 channels (float weights, zero
-    padding) and its eval batch norm: the stem of a residual network."""
+    """Real-valued square conv over 3 channels (float weights, zero
+    padding; 3x3 in ReActNet, 7x7 in Bi-Real Net) and its eval batch
+    norm: the stem of a residual network.  ``pool`` (the 7x7 stem's
+    alone, :data:`POOLED_STEM`) follows the batch norm with the float
+    max pool :data:`STEM_POOL`.  ``h_out`` x
+    ``w_out`` is the node's output: the pooled map where a pool follows,
+    else the conv's (:meth:`conv_hw`)."""
     name: str
     kh: int
     kw: int
@@ -200,20 +218,31 @@ class RealConv:
     w_out: int
     stride: int = 1
     pad: int = 0
+    pool: bool = False
+
+    def conv_hw(self) -> Tuple[int, int]:
+        """The conv's output extent, before any pool."""
+        return ((self.h_in + 2 * self.pad - self.kh) // self.stride + 1,
+                (self.w_in + 2 * self.pad - self.kw) // self.stride + 1)
 
 
-SHORTCUTS = ("identity", "avgpool", "duplicate")
+SHORTCUTS = ("identity", "avgpool", "duplicate", "projection")
 
 
 @dataclass(frozen=True)
 class ResidualBinaryConv:
-    """One residual half-step (ReActNet): ``a = sign(x + b_in)`` (RSign),
-    ``u = bn(alpha * conv(a, sign(w)))`` with a k x k conv, a zero pad of
-    (k-1)/2 and ``alpha`` the mean |w| of each output channel, then
-    ``out = rprelu(u + shortcut(x))``.  ``shortcut``: "identity" (same
-    width, stride 1), "avgpool" (2x2 average, stride 2, same width) or
+    """One residual half-step.  ReActNet's (``rprelu``): ``a = sign(x +
+    b_in)`` (RSign), ``u = bn(alpha * conv(a, sign(w)))`` with a k x k
+    conv, a zero pad of (k-1)/2 and ``alpha`` the mean |w| of each output
+    channel, then ``out = rprelu(u + shortcut(x))``.  Bi-Real Net's
+    (``rprelu=False``): ``a = sign(x)`` and ``out = u + shortcut(x)``,
+    which is ReActNet's with the neutral parameters b_in = 0, a PReLU
+    slope of 1 and shifts of 0.  ``shortcut``: "identity" (same width,
+    stride 1), "avgpool" (2x2 average, stride 2, same width),
     "duplicate" (channel f of the output takes channel f mod c_in; the
-    conv is the two concatenated convs of a doubling, c_out = 2*c_in)."""
+    conv is the two concatenated convs of a doubling, c_out = 2*c_in,
+    stride 1) or "projection" (a doubling at stride 2: the 2x2 average
+    through a float 1x1 conv c_in -> c_out and its batch norm)."""
     name: str
     k: int
     c_in: int
@@ -225,6 +254,7 @@ class ResidualBinaryConv:
     stride: int = 1
     pad: int = 0
     shortcut: str = "identity"
+    rprelu: bool = True
 
 
 @dataclass(frozen=True)
@@ -383,11 +413,7 @@ class BNNSpec:
                 if domain != "float":
                     raise ValueError(f"{nd.name}: a real conv takes a float "
                                      f"spatial input")
-                if (nd.kh, nd.kw, nd.c_in) != (3, 3, 3):
-                    raise ValueError(f"{nd.name}: a real conv is the stem of "
-                                     f"an image network, 3x3 over 3 channels, "
-                                     f"got {nd.kh}x{nd.kw}x{nd.c_in}")
-                _check_conv_geometry(nd, nd.kh, (c, h, w))
+                _check_stem(nd, (c, h, w))
                 h, w, c = nd.h_out, nd.w_out, nd.c_out
             elif isinstance(nd, ResidualBinaryConv):
                 if not isinstance(prev, (RealConv, ResidualBinaryConv)):
@@ -431,20 +457,49 @@ class BNNSpec:
                 raise ValueError(f"unknown node {nd!r}")
 
 
-def _check_conv_geometry(nd, k: int, incoming: Tuple[int, int, int]
-                         ) -> None:
-    """A conv node's input is the incoming (C, H, W) and its output the
-    extent its stride and pad give."""
+def _check_conv_geometry(nd, k: int, incoming: Tuple[int, int, int],
+                         out: Optional[Tuple[int, int]] = None) -> None:
+    """A conv node's input is the incoming (C, H, W) and its output
+    (``out``, else the node's ``h_out`` x ``w_out``) the extent its
+    stride and pad give."""
     c, h, w = incoming
     if (nd.c_in, nd.h_in, nd.w_in) != (c, h, w):
         raise ValueError(f"{nd.name}: expects {nd.h_in}x{nd.w_in}x"
                          f"{nd.c_in}, incoming is {h}x{w}x{c}")
-    for n_in, n_out, axis in ((nd.h_in, nd.h_out, "H"),
-                              (nd.w_in, nd.w_out, "W")):
+    ho, wo = out if out is not None else (nd.h_out, nd.w_out)
+    for n_in, n_out, axis in ((nd.h_in, ho, "H"), (nd.w_in, wo, "W")):
         if (n_in + 2 * nd.pad - k) // nd.stride + 1 != n_out:
             raise ValueError(f"{nd.name}: {axis} {n_in} -> {n_out} is not a "
                              f"{k}-wide stride-{nd.stride} pad-{nd.pad} "
                              f"conv")
+
+
+def _check_stem(nd: "RealConv", incoming: Tuple[int, int, int]) -> None:
+    """A stem's rules: the two stems the stem kernels take, a 3x3 over 3
+    channels (any stride and pad) with no pool, or the 7x7 stride-2
+    pad-3 conv over 3 channels of :data:`POOLED_STEM` with the max pool
+    :data:`STEM_POOL` after it; the conv's extent, and the pool's."""
+    if nd.kh != nd.kw or nd.kh not in (3, 7) or nd.c_in != 3:
+        raise ValueError(f"{nd.name}: a real conv is the stem of an image "
+                         f"network, a 7x7 or a 3x3 over 3 channels, got "
+                         f"{nd.kh}x{nd.kw}x{nd.c_in}")
+    _check_conv_geometry(nd, nd.kh, incoming,
+                         nd.conv_hw() if nd.pool else None)
+    if nd.pool != (nd.kh == 7) or (
+            nd.pool and (nd.kh, nd.stride, nd.pad) != POOLED_STEM):
+        raise ValueError(f"{nd.name}: a 3x3 stem takes no pool, a 7x7 stem "
+                         f"is stride {POOLED_STEM[1]} pad {POOLED_STEM[2]} "
+                         f"with the max pool {STEM_POOL} after it; got a "
+                         f"{nd.kh}x{nd.kw} stride {nd.stride} pad {nd.pad}"
+                         f"{' with' if nd.pool else ' without'} the pool")
+    if not nd.pool:
+        return
+    window, stride, pad = STEM_POOL
+    for n_in, n_out, axis in zip(nd.conv_hw(), (nd.h_out, nd.w_out), "HW"):
+        want = (n_in + 2 * pad - window) // stride + 1
+        if want != n_out:
+            raise ValueError(f"{nd.name}: the max pool maps {axis} {n_in} to "
+                             f"{want}, not {n_out}")
 
 
 def _check_residual(nd: "ResidualBinaryConv",
@@ -469,14 +524,13 @@ def _check_residual(nd: "ResidualBinaryConv",
         raise ValueError(f"{nd.name}: {nd.c_in} -> {nd.c_out} channels; a "
                          f"half-step keeps its width or doubles it to "
                          f"{2 * nd.c_in}")
-    want = ("duplicate" if nd.c_out == 2 * nd.c_in else
-            "avgpool" if nd.stride == 2 else "identity")
+    doubles = nd.c_out == 2 * nd.c_in
+    want = {(True, 1): "duplicate", (True, 2): "projection",
+            (False, 1): "identity", (False, 2): "avgpool"}[doubles, nd.stride]
     if nd.shortcut != want:
         raise ValueError(f"{nd.name}: {nd.c_in} -> {nd.c_out} at stride "
                          f"{nd.stride} takes the {want!r} shortcut, got "
                          f"{nd.shortcut!r}")
-    if want == "duplicate" and nd.stride != 1:
-        raise ValueError(f"{nd.name}: a doubling half-step runs at stride 1")
 
 
 # ------------------------------------------------------------------ #
@@ -611,11 +665,14 @@ REACTNET_A_WIDTHS = (32, 64, 128, 128, 256, 256, 512, 512, 512, 512, 512,
 def reactnet_spec(name: str, input_hw: int, widths: Sequence[int],
                   classes: int, dataset: str = "") -> BNNSpec:
     """A ReActNet of ``widths`` (the stem's, then each block's output):
-    the stem (3x3 stride-2 real conv + BN), one block per later width
-    (a 3x3 half-step at the block's stride, then a 1x1 half-step, two
-    concatenated 1x1 convs where the width doubles), a global average
-    pool and a real dense head of ``classes``.  A block runs at stride 2
-    where its width changes and is not 64 (the published table)."""
+    the stem (3x3 stride-2 real conv + BN, no pool), one block per later
+    width (a 3x3 half-step at the block's stride with the 2x2 average
+    shortcut where that is 2, then a 1x1 half-step, two concatenated 1x1
+    convs where the width doubles), every half-step with its RSign and
+    RPReLU, a global average pool and a real dense head of ``classes``.
+    A block runs at stride 2 where its width changes and is not 64 (the
+    published table).  Bi-Real Net's 7x7 stem, max pool and projection
+    shortcuts are :func:`bireal_spec`'s."""
     h = (input_hw + 2 - 3) // 2 + 1
     c = widths[0]
     nodes: list = [RealConv("stem", 3, 3, 3, c, input_hw, input_hw, h, h, 2,
@@ -652,3 +709,60 @@ def reactnet_small(input_hw: int = 16, classes: int = 10) -> BNNSpec:
     shortcuts)."""
     return reactnet_spec("reactnet-small", input_hw, (32, 64, 128, 128),
                          classes)
+
+
+# ------------------------------------------------------------------ #
+# the residual family: Bi-Real Net                                     #
+# ------------------------------------------------------------------ #
+# Bi-Real Net-18 (Liu et al., ECCV 2018, arXiv:1808.00278; the public
+# birealnet.py, BiRealNet(BasicBlock, [4, 4, 4, 4])): the stem's width
+# and each stage's, and the half-steps a stage
+BIREAL_18_WIDTHS = (64, 64, 128, 256, 512)
+BIREAL_18_BLOCKS = (4, 4, 4, 4)
+
+
+def bireal_spec(name: str, input_hw: int, widths: Sequence[int],
+                blocks: Sequence[int], classes: int, dataset: str = ""
+                ) -> BNNSpec:
+    """A Bi-Real Net of ``widths`` (the stem's, then each stage's) and
+    ``blocks`` half-steps a stage: the stem (7x7 stride-2 pad-3 real conv
+    + BN, then a 3x3 stride-2 pad-1 max pool), each stage's half-steps
+    (a 3x3 binary conv, BN and the shortcut added, no learned sign
+    threshold and no activation: ``rprelu=False``), the first of a stage
+    whose width doubles at stride 2 with the projection shortcut (2x2
+    average, float 1x1 conv, BN), a global average pool and a real dense
+    head of ``classes``."""
+    conv = (input_hw + 2 * 3 - 7) // 2 + 1
+    h = (conv + 2 - 3) // 2 + 1
+    c = widths[0]
+    nodes: list = [RealConv("conv1", 7, 7, 3, c, input_hw, input_hw, h, h,
+                            2, 3, pool=True)]
+    for i, (p, n) in enumerate(zip(widths[1:], blocks)):
+        for j in range(n):
+            s = 2 if j == 0 and p != c else 1
+            ho = (h - 1) // s + 1
+            nodes.append(ResidualBinaryConv(
+                f"layer{i + 1}.{j}", 3, c, p, h, h, ho, ho, s, 1,
+                "projection" if s == 2 else "identity", rprelu=False))
+            h, c = ho, p
+    nodes += [GlobalAvgPool("avgpool"), RealDense("fc", c, classes),
+              Logits("logits", classes)]
+    spec = BNNSpec(name, (input_hw, input_hw, 3), tuple(nodes),
+                   dataset=dataset)
+    spec.validate()
+    return spec
+
+
+def bireal_net18() -> BNNSpec:
+    """Bi-Real Net-18 at its published widths: 224x224x3 in, 16 binary
+    3x3 half-steps (three with a projection shortcut), 1000 classes."""
+    return bireal_spec("bireal-net-18", 224, BIREAL_18_WIDTHS,
+                       BIREAL_18_BLOCKS, 1000, dataset="imagenet")
+
+
+def bireal_small(input_hw: int = 32, classes: int = 10) -> BNNSpec:
+    """A small spec of the same structure for the CPU: the 7x7 stem and
+    its pool to 32 channels at input_hw / 4, one identity half-step,
+    one projection half-step to 64 channels."""
+    return bireal_spec("bireal-small", input_hw, (32, 32, 64), (1, 1),
+                       classes)

@@ -14,20 +14,24 @@ lowering pipeline over a validated spec and returns a tuple of
   (4) conv impl selection — kernels.ops.plan_conv_launch, shared with
       dispatch.
 
-  (4b) the residual family — a RealConv becomes one ``stem_conv``
-      launch and each ResidualBinaryConv a ``residual_conv`` step: one
-      launch of ``packed_conv``'s fused kernel, the -1 padded dot of the
-      conv's mainloop kept in shared memory and the residual epilogue
-      on it, which writes the float stream and the packed signs of the
-      next half-step's RSign (``sign_next``), so no int32 dot reaches
-      device memory and no pack runs between half-steps;
+  (4b) the residual family — a RealConv (and the max pool a Bi-Real
+      stem takes, ``args["pool"]``: ``ir.STEM_POOL`` or None) becomes
+      one ``stem_conv`` launch and each ResidualBinaryConv a
+      ``residual_conv`` step: one launch of
+      ``packed_conv``'s fused kernel, the -1 padded dot of the conv's
+      mainloop kept in shared memory and the residual epilogue on it,
+      which writes the float stream and the packed signs of the next
+      half-step's sign (``sign_next``), so no int32 dot reaches device
+      memory and no pack runs between half-steps; a projection shortcut
+      is one ``shortcut_conv`` launch before it, whose map the fused
+      kernel reads as an identity shortcut;
 
   (5) tuning keys — every planned kernel launch whose plan is looked
       up in the tuning table (``kernels.autotune``) records its key:
       ``plan_dense_launch`` / ``plan_conv_launch`` give the GEMM and
       conv keys, a fused stack keys as ``("fused_binary_mlp", "cuda",
-      m, k0, ns)``; the stem and the half-steps take their rule alone
-      and record none;
+      m, k0, ns)``; the stem, the half-steps and the projection
+      shortcuts take their rule alone and record none;
 
   (6) entry epilogues (:func:`entry_epilogues`, run last, and again by
       ``CompiledBNN.split`` over each half) — an integer conv followed
@@ -55,13 +59,14 @@ from typing import Optional, Sequence, Tuple
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, GlobalAvgPool,
                                   IntegerEntry, Logits, MaxPool, RealConv,
-                                  RealDense, ResidualBinaryConv)
+                                  RealDense, ResidualBinaryConv, STEM_POOL)
 from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels.fused_mlp import stack_plan
 from repro_torch.kernels.ops import plan_conv_launch, plan_dense_launch
 from repro_torch.kernels.packed import get_backend
 from repro_torch.kernels.packed_conv import smem_bytes as conv_smem_bytes
-from repro_torch.kernels.residual import residual_tile_plan
+from repro_torch.kernels.residual import (STEM_POOL_COLS,
+                                          residual_tile_plan)
 
 __all__ = ["PlanStep", "batches_tuning_keys", "build_plan",
            "entry_epilogues", "fused_key", "plan_tuning_keys"]
@@ -304,14 +309,22 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
         elif isinstance(nd, RealConv):
             sign_next = i + 1 < len(nodes) and \
                 isinstance(nodes[i + 1], ResidualBinaryConv)
+            pool = STEM_POOL if nd.pool else None
+            if pool and get_backend(backend).uses_kernels and \
+                    nd.conv_hw()[1] > STEM_POOL_COLS:
+                raise ValueError(f"{nd.name}: the pooled stem kernel takes "
+                                 f"conv rows of at most {STEM_POOL_COLS} "
+                                 f"columns, got {nd.conv_hw()[1]}")
             steps.append(PlanStep(
                 "real_conv", nd.name,
                 {"stem_idx": stem_i, "stride": nd.stride, "pad": nd.pad,
-                 "sign_next": sign_next},
+                 "pool": pool, "sign_next": sign_next},
                 f"float32 conv {nd.c_in}->{nd.c_out} k{nd.kh} s{nd.stride} "
-                f"p{nd.pad} (zero pad, taps summed in a fixed order) + BN "
-                f"on the stem_conv kernel"
-                + ("; writes the next RSign's packed signs" if sign_next
+                f"p{nd.pad} (zero pad, taps summed in a fixed order) + BN"
+                + (" + max pool {0}x{0}/s{1} p{2} (-inf pad)".format(*pool)
+                   if pool else "")
+                + " on the stem_conv kernel"
+                + ("; writes the next half-step's packed signs" if sign_next
                    else ""), launches=("stem_conv",)))
             stem_i += 1
             h, w = nd.h_out, nd.w_out
@@ -322,6 +335,10 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                                        nd.c_out, k32)
             sign_next = i + 1 < len(nodes) and \
                 isinstance(nodes[i + 1], ResidualBinaryConv)
+            proj = nd.shortcut == "projection"
+            sc = ("projection shortcut (2x2 average, float 1x1 conv, BN) on "
+                  "the shortcut_conv kernel, then read as identity"
+                  if proj else f"{nd.shortcut} shortcut")
             steps.append(PlanStep(
                 "residual_conv", nd.name,
                 {"res_idx": res_i, "k": nd.k, "stride": nd.stride,
@@ -333,10 +350,12 @@ def build_plan(spec: BNNSpec, backend: Optional[str] = None,
                 f"p{nd.pad} (b1 tensor-core implicit GEMM, tile "
                 f"{tiles['bm']}x{tiles['bn']}) with the residual epilogue "
                 f"on its tile, one residual_conv launch: "
-                f"{'zero-pad correction, ' if nd.pad else ''}BN, "
-                f"{nd.shortcut} shortcut, RPReLU"
-                + (", the next RSign's packed signs" if sign_next else ""),
-                launches=("residual_conv",)))
+                f"{'zero-pad correction, ' if nd.pad else ''}BN, {sc}"
+                + (", RPReLU" if nd.rprelu else ", no activation")
+                + (", the next half-step's packed signs" if sign_next
+                   else ""),
+                launches=("shortcut_conv", "residual_conv") if proj
+                else ("residual_conv",)))
             res_i += 1
             h, w = nd.h_out, nd.w_out
         elif isinstance(nd, GlobalAvgPool):

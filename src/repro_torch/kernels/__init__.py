@@ -16,11 +16,13 @@ plain torch versions.
   entry_conv.py     the float entry conv (float32 FMAs) with its signs,
                     alpha taken in, packed in the epilogue
                     (csrc/entry_conv.cu); ``sign_weight_conv``
-  residual.py       ReActNet: a residual half-step in one launch, the
-                    binary conv with its epilogue (zero-pad correction,
-                    BN, shortcut, RPReLU, the next sign's bits) on the
-                    tile (csrc/packed_conv.cu), and the real stem conv
-                    with its BN and signs (csrc/stem_conv.cu)
+  residual.py       ReActNet and Bi-Real Net: a residual half-step in
+                    one launch, the binary conv with its epilogue
+                    (zero-pad correction, BN, shortcut, RPReLU, the
+                    next sign's bits) on the tile (csrc/packed_conv.cu),
+                    the real stem conv with its BN, max pool and signs
+                    (csrc/stem_conv.cu), and the projection shortcut
+                    (csrc/shortcut_conv.cu)
   ops.py            public wrappers, dispatch through the registry
   _build.py         nvcc build, ctypes binding and launch counts
   csrc/binary.cuh   device helpers: threshold modes, ballot pack

@@ -40,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("pack", "popcount_gemm", "packed_conv", "fused_mlp", "xnor_gemm",
-           "entry_conv", "stem_conv")
+           "entry_conv", "stem_conv", "shortcut_conv")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: Dict[str, str] = {}
@@ -195,13 +195,24 @@ ENTRY_CONV = Kernel("entry_conv", "entry_conv", "entry_conv_launch",
 
 STEM_CONV = Kernel("stem_conv", "stem_conv", "stem_conv_launch",
                    [P, P, P, P, P] + [I] * 15)
+# Bi-Real Net's 7x7 stem with its max pool: another entry point of the
+# same library, counted as the stem
+STEM_CONV_POOL = Kernel("stem_conv", "stem_conv", "stem_conv_pool_launch",
+                        [P, P, P, P, P] + [I] * 6)
+SHORTCUT_CONV = Kernel("shortcut_conv", "shortcut_conv",
+                       "shortcut_conv_launch", [P, P, P, P] + [I] * 5)
 
 KERNELS = (PACK, PACKED_CONV, FUSED_MLP, POPCOUNT_GEMM, XNOR_GEMM,
-           ENTRY_CONV, STEM_CONV, RESIDUAL_CONV)
+           ENTRY_CONV, STEM_CONV, STEM_CONV_POOL, RESIDUAL_CONV,
+           SHORTCUT_CONV)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in KERNELS}
+    """Kernel name -> launches; entry points of one name add up."""
+    out: Dict[str, int] = {}
+    for k in KERNELS:
+        out[k.name] = out.get(k.name, 0) + k.launches
+    return out
 
 
 def reset_launch_counts() -> None:
@@ -227,7 +238,9 @@ def recording():
 def add_launches(counts: Dict[str, int]) -> None:
     """Add ``counts`` (kernel name -> launches) to the launch counts: a
     CUDA graph's replay adds the launches its capture recorded."""
-    by_name = {k.name: k for k in KERNELS}
+    by_name: Dict[str, Kernel] = {}
+    for k in KERNELS:
+        by_name.setdefault(k.name, k)
     with _count_lock:
         for name, n in counts.items():
             by_name[name].launches += n

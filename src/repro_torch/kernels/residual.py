@@ -1,6 +1,7 @@
-"""The float side of a residual binary network (ReActNet): a residual
-half-step and the real-valued stem, each one launch that writes the
-float stream and the packed signs of the next learned-threshold sign.
+"""The float side of a residual binary network (ReActNet, Bi-Real
+Net): a residual half-step and the real-valued stem, each one launch
+that writes the float stream and the packed signs of the next sign, and
+Bi-Real Net's projection shortcut.
 
 A half-step ``out = rprelu(bn(alpha * conv0(sign(x + b_in), sign(w)))
 + shortcut(x))`` runs as one launch, :func:`residual_conv`:
@@ -9,8 +10,14 @@ cores) with the residual epilogue on the block's own tile, which adds
 the zero-padding correction (:func:`zero_pad_correction`) and does the
 rest, so that the int32 dot never reaches device memory.  Its plain
 version, :func:`residual_conv_plain`, is ``packed_conv2d_plain``'s -1
-padded dot, then :func:`residual_epilogue_plain`.  The stem is
-:func:`stem_conv` (``csrc/stem_conv.cu``).  Every float operation is
+padded dot, then :func:`residual_epilogue_plain`.  A Bi-Real half-step
+is the same launch with the neutral parameters (RSign bias 0, PReLU
+slope 1, shifts 0), exact: ``x + 0``, ``x * 1`` and ``x + 0`` give
+``x`` up to the sign of a zero, which no sign reads.  The stem is
+:func:`stem_conv` (``csrc/stem_conv.cu``: ReActNet's 3x3, or Bi-Real
+Net's 7x7 with its max pool), the projection shortcut
+:func:`shortcut_conv` (``csrc/shortcut_conv.cu``), whose map the
+half-step then reads as an identity shortcut.  Every float operation is
 rounded on its own and in the order the docstring of
 :func:`residual_epilogue_plain` spells (``csrc/residual.cuh``), so the
 kernels, their plain versions and the plain reference
@@ -30,9 +37,11 @@ from repro_torch.kernels.packed import WORD, PackedArray
 from repro_torch.kernels.ref import pack_ref
 
 __all__ = ["BN_EPS", "RESIDUAL_TILES", "SHORTCUTS", "border_classes",
-           "epilogue_table", "residual_conv", "residual_conv_plain",
-           "residual_epilogue_plain", "residual_tile_plan", "stem_conv",
-           "stem_conv_plain", "stem_plan", "stem_smem", "stem_table",
+           "epilogue_table", "neutral_table", "residual_conv",
+           "residual_conv_plain", "residual_epilogue_plain",
+           "residual_tile_plan", "shortcut_conv", "shortcut_conv_plain",
+           "shortcut_table", "stem_conv", "stem_conv_plain", "stem_plan",
+           "stem_pool_plan", "stem_pool_smem", "stem_smem", "stem_table",
            "zero_pad_correction"]
 
 BN_EPS = 1e-5                          # torch's BatchNorm2d default
@@ -45,6 +54,12 @@ RESIDUAL_TILES = ((64, 128), (64, 64))
 STEM_THREADS, STEM_BLOCKS, STEM_PIX, STEM_CH = 128, 2, 4, 4
 STEM_PASSES = 8            # most passes of a block's threads over a tile
 STEM_COLS = 128            # most output columns a tile
+# the pooled stem kernel (csrc/stem_conv.cu, stem_conv_pool_kernel),
+# which takes the one conv and pool of graph.ir.POOLED_STEM and
+# graph.ir.STEM_POOL: its blocks an SM; the widest conv row (16 lanes x
+# 7 columns)
+STEM_POOL_BLOCKS = 2
+STEM_POOL_COLS = 112
 
 
 def residual_tile_plan(m: int, f: int, k32: int,
@@ -77,6 +92,22 @@ def epilogue_table(alpha, mean, var, gamma, beta, move_a, slope, move_b,
         b_next = torch.zeros_like(mean)
     rows = (alpha, mean, _inv_std(var), gamma, beta, move_a, slope, move_b,
             b_next)
+    return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
+
+
+def neutral_table(alpha, mean, var, gamma, beta,
+                  b_next: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`epilogue_table` of a half-step without RPReLU (Bi-Real
+    Net): shifts 0 and a PReLU slope of 1."""
+    zero = torch.zeros_like(mean)
+    return epilogue_table(alpha, mean, var, gamma, beta, zero,
+                          torch.ones_like(mean), zero, b_next)
+
+
+def shortcut_table(mean, var, gamma, beta) -> torch.Tensor:
+    """The per-channel table [4, F] float32 of :func:`shortcut_conv`: BN
+    mean, 1/sqrt(var + eps), gamma, beta."""
+    rows = (mean, _inv_std(var), gamma, beta)
     return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
 
 
@@ -326,13 +357,34 @@ def _launch_residual_conv(xw: torch.Tensor, ww: torch.Tensor,
     return out, bits
 
 
+def _max_pool_plain(v: torch.Tensor, window: int, stride: int,
+                    pad: int) -> torch.Tensor:
+    """The max over each ``window`` x ``window`` window of NHWC ``v``
+    (stride ``stride``, a pad of ``pad`` that counts as -inf)."""
+    n, h, w, f = v.shape
+    ho = (h + 2 * pad - window) // stride + 1
+    wo = (w + 2 * pad - window) // stride + 1
+    vp = torch.nn.functional.pad(v, (0, 0, pad, pad, pad, pad),
+                                 value=float("-inf"))
+    out = None
+    for i in range(window):
+        for j in range(window):
+            win = vp[:, i:i + (ho - 1) * stride + 1:stride,
+                     j:j + (wo - 1) * stride + 1:stride]
+            out = win if out is None else torch.maximum(out, win)
+    return out
+
+
 def stem_conv_plain(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
-                    *, stride: int, pad: int, write_bits: bool = True
+                    *, stride: int, pad: int,
+                    pool: Optional[Tuple[int, int, int]] = None,
+                    write_bits: bool = True
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The plain version, in the kernel's order: ``acc = 0``, then ``acc
+    """The plain version, in the kernels' order: ``acc = 0``, then ``acc
     = acc + x_tap * w_tap`` over the taps (kh, kw, c) of a zero-padded
-    window; ``v = ((acc - mean) * inv) * gamma + beta``; bits ``v +
-    b_next > 0``."""
+    window; ``v = ((acc - mean) * inv) * gamma + beta``; with ``pool``
+    (window, stride, pad) the max over each window of ``v``, its pad
+    -inf; bits ``v + b_next > 0``."""
     n, h, wi, c = x.shape
     kh, kw, _, f = w.shape
     ho = (h + 2 * pad - kh) // stride + 1
@@ -349,10 +401,12 @@ def stem_conv_plain(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor,
     mean, inv, gamma, beta, b_next = table
     v = (acc - mean) * inv
     v = v * gamma + beta
+    if pool is not None:
+        v = _max_pool_plain(v, *pool)
     if not write_bits:
         return v, None
     words = pack_ref((v + b_next).reshape(-1, f))
-    return v, words.reshape(n, ho, wo, f // 32)
+    return v, words.reshape(*v.shape[:3], f // 32)
 
 
 def stem_smem(rows: int, cols: int, stride: int) -> int:
@@ -402,24 +456,90 @@ def stem_plan(n: int, h: int, w: int, f: int, stride: int, pad: int,
     return best[1]
 
 
-def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
-              stride: int, pad: int, write_bits: bool = True
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x float32 NHWC [N, H, W, 3], w float32 [3, 3, 3, F] (real
-    weights), table float32 [5, F] (:func:`stem_table`).  Returns the
-    batch-normed float32 map [N, HO, WO, F] and, with ``write_bits``,
-    the next RSign's int32 words [N, HO, WO, F/32].  A CPU tensor takes
-    the plain version, a CUDA tensor launches the kernel on the tiles of
-    :func:`stem_plan`."""
+def stem_pool_smem(wo: int, slab: int) -> int:
+    """Shared-memory bytes of a block of the pooled stem kernel: a ring of
+    16 staged input rows, each two parity arrays of ``3 * (wo + 3)``
+    floats padded to 4 mod 8, and two rows of ``wo`` conv pixels x
+    ``slab`` channels (the pair's last row and the rows' max)."""
+    ap = 3 * (wo + 3)
+    ap += (4 - ap % 8) % 8
+    return 4 * (16 * 2 * ap + 2 * slab * wo)
+
+
+@functools.lru_cache(maxsize=256)
+def stem_pool_plan(n: int, h: int, w: int, f: int,
+                   sms: int = kconv.H100_SMS) -> dict:
+    """The pooled stem kernel's launch plan for x [n, h, w, 3] and F
+    filters (the conv and pool of ``graph.ir.POOLED_STEM`` and
+    ``STEM_POOL``).  ``slab``: channels a block owns (64 where F allows,
+    else 32; a warp 8); ``band``: pooled rows a block walks, the one
+    whose waves of tiles over STEM_POOL_BLOCKS blocks an SM cost the
+    fewest steps, a tile counted as its band plus the pair a band below
+    the top sums first (ties: the taller band); ``bands``, ``tiles``,
+    ``threads`` and ``smem`` (bytes) follow, and the extents ``ho``,
+    ``wo`` (the conv's), ``ph``, ``pw`` (the pool's)."""
+    from repro_torch.graph.ir import POOLED_STEM, STEM_POOL
+    (k, stride, pad), (pk, ps, pp) = POOLED_STEM, STEM_POOL
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    ph = (ho + 2 * pp - pk) // ps + 1
+    pw = (wo + 2 * pp - pk) // ps + 1
+    slab = 64 if f % 64 == 0 else 32
+    blocks = STEM_POOL_BLOCKS * sms
+    best = None
+    for band in range(1, ph + 1):
+        bands = -(-ph // band)
+        tiles = n * bands * (f // slab)
+        cost = -(-tiles // blocks) * (band + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, dict(ho=ho, wo=wo, ph=ph, pw=pw, slab=slab,
+                               band=band, bands=bands, tiles=tiles,
+                               threads=4 * slab,
+                               smem=stem_pool_smem(wo, slab)))
+    return best[1]
+
+
+def _check_stem(x, w, table, stride, pad, pool):
+    from repro_torch.graph.ir import POOLED_STEM, STEM_POOL
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"stem_conv takes x [N, H, W, C] and w [KH, KW, C, "
                          f"F], got {tuple(x.shape)} and {tuple(w.shape)}")
     kh, kw, c, f = w.shape
-    if (kh, kw, c) != (3, 3, 3) or f % 32 or tuple(table.shape) != (5, f):
-        raise ValueError(f"stem_conv takes w [3, 3, 3, F] with F % 32 == 0 "
-                         f"and a table [5, F], got w {tuple(w.shape)}, table "
-                         f"{tuple(table.shape)}")
-    args = dict(stride=stride, pad=pad, write_bits=write_bits)
+    if kh != kw or c != 3 or f % 32 or tuple(table.shape) != (5, f):
+        raise ValueError(f"stem_conv takes w [K, K, 3, F] (K x K square) "
+                         f"with F % 32 == 0 and a table [5, F], got w "
+                         f"{tuple(w.shape)}, table {tuple(table.shape)}")
+    if pool is None:
+        if kh != 3:
+            raise ValueError(f"stem_conv takes w [3, 3, 3, F] without a "
+                             f"pool (ReActNet's stem), got w "
+                             f"{tuple(w.shape)}")
+    elif ((kh, stride, pad), tuple(pool)) != (POOLED_STEM, STEM_POOL):
+        raise ValueError(f"stem_conv takes w [7, 7, 3, F] at stride 2 pad 3 "
+                         f"with a pool (3, 2, 1) (Bi-Real Net's stem), got w "
+                         f"{tuple(w.shape)} stride {stride} pad {pad}, pool "
+                         f"{tuple(pool)}")
+
+
+def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
+              stride: int, pad: int,
+              pool: Optional[Tuple[int, int, int]] = None,
+              write_bits: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x float32 NHWC [N, H, W, 3], w float32 [K, K, 3, F] (real
+    weights), table float32 [5, F] (:func:`stem_table`): ReActNet's 3x3
+    stem without a pool, or Bi-Real Net's 7x7 stride-2 pad-3 stem with
+    ``pool`` = (3, 2, 1), the 3x3 stride-2 max pool after its batch
+    norm (``graph.ir.STEM_POOL``).  Returns the batch-normed (and pooled)
+    float32 map [N, HO, WO, F] and, with ``write_bits``, the next sign's
+    int32 words [N, HO, WO, F/32].  A CPU tensor takes the plain version,
+    a CUDA tensor launches the kernel: ``stem_conv_bn_sign_kernel`` on the
+    tiles of :func:`stem_plan`, or ``stem_conv_pool_kernel`` on the bands
+    of :func:`stem_pool_plan` (conv rows at most STEM_POOL_COLS wide);
+    launch count ``"stem_conv"``."""
+    _check_stem(x, w, table, stride, pad, pool)
+    kh, kw, c, f = w.shape
+    args = dict(stride=stride, pad=pad, pool=pool, write_bits=write_bits)
     if x.device.type == "cpu":
         return stem_conv_plain(x, w, table, **args)
     _build.require_cuda_tensor(x, "stem_conv")
@@ -429,6 +549,9 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
     if x.numel() >= 2 ** 31 or n * ho * wo * f >= 2 ** 31:
         raise ValueError("stem_conv's kernel takes fewer than 2^31 "
                          "elements")
+    if pool is not None and wo > STEM_POOL_COLS:
+        raise ValueError(f"stem_conv's pooled kernel takes conv rows of at "
+                         f"most {STEM_POOL_COLS} columns, got {wo}")
     x = x.to(torch.float32).contiguous()
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
     table = table.to(device=x.device, dtype=torch.float32).contiguous()
@@ -436,15 +559,85 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor, *,
         w = w.clone()                      # 16-byte loads of 4 channels
     if table.data_ptr() % 16:
         table = table.clone()
+    sms = _build.device_sms(x.device)
+    if pool is not None:
+        p = stem_pool_plan(n, h, wi, f, sms)
+        ho, wo = p["ph"], p["pw"]
     out = torch.empty((n, ho, wo, f), dtype=torch.float32, device=x.device)
     bits = torch.empty((n, ho, wo, f // 32), dtype=WORD,
                        device=x.device) if write_bits else None
     if n * ho * wo == 0:
         return out, bits
-    sms = _build.device_sms(x.device)
+    if pool is not None:
+        _build.STEM_CONV_POOL.launch(
+            x.device, _build.ptr(x), _build.ptr(w), _build.ptr(table),
+            _build.ptr(out), _build.ptr(bits), n, h, wi, f, p["slab"],
+            p["band"])
+        return out, bits
     p = stem_plan(n, h, wi, f, stride, pad, sms)
     _build.STEM_CONV.launch(
         x.device, _build.ptr(x), _build.ptr(w), _build.ptr(table),
         _build.ptr(out), _build.ptr(bits), n, h, wi, c, f, kh, kw, stride,
         pad, ho, wo, p["rows"], p["cols"], p["slab"], sms)
     return out, bits
+
+
+def shortcut_conv_plain(x: torch.Tensor, w: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """The plain version, in the kernel's order: ``a = (((x00 + x01) +
+    x10) + x11) * 0.25`` over each 2x2 window; ``acc = 0``, then ``acc =
+    acc + a_c * w_c`` over the channels c in order; ``((acc - mean) *
+    inv) * gamma + beta``."""
+    a = _shortcut_plain(x.to(torch.float32), "avgpool", w.shape[1])
+    acc = torch.zeros(*a.shape[:3], w.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for ch in range(w.shape[0]):
+        acc = acc + a[..., ch:ch + 1] * w[ch]
+    mean, inv, gamma, beta = table
+    v = (acc - mean) * inv
+    return v * gamma + beta
+
+
+def shortcut_conv(x: torch.Tensor, w: torch.Tensor, table: torch.Tensor
+                  ) -> torch.Tensor:
+    """The projection shortcut of a half-step that doubles its width at
+    stride 2 (Bi-Real Net): the 2x2 average of the float32 stream x [N,
+    H, W, C] (H, W even), a float 1x1 conv by w [C, F] and its batch norm
+    (table [4, F], :func:`shortcut_table`); returns float32 [N, H/2, W/2,
+    F].  A CPU tensor takes the plain version, a CUDA tensor launches
+    ``shortcut_conv_kernel`` (C % 16 == 0, F % 64 == 0); launch count
+    ``"shortcut_conv"``."""
+    if x.ndim != 4 or w.ndim != 2 or x.shape[3] != w.shape[0]:
+        raise ValueError(f"shortcut_conv takes x [N, H, W, C] and w [C, F], "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    n, h, wi, c = x.shape
+    f = w.shape[1]
+    if h % 2 or wi % 2 or tuple(table.shape) != (4, f):
+        raise ValueError(f"shortcut_conv takes an even map and a table [4, "
+                         f"{f}], got {h}x{wi} and {tuple(table.shape)}")
+    if x.device.type == "cpu":
+        return shortcut_conv_plain(x, w, table)
+    _build.require_cuda_tensor(x, "shortcut_conv")
+    if c % 16 or f % 64:
+        raise ValueError(f"shortcut_conv's kernel takes C % 16 == 0 and F % "
+                         f"64 == 0, got C={c}, F={f}")
+    if x.numel() >= 2 ** 31 or n * (h // 2) * (wi // 2) * f >= 2 ** 31:
+        raise ValueError("shortcut_conv's kernel takes fewer than 2^31 "
+                         "elements")
+    x = x.to(torch.float32).contiguous()
+    w = w.to(device=x.device, dtype=torch.float32).contiguous()
+    table = table.to(device=x.device, dtype=torch.float32).contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()
+    if table.data_ptr() % 16:
+        table = table.clone()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty((n, h // 2, wi // 2, f), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.SHORTCUT_CONV.launch(
+        x.device, _build.ptr(x), _build.ptr(w), _build.ptr(table),
+        _build.ptr(out), n, h, wi, c, f)
+    return out

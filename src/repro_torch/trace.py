@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.trace [--model binarynet alexnet]
         [--batches 1 32 256] [--graphed]
 
-Runs full-width BinaryNet CIFAR-10, XNOR-AlexNet or ReActNet-A (random
+Runs full-width BinaryNet CIFAR-10, XNOR-AlexNet, ReActNet-A or Bi-Real
+Net-18 (random
 weights from
 a seeded generator, integer images) through ``graph.compile(...).apply``
 — or, with ``--graphed``, through its CUDA graph
@@ -38,13 +39,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import graph
 from repro_torch.core.workloads import WORKLOADS, Workload
-from repro_torch.graph.ir import BNNSpec, reactnet_a
+from repro_torch.graph.ir import BNNSpec, bireal_net18, reactnet_a
 from repro_torch.graph.replay import GraphedApply
 from repro_torch.serving.spans import (ADMIT, AHEAD_WAIT, COMPLETER, CONCAT,
                                        DISPATCHER, LAUNCH, RECOVER, RESOLVE,
                                        SYNC, Span)
 
-# kernel-name fragment -> group: the port's eight kernels by symbol (the
+# kernel-name fragment -> group: the port's nine kernels by symbol (the
 # fused residual half-step before the conv whose name its own holds), then
 # the float entry convs left to cuDNN (the kernels cuDNN chose, with its
 # layout transposes and FFT stages) and torch's own kernels (elementwise,
@@ -59,10 +60,11 @@ GROUPS = (("pack_kernel", "pack"),
           ("xnor_gemm_kernel", "xnor_gemm"),
           ("entry_convolve_bits_kernel", "entry_conv"),
           ("stem_conv_", "stem_conv"),
+          ("shortcut_conv_kernel", "shortcut_conv"),
           ("convolve_", CUDNN), ("cudnn", CUDNN), ("fft2d_", CUDNN),
           ("xmma_", CUDNN), ("flip_filter", CUDNN),
           ("at::native::", TORCH))
-PORT_GROUPS = GROUPS[:8]          # the port's own kernels
+PORT_GROUPS = GROUPS[:9]          # the port's own kernels
 
 
 def _device_us(e) -> float:
@@ -224,8 +226,9 @@ def label_gaps(gaps: Iterable[Tuple[int, int]], spans: Sequence[Span],
     return out
 
 
-# the models ``--model`` takes: the paper's workloads and ReActNet-A
-MODELS = {**WORKLOADS, "reactnet": reactnet_a()}
+# the models ``--model`` takes: the paper's workloads, ReActNet-A and
+# Bi-Real Net-18
+MODELS = {**WORKLOADS, "reactnet": reactnet_a(), "bireal": bireal_net18()}
 
 
 def trace_forward(workload: Union[Workload, BNNSpec], batch: int,

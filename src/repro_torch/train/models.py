@@ -52,7 +52,7 @@ from repro_torch.core.binarize import ste_sign
 from repro_torch.core.bnn_layers import sign_weight_conv
 from repro_torch.graph.ir import (Binarize, BinaryConv, BinaryDense,
                                   BNNSpec, BNThreshold, IntegerEntry,
-                                  Logits, MaxPool)
+                                  Logits, MaxPool, RESIDUAL_NODES)
 from repro_torch.kernels import entry_conv as kentry
 from repro_torch.kernels.packed import resolve_device, unpack_words
 from repro_torch.kernels.ref import full_fp32
@@ -202,7 +202,14 @@ def train_forward(spec: BNNSpec, params: Dict[str, Any],
     ``binarize=False`` is the float32-latent diagnostic twin: the same
     graph, but weights stay latent floats and activations pass through
     a tanh instead of the sign — the accuracy ceiling the binarized net
-    is measured against."""
+    is measured against.  The residual family (ReActNet, Bi-Real Net)
+    is served, not trained here: its nodes are refused."""
+    for nd in spec.nodes:
+        if isinstance(nd, RESIDUAL_NODES):
+            raise ValueError(
+                f"{spec.name}: {nd.name} ({type(nd).__name__}) is a node of "
+                f"the residual family, which train_forward does not train "
+                f"(it walks IntegerEntry, BinaryConv and BinaryDense chains)")
     conv_i = fc_i = 0
     new_bn = {"conv": list(bn_state["conv"]), "fc": list(bn_state["fc"])}
 

@@ -413,7 +413,8 @@ def test_binarynet_launch_counts_and_logits(cuda):
                                       "fused_binary_mlp": 1,
                                       "popcount_gemm": 1, "xnor_gemm": 0,
                                       "entry_conv": 1,
-                                      "stem_conv": 0, "residual_conv": 0}
+                                      "stem_conv": 0, "residual_conv": 0,
+                                      "shortcut_conv": 0}
     ref = graph.compile(binarynet_cifar10(), backend="torch").apply(params, x)
     assert torch.equal(logits, ref)
 
@@ -434,7 +435,8 @@ def test_alexnet_launch_counts_and_logits(cuda):
                                       "fused_binary_mlp": 1,
                                       "popcount_gemm": 1, "xnor_gemm": 0,
                                       "entry_conv": 0,
-                                      "stem_conv": 0, "residual_conv": 0}
+                                      "stem_conv": 0, "residual_conv": 0,
+                                      "shortcut_conv": 0}
     ref = graph.compile(alexnet_imagenet(), backend="torch").apply(params, x)
     assert logits.shape == (2, 1000) and torch.equal(logits, ref)
 
